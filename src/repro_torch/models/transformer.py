@@ -1,0 +1,344 @@
+"""Unified LM-family model: parameters, caches, prefill and decode.
+
+Port of :mod:`repro.models.transformer`.  Parameters and caches are plain
+dicts of tensors keyed like the reference's pytrees, per-layer leaves
+stacked along a leading ``L`` axis; where the reference scans over layers,
+the port runs a Python loop over the slices.  Cache shapes are ported for
+every family (admission charges them); the blocks themselves are ported
+for the attention families (dense, vlm, audio).  The SSM, hybrid and MoE
+blocks raise ``NotImplementedError`` until their slices land.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+
+PyTree = Any
+
+# ROADMAP items that port the families this module does not run yet.
+_UNPORTED = {
+    "ssm": "ROADMAP A9 (mamba2-780m: ssm_prefill/ssm_decode via ssd_scan)",
+    "hybrid": "ROADMAP A12 (hymba-1.5b: fused attention + SSM block)",
+    "moe": "ROADMAP A12 (olmoe / llama4-scout: moe_ffn)",
+}
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    kind = ("hybrid" if cfg.family == "hybrid" else "ssm" if cfg.uses_ssm
+            else "moe" if cfg.is_moe else None)
+    if kind is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the {kind} block is not ported yet; see "
+            f"{_UNPORTED[kind]}")
+
+
+# ---------------------------------------------------------------------------
+# Initialization
+# ---------------------------------------------------------------------------
+def _layer_param_template(cfg: ModelConfig
+                          ) -> Dict[str, Tuple[Tuple[int, ...], str]]:
+    """name -> (shape, init kind). Shapes are per-layer (no L dim)."""
+    D, F = cfg.d_model, cfg.d_ff
+    hd = cfg.resolved_head_dim
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    t: Dict[str, Tuple[Tuple[int, ...], str]] = {}
+    hybrid = cfg.family == "hybrid"
+    if cfg.uses_attention:
+        t["ln1"] = ((D,), "zeros")
+        t["wq"] = ((D, H * hd), "dense")
+        t["wk"] = ((D, KV * hd), "dense")
+        t["wv"] = ((D, KV * hd), "dense")
+        t["wo"] = ((H * hd, D), "dense")
+        if cfg.post_norm:
+            t["post_ln1"] = ((D,), "zeros")
+        if cfg.qk_norm:
+            t["q_norm"] = ((hd,), "zeros")
+            t["k_norm"] = ((hd,), "zeros")
+    if cfg.uses_ssm:
+        di = D if hybrid else cfg.ssm_d_inner
+        nh = di // cfg.ssm_head_dim
+        G, N, W = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_conv_width
+        convd = di + 2 * G * N
+        if not cfg.uses_attention:
+            t["ln1"] = ((D,), "zeros")
+        t["ssm_in"] = ((D, 2 * di + 2 * G * N + nh), "dense")
+        t["conv_w"] = ((W, convd), "conv")
+        t["conv_b"] = ((convd,), "zeros")
+        t["A_log"] = ((nh,), "a_log")
+        t["D_skip"] = ((nh,), "ones")
+        t["dt_bias"] = ((nh,), "dt_bias")
+        t["ssm_gnorm"] = ((di,), "zeros")
+        if not hybrid:
+            t["ssm_out"] = ((di, D), "dense")
+    if hybrid:
+        t["fuse_na"] = ((D,), "zeros")
+        t["fuse_ns"] = ((D,), "zeros")
+    if cfg.is_moe:
+        E, Fe = cfg.num_experts, cfg.moe_d_ff
+        t["ln2"] = ((D,), "zeros")
+        t["router"] = ((D, E), "dense")
+        t["we_g"] = ((E, D, Fe), "dense3")
+        t["we_u"] = ((E, D, Fe), "dense3")
+        t["we_d"] = ((E, Fe, D), "dense3")
+        if cfg.num_shared_experts:
+            t["ws_g"] = ((D, F), "dense")
+            t["ws_u"] = ((D, F), "dense")
+            t["ws_d"] = ((F, D), "dense")
+    elif F:
+        t["ln2"] = ((D,), "zeros")
+        t["wg"] = ((D, F), "dense")
+        t["wu"] = ((D, F), "dense")
+        t["wd"] = ((F, D), "dense")
+        if cfg.post_norm:
+            t["post_ln2"] = ((D,), "zeros")
+    return t
+
+
+def _init_one(g: torch.Generator, shape, kind, dtype, device):
+    if kind == "zeros":
+        return torch.zeros(shape, dtype=dtype, device=device)
+    if kind == "ones":
+        return torch.ones(shape, dtype=torch.float32, device=device)
+
+    def uniform(lo, hi):
+        u = torch.rand(shape, generator=g, device=device)
+        return lo + (hi - lo) * u
+
+    if kind == "a_log":
+        return torch.log(uniform(1.0, 16.0))
+    if kind == "dt_bias":
+        dt = uniform(1e-3, 0.1)
+        return dt + torch.log(-torch.expm1(-dt))  # inverse softplus
+    # dense / dense3 / conv: normal * fan_in ** -0.5 over the per-layer
+    # shape (dense3 and conv fan in over dims 1 and 0 of it).
+    fan_in = {"conv": shape[1], "dense3": shape[2]}.get(kind, shape[-2])
+    w = torch.randn(shape, generator=g, device=device) * fan_in ** -0.5
+    return w.to(dtype)
+
+
+def init_params(cfg: ModelConfig, seed: int, dtype=torch.bfloat16,
+                device="cuda") -> PyTree:
+    """Random parameters from ``seed`` on ``device``.  The port's own
+    initializer: same shapes and scales as the reference's, not the same
+    numbers (tests carry the reference's weights over with
+    :func:`params_from_numpy`)."""
+    device = torch.device(device)
+    # On "meta" only shapes exist (zoo and budget math at full width).
+    g = torch.Generator(device="cpu" if device.type == "meta" else device)
+    g.manual_seed(seed)
+    D, Vp, Kcb = cfg.d_model, cfg.padded_vocab, cfg.num_codebooks
+    params: Dict[str, Any] = {}
+    params["embed"] = (torch.randn((Kcb, Vp, D), generator=g, device=device)
+                       * D ** -0.5).to(dtype)
+    if cfg.num_meta_tokens:
+        params["meta"] = (torch.randn((cfg.num_meta_tokens, D), generator=g,
+                                      device=device) * 0.02).to(dtype)
+    Lc = cfg.num_layers
+    params["layers"] = {
+        name: _init_one(g, (Lc,) + shape, kind, dtype, device)
+        for name, (shape, kind) in sorted(_layer_param_template(cfg).items())}
+    params["final_norm"] = torch.zeros((D,), dtype=dtype, device=device)
+    if not cfg.tie_embeddings:
+        params["head"] = (torch.randn((Kcb, D, Vp), generator=g,
+                                      device=device) * D ** -0.5).to(dtype)
+    return params
+
+
+def params_from_numpy(tree: PyTree, device="cpu") -> PyTree:
+    """A reference parameter tree (``repro.models.transformer.init_params``
+    output, or a quantized variant, as numpy arrays) as the port's params
+    on ``device``.  bfloat16 arrays cross as their raw 16 bits."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    a = np.asarray(tree)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a.copy())
+    return t.to(device)
+
+
+# ---------------------------------------------------------------------------
+# Caches
+# ---------------------------------------------------------------------------
+def cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
+                 dtype=torch.bfloat16, quantized: bool = False
+                 ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """name -> (shape, dtype) of the decode cache, for every family: the
+    shapes ``repro.models.transformer.init_cache`` builds."""
+    Lc = cfg.num_layers
+    out = {"lengths": ((batch,), torch.int32)}
+    if cfg.uses_attention:
+        KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+        T = max_len + cfg.cache_extra_tokens
+        kv = (Lc, batch, T, KV, hd)
+        if quantized and cfg.family != "hybrid":
+            out.update(k=(kv, torch.int8), v=(kv, torch.int8),
+                       k_scale=(kv[:-1], torch.float32),
+                       v_scale=(kv[:-1], torch.float32))
+        else:
+            out.update(k=(kv, dtype), v=(kv, dtype))
+    if cfg.uses_ssm:
+        di = cfg.d_model if cfg.family == "hybrid" else cfg.ssm_d_inner
+        nh = di // cfg.ssm_head_dim
+        convd = di + 2 * cfg.ssm_ngroups * cfg.ssm_state
+        out["state"] = ((Lc, batch, nh, cfg.ssm_head_dim, cfg.ssm_state),
+                        torch.float32)
+        out["conv"] = ((Lc, batch, cfg.ssm_conv_width - 1, convd), dtype)
+    return out
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, quantized: bool = False,
+               device="cpu") -> PyTree:
+    """A zeroed decode cache; leaves stacked (L, ...)."""
+    return {name: torch.zeros(shape, dtype=dt, device=device)
+            for name, (shape, dt) in cache_shapes(
+                cfg, batch, max_len, dtype, quantized).items()}
+
+
+def _layer_windows(cfg: ModelConfig) -> Tuple[int, ...]:
+    return tuple(cfg.window_for_kind(k) for k in cfg.layer_kinds())
+
+
+def _layer(layers: dict, i: int) -> dict:
+    """Slice ``i`` of every stacked leaf (quantized leaves included)."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in layers.items()}
+
+
+# ---------------------------------------------------------------------------
+# One transformer block (attention families)
+# ---------------------------------------------------------------------------
+def _ffn(cfg: ModelConfig, h, lp):
+    if cfg.d_ff:
+        x2 = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
+        ff = L.mlp(cfg, x2, lp["wg"], lp["wu"], lp["wd"])
+        if cfg.post_norm:
+            ff = L.rms_norm(ff, lp["post_ln2"], cfg.norm_eps)
+        h = h + ff
+    return h
+
+
+def _block_prefill(cfg: ModelConfig, h, lp, window: int, positions):
+    """Returns (h, k, v) — the layer's k/v for the cache."""
+    x = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
+    attn_raw, k, v = L.attention_prefill(
+        cfg, lp, x, positions, window, prefix=cfg.num_meta_tokens)
+    attn = L.mm(attn_raw, lp["wo"])
+    if cfg.post_norm:
+        attn = L.rms_norm(attn, lp["post_ln1"], cfg.norm_eps)
+    return _ffn(cfg, h + attn, lp), k, v
+
+
+def _block_decode(cfg: ModelConfig, h, lp, window: int, k_cache, v_cache,
+                  lengths):
+    """One decode step of one layer; writes the new k/v into the layer's
+    cache slices in place."""
+    x = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
+    attn_raw = L.attention_decode(cfg, lp, x, k_cache, v_cache, lengths,
+                                  window, prefix=cfg.num_meta_tokens)
+    attn = L.mm(attn_raw, lp["wo"])
+    if cfg.post_norm:
+        attn = L.rms_norm(attn, lp["post_ln1"], cfg.norm_eps)
+    return _ffn(cfg, h + attn, lp)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / head
+# ---------------------------------------------------------------------------
+def embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor
+                 ) -> torch.Tensor:
+    """tokens: (B, S) int, or (B, S, Kcb) for multi-codebook audio."""
+    emb = params["embed"]  # (Kcb, Vp, D)
+    if cfg.num_codebooks == 1:
+        h = emb[0][tokens.long()]
+    else:
+        h = sum(emb[i][tokens[..., i].long()]
+                for i in range(cfg.num_codebooks))
+    if cfg.emb_scale:
+        h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype,
+                             device=h.device)
+    return h
+
+
+def lm_logits(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:
+    """h: (B, S, D) -> logits (B, S, Kcb, Vp) float32."""
+    h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
+    if cfg.tie_embeddings:
+        w = params["embed"].transpose(1, 2)  # (Kcb, D, Vp)
+    else:
+        w = L.dense_w(params["head"])
+    logits = torch.einsum("bsd,kdv->bskv", h, w).float()
+    if cfg.final_logit_softcap:
+        logits = L.softcap(logits, cfg.final_logit_softcap)
+    return logits
+
+
+def _frontend(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
+    """Hidden states after the stub frontends and meta tokens."""
+    h = embed_tokens(cfg, params, batch["tokens"])
+    B = h.shape[0]
+    if cfg.frontend == "vision_stub":
+        vis = batch["patch_embeds"].to(h.dtype)  # (B, Nv, D) — STUB input
+        h = torch.cat([vis, h], dim=1)
+    if cfg.num_meta_tokens:
+        meta = params["meta"][None].expand(B, -1, -1).to(h.dtype)
+        h = torch.cat([meta, h], dim=1)
+    return h
+
+
+# ---------------------------------------------------------------------------
+# Prefill: run the full prompt, build the decode cache
+# ---------------------------------------------------------------------------
+def prefill(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
+            max_len: int, *, cache_dtype=torch.bfloat16):
+    """Returns (last-token logits (B, Kcb, Vp), populated cache)."""
+    _check_family(cfg)
+    h = _frontend(cfg, params, batch)
+    B, S = h.shape[0], h.shape[1]
+    positions = torch.arange(S, device=h.device)
+    cache = init_cache(cfg, B, max_len, cache_dtype, device=h.device)
+    for i, window in enumerate(_layer_windows(cfg)):
+        h, k, v = _block_prefill(cfg, h, _layer(params["layers"], i),
+                                 window, positions)
+        cache["k"][i, :, :S] = k.to(cache_dtype)
+        cache["v"][i, :, :S] = v.to(cache_dtype)
+    cache["lengths"].fill_(S)
+    logits = lm_logits(cfg, params, h[:, -1:, :])[:, 0]
+    return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# Decode: one token for every sequence in the batch
+# ---------------------------------------------------------------------------
+def decode_step(cfg: ModelConfig, params, cache: PyTree,
+                tokens: torch.Tensor):
+    """tokens: (B,) or (B, Kcb).  Returns (logits (B, Kcb, Vp), cache).
+
+    The returned cache holds the same k/v tensors, updated in place, and a
+    new ``lengths``."""
+    _check_family(cfg)
+    tok = tokens[:, None] if cfg.num_codebooks == 1 else tokens[:, None, :]
+    h = embed_tokens(cfg, params, tok)  # (B, 1, D)
+    lengths = cache["lengths"]
+    for i, window in enumerate(_layer_windows(cfg)):
+        h = _block_decode(cfg, h, _layer(params["layers"], i), window,
+                          cache["k"][i], cache["v"][i], lengths)
+    new_cache = dict(cache, lengths=lengths + 1)
+    logits = lm_logits(cfg, params, h)[:, 0]
+    return logits, new_cache
+
+
+def greedy_token(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
+    """logits (B, Kcb, Vp) -> next token ids (B,) or (B, Kcb), int32."""
+    col = torch.arange(logits.shape[-1], device=logits.device)
+    masked = torch.where(col < cfg.vocab_size, logits,
+                         torch.full_like(logits, float("-inf")))
+    ids = masked.argmax(dim=-1).to(torch.int32)
+    return ids[:, 0] if cfg.num_codebooks == 1 else ids

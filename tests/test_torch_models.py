@@ -1,0 +1,200 @@
+"""The port's model, zoo and budget math against the JAX package's.
+
+Reduced tinyllama with the reference's weights carried over as numpy:
+prefill logits of the 32-, 16- and 8-bit variants against
+``repro.models.transformer.prefill``, and 8-token greedy decodes against
+``repro.serving.server._generate_tokens``.  For all ten configs: the
+configs, ``params_nbytes`` per zoo variant, ``zoo_from_config`` and
+``kv_cache_mb`` equal to the reference's, at reduced size and (by shape
+math, no weights) at full size.
+"""
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import ARCH_NAMES, get_config as jget
+from repro.core.model_zoo import zoo_from_config as jzoo
+from repro.models import transformer as JT
+from repro.quant import quantize as JQ
+from repro.serving.engine import kv_cache_mb as jkv
+from repro.serving.server import _generate_tokens as jgen
+from repro_torch.configs import get_config as tget
+from repro_torch.core.model_zoo import zoo_from_config as tzoo
+from repro_torch.models import transformer as TT
+from repro_torch.quant import quantize as TQ
+from repro_torch.serving.engine import kv_cache_mb as tkv
+from repro_torch.serving.server import _generate_tokens as tgen
+
+# Tolerances of tests/test_kernels.py, by the variant's arithmetic.
+LOGIT_TOL = {32: dict(rtol=3e-5, atol=3e-5), 16: dict(rtol=3e-2, atol=3e-2),
+             8: dict(rtol=2e-4, atol=2e-4)}
+
+
+def _np_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+@pytest.fixture(scope="module")
+def tinyllama():
+    cfg = jget("tinyllama-1.1b", reduced=True)
+    params = JT.init_params(cfg, jax.random.key(3), jnp.float32)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 7)).astype(np.int32)
+    return cfg, params, prompts
+
+
+def _variants(params, bits):
+    jvar = JQ.quantize_params(params, bits=bits, group=32)
+    tvar = TQ.quantize_params(TT.params_from_numpy(_np_tree(params)),
+                              bits=bits, group=32)
+    return jvar, tvar
+
+
+def _flat(tree):
+    out = {}
+    TQ.tree_map(lambda path, t: out.__setitem__(path, t), tree)
+    return out
+
+
+@pytest.mark.parametrize("bits", [32, 16, 8])
+def test_zoo_variant_matches_reference_bit_for_bit(tinyllama, bits):
+    _, params, _ = tinyllama
+    jvar, tvar = _variants(params, bits)
+    got, want = _flat(tvar), _flat(TT.params_from_numpy(_np_tree(jvar)))
+    assert got.keys() == want.keys()
+    for path, w in want.items():
+        assert got[path].dtype == w.dtype, path
+        assert torch.equal(got[path], w), path
+    assert TQ.params_nbytes(tvar) == JQ.params_nbytes(jvar)
+
+
+@pytest.mark.parametrize("bits", [32, 16, 8])
+def test_prefill_logits_match_reference(tinyllama, bits):
+    cfg, params, prompts = tinyllama
+    jvar, tvar = _variants(params, bits)
+    S = prompts.shape[1]
+    want, jcache = JT.prefill(cfg, jvar, {"tokens": jnp.asarray(prompts)},
+                              max_len=S + 4)
+    got, tcache = TT.prefill(tget("tinyllama-1.1b", reduced=True), tvar,
+                             {"tokens": torch.from_numpy(prompts)},
+                             max_len=S + 4)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    got, want = got.numpy(), np.asarray(want)
+    if bits == 16:
+        # bf16 rounds at different points in the two packages (the
+        # reference's inline attention rounds its softmax weights to bf16;
+        # the kernels keep f32), and the error a logit near zero inherits
+        # is that of the largest ones: hold the bf16 variant's logits to
+        # the bf16 tolerance as a relative error of the whole vector.
+        rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+        assert rel < LOGIT_TOL[16]["rtol"], rel
+    else:
+        np.testing.assert_allclose(got, want, **LOGIT_TOL[bits])
+    assert tcache["k"].shape == jcache["k"].shape
+    assert tcache["k"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(tcache["lengths"].numpy(),
+                                  np.asarray(jcache["lengths"]))
+
+
+@pytest.mark.parametrize("bits", [32, 16, 8])
+def test_greedy_decode_ids_match_reference(tinyllama, bits):
+    """8 greedy tokens through prefill and the decode loop (the port's
+    decode attention keeps softmax weights in f32 where the reference
+    rounds them to the bf16 cache's type; the ids still agree)."""
+    cfg, params, prompts = tinyllama
+    jvar, tvar = _variants(params, bits)
+    S = prompts.shape[1]
+    want = np.asarray(jgen(cfg, jvar, jnp.asarray(prompts), max_new=8,
+                           max_len=S + 8))
+    got = tgen(tget("tinyllama-1.1b", reduced=True), tvar,
+               torch.from_numpy(prompts), max_new=8, max_len=S + 8)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_windowed_softcapped_family_prefill_matches_reference():
+    """gemma2 (local/global windows, attention and final softcaps, post
+    norms, scaled embeddings, gelu) at f32: the masking paths of the
+    attention kernels on the model path."""
+    cfg = jget("gemma2-2b", reduced=True)
+    params = JT.init_params(cfg, jax.random.key(5), jnp.float32)
+    prompts = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 12)).astype(np.int32)
+    want, _ = JT.prefill(cfg, params, {"tokens": jnp.asarray(prompts)},
+                         max_len=16)
+    got, _ = TT.prefill(tget("gemma2-2b", reduced=True),
+                        TT.params_from_numpy(_np_tree(params)),
+                        {"tokens": torch.from_numpy(prompts)}, max_len=16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               **LOGIT_TOL[32])
+
+
+@pytest.mark.parametrize("name", ["mamba2-780m", "hymba-1.5b",
+                                  "olmoe-1b-7b"])
+def test_unported_families_raise_naming_the_roadmap_item(name):
+    cfg = tget(name, reduced=True)
+    params = TT.init_params(cfg, 0, torch.float32, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TT.prefill(cfg, params,
+                   {"tokens": torch.zeros((1, 4), dtype=torch.int32)},
+                   max_len=8)
+
+
+# ---------------------------------------------------------------------------
+# Configs, zoos and budgets for all ten architectures.
+# ---------------------------------------------------------------------------
+def _shape_nbytes(abstract, bits, group=32):
+    """The reference's quantize_params rule, applied to leaf shapes."""
+    total = 0
+    for path, leaf in jax.tree_util.tree_leaves_with_path(abstract):
+        ps = JQ._path_str(path)
+        n = int(np.prod(leaf.shape))
+        if bits >= 16:
+            total += n * (bits // 8 if leaf.ndim >= 2 else 4)
+            continue
+        min_ndim = 3 if ps.startswith("layers") else 2
+        if any(e in ps for e in JQ._EXCLUDE) or leaf.ndim < min_ndim:
+            total += n * leaf.dtype.itemsize
+            continue
+        K = leaf.shape[-2]
+        G = K // group if K % group == 0 else 1
+        total += n + n // K * G * 4
+    return total
+
+
+@pytest.mark.parametrize("name", ARCH_NAMES)
+@pytest.mark.parametrize("reduced", [True, False])
+def test_config_zoo_and_kv_budget_match_reference(name, reduced):
+    jcfg, tcfg = jget(name, reduced=reduced), tget(name, reduced=reduced)
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    for precisions in ((16, 8, 4), (16, 8)):
+        jz, tz = jzoo(jcfg, precisions=precisions), tzoo(
+            tcfg, precisions=precisions)
+        assert [dataclasses.astuple(v) for v in tz.variants] == \
+            [dataclasses.astuple(v) for v in jz.variants]
+    for batch, max_len in ((1, 8), (4, 32), (2, 12)):
+        for quantized in (False, True):
+            assert tkv(tcfg, batch, max_len, quantized) == \
+                jkv(jcfg, batch, max_len, quantized)
+    # Shapes only on both sides: the port's params on the meta device, the
+    # reference's quantize_params traced over abstract params (at full
+    # size its per-slice loops take minutes to trace, so the reference's
+    # rule is applied to the leaf shapes instead).
+    tparams = TT.init_params(tcfg, 0, torch.float32, device="meta")
+    abstract = JT.abstract_params(jcfg, jnp.float32)
+    for bits in (16, 8, 4):
+        got = TQ.params_nbytes(TQ.quantize_params(tparams, bits=bits,
+                                                  group=32))
+        if reduced:
+            want = sum(leaf.size * leaf.dtype.itemsize
+                       for leaf in jax.tree.leaves(jax.eval_shape(
+                           functools.partial(JQ.quantize_params, bits=bits,
+                                             group=32), abstract)))
+        else:
+            want = _shape_nbytes(abstract, bits)
+        assert got == want, (name, bits)

@@ -1,0 +1,127 @@
+"""The port's serving stack against the JAX package's.
+
+Sim executors: the same ``ServingConfig`` and trace through both packages
+give equal ``ServingStats`` and audit trails (the arrival predictors are
+kept on their pre-fit path, where both compute the same numpy mean).
+Real executor: the port serves real requests end to end on the CPU.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro.serving import EdgeServer as JServer
+from repro.serving import api as japi
+from repro.serving import poisson_trace as jtrace
+from repro_torch.serving import EdgeServer as TServer
+from repro_torch.serving import api as tapi
+from repro_torch.serving import poisson_trace as ttrace
+
+TENANTS = ("tinyllama-1.1b", "mamba2-780m", "gemma2-2b")
+
+
+def _config(api, *, continuous, policy, scheduler):
+    return api.ServingConfig(
+        tenants=tuple(api.TenantSpec(n) for n in TENANTS),
+        executor="sim", policy=policy, delta_ms=750.0,
+        batching=api.BatchingSpec(max_batch=4, window_ms=50.0,
+                                  continuous=continuous),
+        predictor=api.PredictorSpec(min_fit_samples=10**6),
+        kv_headroom_shape=(2, 12), scheduler=scheduler)
+
+
+def _run(server_cls, api, trace_fn, **kw):
+    srv = server_cls.build(_config(api, **kw))
+    cfgs = {t.name: t.cfg for t in srv.tenants.values()}
+    trace, _ = trace_fn(cfgs, requests_per_app=12, mean_iat_ms=1000.0,
+                        deviation=0.3, seed=0, prompt_len=(8, 9),
+                        max_new=4)
+    stats = srv.engine.run_trace(trace)
+    srv.engine.check_event_invariant()
+    trail = [(e.kind.value, e.t, e.app, e.detail)
+             for e in srv.engine.audit_trail]
+    reqs = [(r.app, r.arrival_ms, r.max_new, r.prompt.tolist())
+            for r in trace]
+    srv.close()
+    return stats.to_dict(), trail, reqs, srv.budget_mb
+
+
+@pytest.mark.parametrize("continuous", [False, True])
+@pytest.mark.parametrize("policy", ["bfe", "iws-bfe"])
+@pytest.mark.parametrize("scheduler", ["indexed", "linear"])
+def test_sim_engine_matches_reference(continuous, policy, scheduler):
+    kw = dict(continuous=continuous, policy=policy, scheduler=scheduler)
+    j_stats, j_trail, j_reqs, j_budget = _run(JServer, japi, jtrace, **kw)
+    t_stats, t_trail, t_reqs, t_budget = _run(TServer, tapi, ttrace, **kw)
+    assert t_reqs == j_reqs
+    assert t_budget == j_budget
+    assert t_trail == j_trail
+    assert t_stats == j_stats
+    assert j_stats["requests"] == 3 * 12
+
+
+def test_config_round_trip_matches_reference():
+    cfg = _config(tapi, continuous=True, policy="iws-bfe",
+                  scheduler="indexed")
+    assert cfg.to_dict() == _config(
+        japi, continuous=True, policy="iws-bfe",
+        scheduler="indexed").to_dict()
+    assert tapi.ServingConfig.from_dict(cfg.to_dict()) == cfg
+    assert [f.name for f in dataclasses.fields(tapi.ServingConfig)] == \
+        [f.name for f in dataclasses.fields(japi.ServingConfig)]
+
+
+def test_real_server_serves_on_cpu():
+    """Two contended tinyllama tenants, real prefill/decode on the CPU
+    through the engine: every request served, the event invariant holds,
+    and contention puts a tenant on its 8-bit variant."""
+    srv = TServer.build(tapi.ServingConfig(
+        tenants=(tapi.TenantSpec("a", arch="tinyllama-1.1b", seed=1),
+                 tapi.TenantSpec("b", arch="tinyllama-1.1b", seed=2)),
+        executor="real", kv_headroom_shape=(4, 20),
+        batching=tapi.BatchingSpec(max_batch=4)), device="cpu")
+    cfgs = {t.name: t.cfg for t in srv.tenants.values()}
+    trace, _ = ttrace(cfgs, requests_per_app=4, mean_iat_ms=200.0, seed=3,
+                      prompt_len=(4, 12), max_new=8)
+    stats = srv.engine.run_trace(trace)
+    srv.engine.check_event_invariant()
+    results = srv.engine.results
+    srv.close()
+    assert stats.requests == len(results) == 8
+    assert not any(r.failed for r in results)
+    assert 8 in {r.bits for r in results}
+    for tr in srv.tenants.values():
+        assert set(tr.host) == {16, 8}
+        assert tr.host[8]["layers"]["wq"]["q"].dtype == torch.int8
+
+
+def test_real_server_generate_shapes_on_cpu():
+    srv = TServer.build(tapi.ServingConfig(
+        tenants=(tapi.TenantSpec("tinyllama-1.1b"),), executor="real",
+        budget_mb=64.0), device="cpu")
+    prompts = np.arange(10, dtype=np.int32).reshape(2, 5)
+    r = srv.serve("tinyllama-1.1b", prompts, max_new=3, now_ms=0.0)
+    srv.close()
+    assert not r.failed and r.tokens.shape == (2, 3)
+    assert r.tokens.dtype == np.int32 and r.bits == 16
+
+
+def test_cuda_requested_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TServer.build(tapi.ServingConfig(
+            tenants=(tapi.TenantSpec("tinyllama-1.1b"),), executor="real",
+            budget_mb=64.0))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(loader=tapi.LoaderSpec(sharded=True, mesh_shape=(4,))),
+    dict(loader=tapi.LoaderSpec(sharded=True, mesh_shape=(4,)),
+         fault=tapi.FaultSpec(events=((10.0, 1, "down"),)))])
+def test_unported_serving_modes_raise(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+        TServer.build(tapi.ServingConfig(
+            tenants=(tapi.TenantSpec("tinyllama-1.1b"),), executor="sim",
+            **kw))
