@@ -4,8 +4,9 @@ Dispatch follows the device of the tensors, and nothing else: a tensor on
 the CPU is computed by the plain PyTorch version in
 :mod:`repro_torch.kernels.ref`; a CUDA tensor goes to the hand-written
 Hopper kernel, which raises on an input it cannot take.  There is no
-override and no silent fallback on a GPU.  ``quantize_weights`` is no
-kernel (as in the reference) and runs the plain version on any device.
+override and no silent fallback on a GPU.  ``quantize_weights``,
+``ssd_step``, ``causal_conv1d`` and ``causal_conv1d_step`` are no kernels
+(as in the reference) and run the plain versions on any device.
 """
 from __future__ import annotations
 
@@ -13,8 +14,13 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.quant_matmul import quant_matmul
+from repro_torch.kernels.ssd_scan import ssd_scan
 
 quantize_weights = ref.quantize_weights
+ssd_step = ref.ssd_step
+causal_conv1d = ref.causal_conv1d
+causal_conv1d_step = ref.causal_conv1d_step
 
-__all__ = ["decode_attention", "flash_attention", "quant_matmul",
-           "quantize_weights"]
+__all__ = ["causal_conv1d", "causal_conv1d_step", "decode_attention",
+           "flash_attention", "quant_matmul", "quantize_weights", "ssd_scan",
+           "ssd_step"]

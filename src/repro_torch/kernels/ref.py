@@ -8,7 +8,10 @@ query's (or ``out_dtype``'s) type, as in the reference.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -2.3819763e38  # close to bf16 min; avoids NaN from (-inf) - (-inf)
 
@@ -116,3 +119,172 @@ def quantize_weights(
     scales = torch.clamp_min(absmax / qmax, 1e-8)
     q = torch.clamp(torch.round(wg / scales[..., None, :]), -qmax - 1, qmax)
     return q.reshape(*lead, K, N).to(torch.int8), scales.float()
+
+
+# ---------------------------------------------------------------------------
+# ssd_scan: Mamba-2 state-space-duality scan (sequential oracle).
+#   h_t = exp(dt_t * A) * h_{t-1} + dt_t * (B_t ⊗ x_t)
+#   y_t = C_t · h_t + D ⊙ x_t
+# ---------------------------------------------------------------------------
+def ssd_scan(
+    x: torch.Tensor,  # (B, S, H, P)
+    dt: torch.Tensor,  # (B, S, H) — post-softplus, positive
+    A: torch.Tensor,  # (H,) — negative decay rates
+    Bm: torch.Tensor,  # (B, S, G, N)
+    Cm: torch.Tensor,  # (B, S, G, N)
+    D: torch.Tensor,  # (H,)
+    *,
+    init_state: Optional[torch.Tensor] = None,  # (B, H, P, N)
+    return_state: bool = False,
+):
+    Bb, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep = H // G
+    xf = x.float()
+    dtf = dt.float()
+    Bf = Bm.float().repeat_interleave(rep, dim=2)  # (B, S, H, N)
+    Cf = Cm.float().repeat_interleave(rep, dim=2)
+    Af = A.float()
+    h = (torch.zeros((Bb, H, P, N), dtype=torch.float32, device=x.device)
+         if init_state is None else init_state.float())
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dtf[:, t] * Af[None, :])  # (B, H)
+        dBx = torch.einsum("bh,bhn,bhp->bhpn", dtf[:, t], Bf[:, t], xf[:, t])
+        h = decay[:, :, None, None] * h + dBx
+        ys.append(torch.einsum("bhn,bhpn->bhp", Cf[:, t], h))
+    y = torch.stack(ys, dim=1) + xf * D.float()[None, None, :, None]
+    y = y.to(x.dtype)
+    if return_state:
+        return y, h
+    return y
+
+
+def ssd_scan_chunked(
+    x: torch.Tensor,  # (B, S, H, P)
+    dt: torch.Tensor,  # (B, S, H)
+    A: torch.Tensor,  # (H,)
+    Bm: torch.Tensor,  # (B, S, G, N)
+    Cm: torch.Tensor,  # (B, S, G, N)
+    D: torch.Tensor,  # (H,)
+    *,
+    chunk: int = 256,
+    init_state: Optional[torch.Tensor] = None,
+    return_state: bool = False,
+):
+    """Chunked SSD (the Mamba-2 algorithm): a quadratic intra-chunk term
+    plus a linear inter-chunk state recurrence.  Equal to :func:`ssd_scan`
+    up to rounding; the CPU path of ``ops.ssd_scan``."""
+    Bb, S0, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep = H // G
+    Q = min(chunk, S0)
+    if S0 % Q:
+        # Pad the tail with dt=0 steps: decay=exp(0)=1 and the dt factor
+        # zeroes the padded contributions, so the result is exact.
+        pad = Q - S0 % Q
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
+    S = x.shape[1]
+    nc = S // Q
+    xf = x.float().reshape(Bb, nc, Q, H, P)
+    dtf = dt.float().reshape(Bb, nc, Q, H)
+    Bf = Bm.float().repeat_interleave(rep, dim=2).reshape(Bb, nc, Q, H, N)
+    Cf = Cm.float().repeat_interleave(rep, dim=2).reshape(Bb, nc, Q, H, N)
+    Af = A.float()
+
+    a = dtf * Af[None, None, None, :]  # (B, nc, Q, H) — log decay per step
+    a_cum = torch.cumsum(a, dim=2)  # inclusive within-chunk cumulative decay
+    # Intra-chunk ("diagonal block") term.  exp(seg) overflows above the
+    # diagonal; the select (not a product) keeps it out of the result.
+    seg = a_cum[:, :, :, None, :] - a_cum[:, :, None, :, :]  # (B,nc,Qi,Qj,H)
+    iq = torch.arange(Q, device=x.device)
+    tri = iq[:, None] >= iq[None, :]
+    Ldec = torch.where(tri[None, None, :, :, None], torch.exp(seg),
+                       torch.zeros((), device=x.device))
+    cb = torch.einsum("bcqhn,bckhn->bcqkh", Cf, Bf)
+    M = cb * Ldec * dtf[:, :, None, :, :]  # weight by dt at the key position
+    y_diag = torch.einsum("bcqkh,bckhp->bcqhp", M, xf)
+    # Chunk-final states.
+    decay_to_end = torch.exp(a_cum[:, :, -1:, :] - a_cum)  # (B, nc, Q, H)
+    S_c = torch.einsum("bcqh,bcqhn,bcqhp->bchpn", decay_to_end * dtf, Bf, xf)
+    chunk_decay = torch.exp(a_cum[:, :, -1, :])  # (B, nc, H)
+    h = (torch.zeros((Bb, H, P, N), dtype=torch.float32, device=x.device)
+         if init_state is None else init_state.float())
+    h_prev = []  # the state at each chunk's START
+    for c in range(nc):
+        h_prev.append(h)
+        h = chunk_decay[:, c, :, None, None] * h + S_c[:, c]
+    h_prev = torch.stack(h_prev, dim=1)  # (B, nc, H, P, N)
+    y_off = torch.einsum("bcqhn,bchpn,bcqh->bcqhp", Cf, h_prev,
+                         torch.exp(a_cum))
+    y = (y_diag + y_off).reshape(Bb, S, H, P)[:, :S0]
+    y = y + x.float()[:, :S0] * D.float()[None, None, :, None]
+    y = y.to(x.dtype)
+    if return_state:
+        return y, h
+    return y
+
+
+def ssd_step(
+    x: torch.Tensor,  # (B, H, P) — one token
+    dt: torch.Tensor,  # (B, H)
+    A: torch.Tensor,  # (H,)
+    Bm: torch.Tensor,  # (B, G, N)
+    Cm: torch.Tensor,  # (B, G, N)
+    D: torch.Tensor,  # (H,)
+    state: torch.Tensor,  # (B, H, P, N)
+):
+    """Single decode step of the SSD recurrence. Returns (y, new_state)."""
+    H = x.shape[1]
+    G = Bm.shape[1]
+    rep = H // G
+    xf = x.float()
+    dtf = dt.float()
+    Bf = Bm.float().repeat_interleave(rep, dim=1)
+    Cf = Cm.float().repeat_interleave(rep, dim=1)
+    decay = torch.exp(dtf * A.float()[None, :])
+    dBx = torch.einsum("bh,bhn,bhp->bhpn", dtf, Bf, xf)
+    new_state = decay[:, :, None, None] * state.float() + dBx
+    y = torch.einsum("bhn,bhpn->bhp", Cf, new_state)
+    y = y + xf * D.float()[None, :, None]
+    return y.to(x.dtype), new_state
+
+
+# ---------------------------------------------------------------------------
+# Depthwise causal conv (Mamba-2 front conv) — oracle + single-step update.
+# ---------------------------------------------------------------------------
+def causal_conv1d(
+    x: torch.Tensor,  # (B, S, C)
+    w: torch.Tensor,  # (W, C) depthwise taps
+    b: torch.Tensor,  # (C,)
+    *,
+    init: Optional[torch.Tensor] = None,  # (B, W-1, C) left context
+) -> torch.Tensor:
+    B, S, C = x.shape
+    W = w.shape[0]
+    if init is None:
+        init = torch.zeros((B, W - 1, C), dtype=x.dtype, device=x.device)
+    xp = torch.cat([init.float(), x.float()], dim=1)
+    out = torch.zeros((B, S, C), dtype=torch.float32, device=x.device)
+    for i in range(W):
+        out = out + xp[:, i: i + S, :] * w[i].float()[None, None, :]
+    out = out + b.float()[None, None, :]
+    return F.silu(out).to(x.dtype)
+
+
+def causal_conv1d_step(
+    x: torch.Tensor,  # (B, C) — one token
+    w: torch.Tensor,  # (W, C)
+    b: torch.Tensor,  # (C,)
+    buf: torch.Tensor,  # (B, W-1, C) rolling context
+):
+    """Returns (y, new_buf).  The buffer is concatenated in the promoted
+    type of ``buf`` and ``x``, as the reference's ``concatenate`` does."""
+    dtype = torch.promote_types(buf.dtype, x.dtype)
+    full = torch.cat([buf.to(dtype), x[:, None, :].to(dtype)], dim=1)
+    y = torch.einsum("bwc,wc->bc", full.float(), w.float())
+    y = F.silu(y + b.float()[None, :]).to(x.dtype)
+    return y, full[:, 1:, :]

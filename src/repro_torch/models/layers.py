@@ -3,8 +3,9 @@
 Port of :mod:`repro.models.layers`: pure functions over explicit parameter
 dicts.  Per-layer parameters arrive as one slice of the stacked ``(L, ...)``
 leaves.  Attention runs through the port's kernels: prefill through
-``ops.flash_attention``, decode through ``ops.decode_attention``.  The SSM
-and MoE branches are not ported yet.
+``ops.flash_attention``, decode through ``ops.decode_attention``; the
+Mamba-2 branch's prefill scan through ``ops.ssd_scan``.  The MoE branch is
+not ported yet.
 """
 from __future__ import annotations
 
@@ -54,6 +55,13 @@ def act_fn(x: torch.Tensor, kind: str) -> torch.Tensor:
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     return torch.tanh(x / cap) * cap
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + e^x) on every input, as ``jax.nn.softplus`` computes it
+    (``F.softplus`` turns into the identity above 20)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
 
 
 # ---------------------------------------------------------------------------
@@ -133,3 +141,88 @@ def attention_decode(cfg: ModelConfig, lp: dict, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 def mlp(cfg: ModelConfig, x: torch.Tensor, wg, wu, wd) -> torch.Tensor:
     return mm(act_fn(mm(x, wg), cfg.act) * mm(x, wu), wd)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 (SSD) branch
+# ---------------------------------------------------------------------------
+def _ssm_dims(cfg: ModelConfig, hybrid: bool):
+    di = cfg.d_model if hybrid else cfg.ssm_d_inner
+    nh = di // cfg.ssm_head_dim
+    return di, nh
+
+
+def _gated_norm(cfg: ModelConfig, lp: dict, y: torch.Tensor,
+                z: torch.Tensor) -> torch.Tensor:
+    return rms_norm(y * F.silu(z.float()).to(y.dtype), lp["ssm_gnorm"],
+                    cfg.norm_eps)
+
+
+def ssm_prefill(cfg: ModelConfig, lp: dict, x: torch.Tensor, *,
+                hybrid: bool = False, init_state=None, init_conv=None,
+                return_state: bool = False):
+    """x: (B, S, D) input-normed.  Returns y (B, S, di) before the out
+    projection [+ (ssm_state, conv_tail)]."""
+    B, S, _ = x.shape
+    di, nh = _ssm_dims(cfg, hybrid)
+    G, N, W = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_conv_width
+    zxbcdt = mm(x, lp["ssm_in"])
+    z = zxbcdt[..., :di]
+    xbc_pre = zxbcdt[..., di: 2 * di + 2 * G * N]
+    dt_raw = zxbcdt[..., 2 * di + 2 * G * N:]
+    xbc = ops.causal_conv1d(xbc_pre, lp["conv_w"], lp["conv_b"],
+                            init=init_conv)
+    # Column slices of xbc: the scan reads them in place (row-strided).
+    xs = xbc[..., :di]
+    Bm = xbc[..., di: di + G * N].reshape(B, S, G, N)
+    Cm = xbc[..., di + G * N:].reshape(B, S, G, N)
+    dt = softplus(dt_raw.float() + lp["dt_bias"].float())
+    A = -torch.exp(lp["A_log"].float())
+    xh = xs.reshape(B, S, nh, cfg.ssm_head_dim)
+    out = ops.ssd_scan(xh, dt.to(xh.dtype), A, Bm, Cm, lp["D_skip"],
+                       init_state=init_state, return_state=return_state,
+                       chunk=cfg.ssm_chunk)
+    y, state = out if return_state else (out, None)
+    y = _gated_norm(cfg, lp, y.reshape(B, S, di), z)
+    if return_state:
+        return y, state, _conv_tail(xbc_pre, init_conv, W)
+    return y
+
+
+def _conv_tail(xbc_pre_conv: torch.Tensor, init, W: int) -> torch.Tensor:
+    """Last W-1 pre-activation conv inputs — the decode rolling buffer
+    (zeros in front of a prompt shorter than W-1)."""
+    B, S, C = xbc_pre_conv.shape
+    if init is None:
+        init = torch.zeros((B, W - 1, C), dtype=xbc_pre_conv.dtype,
+                           device=xbc_pre_conv.device)
+    dtype = torch.promote_types(init.dtype, xbc_pre_conv.dtype)
+    full = torch.cat([init.to(dtype), xbc_pre_conv.to(dtype)], dim=1)
+    return full[:, -(W - 1):, :]
+
+
+def ssm_decode(cfg: ModelConfig, lp: dict, x: torch.Tensor,
+               state: torch.Tensor, conv_buf: torch.Tensor, *,
+               hybrid: bool = False):
+    """Single-token SSD step.  x: (B, 1, D) input-normed; state (B, nh,
+    hd, N); conv_buf (B, W-1, convd).  Returns (y (B, 1, di), new_state,
+    new_conv); the caller stores them (the conv buffer comes back in the
+    promoted type of the buffer and the token's activations)."""
+    B = x.shape[0]
+    di, nh = _ssm_dims(cfg, hybrid)
+    G, N = cfg.ssm_ngroups, cfg.ssm_state
+    zxbcdt = mm(x[:, 0, :], lp["ssm_in"])
+    z = zxbcdt[..., :di]
+    xbc = zxbcdt[..., di: 2 * di + 2 * G * N]
+    dt_raw = zxbcdt[..., 2 * di + 2 * G * N:]
+    xbc_act, new_conv = ops.causal_conv1d_step(
+        xbc, lp["conv_w"], lp["conv_b"], conv_buf)
+    xs = xbc_act[..., :di]
+    Bm = xbc_act[..., di: di + G * N].reshape(B, G, N)
+    Cm = xbc_act[..., di + G * N:].reshape(B, G, N)
+    dt = softplus(dt_raw.float() + lp["dt_bias"].float())
+    A = -torch.exp(lp["A_log"].float())
+    xh = xs.reshape(B, nh, cfg.ssm_head_dim)
+    y, new_state = ops.ssd_step(xh, dt, A, Bm, Cm, lp["D_skip"], state)
+    y = _gated_norm(cfg, lp, y.reshape(B, di), z)
+    return y[:, None, :], new_state, new_conv

@@ -5,8 +5,9 @@ dicts of tensors keyed like the reference's pytrees, per-layer leaves
 stacked along a leading ``L`` axis; where the reference scans over layers,
 the port runs a Python loop over the slices.  Cache shapes are ported for
 every family (admission charges them); the blocks themselves are ported
-for the attention families (dense, vlm, audio).  The SSM, hybrid and MoE
-blocks raise ``NotImplementedError`` until their slices land.
+for the attention families (dense, vlm, audio) and the pure SSM family
+(mamba2).  The hybrid and MoE blocks raise ``NotImplementedError`` until
+their slices land.
 """
 from __future__ import annotations
 
@@ -22,15 +23,14 @@ PyTree = Any
 
 # ROADMAP items that port the families this module does not run yet.
 _UNPORTED = {
-    "ssm": "ROADMAP A9 (mamba2-780m: ssm_prefill/ssm_decode via ssd_scan)",
     "hybrid": "ROADMAP A12 (hymba-1.5b: fused attention + SSM block)",
     "moe": "ROADMAP A12 (olmoe / llama4-scout: moe_ffn)",
 }
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    kind = ("hybrid" if cfg.family == "hybrid" else "ssm" if cfg.uses_ssm
-            else "moe" if cfg.is_moe else None)
+    kind = ("hybrid" if cfg.family == "hybrid" else "moe" if cfg.is_moe
+            else None)
     if kind is not None:
         raise NotImplementedError(
             f"{cfg.name}: the {kind} block is not ported yet; see "
@@ -213,7 +213,7 @@ def _layer(layers: dict, i: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# One transformer block (attention families)
+# One block (attention families and pure SSM)
 # ---------------------------------------------------------------------------
 def _ffn(cfg: ModelConfig, h, lp):
     if cfg.d_ff:
@@ -226,23 +226,36 @@ def _ffn(cfg: ModelConfig, h, lp):
 
 
 def _block_prefill(cfg: ModelConfig, h, lp, window: int, positions):
-    """Returns (h, k, v) — the layer's k/v for the cache."""
+    """Returns (h, the layer's cache leaves: k/v, or the SSM state and
+    conv tail)."""
     x = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
+    if cfg.uses_ssm:  # pure SSM (mamba2); hybrid is refused upstream
+        y, state, conv = L.ssm_prefill(cfg, lp, x, return_state=True)
+        return (_ffn(cfg, h + L.mm(y, lp["ssm_out"]), lp),
+                {"state": state, "conv": conv})
     attn_raw, k, v = L.attention_prefill(
         cfg, lp, x, positions, window, prefix=cfg.num_meta_tokens)
     attn = L.mm(attn_raw, lp["wo"])
     if cfg.post_norm:
         attn = L.rms_norm(attn, lp["post_ln1"], cfg.norm_eps)
-    return _ffn(cfg, h + attn, lp), k, v
+    return _ffn(cfg, h + attn, lp), {"k": k, "v": v}
 
 
-def _block_decode(cfg: ModelConfig, h, lp, window: int, k_cache, v_cache,
+def _block_decode(cfg: ModelConfig, h, lp, window: int, cache, i: int,
                   lengths):
-    """One decode step of one layer; writes the new k/v into the layer's
-    cache slices in place."""
+    """One decode step of layer ``i``; writes the new k/v, or the new SSM
+    state and conv buffer, into the layer's cache slices in place (in the
+    cache's types, as the reference's serving loop casts its carry)."""
     x = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
-    attn_raw = L.attention_decode(cfg, lp, x, k_cache, v_cache, lengths,
-                                  window, prefix=cfg.num_meta_tokens)
+    if cfg.uses_ssm:
+        y, state, conv = L.ssm_decode(cfg, lp, x, cache["state"][i],
+                                      cache["conv"][i])
+        cache["state"][i].copy_(state)
+        cache["conv"][i].copy_(conv)
+        return _ffn(cfg, h + L.mm(y, lp["ssm_out"]), lp)
+    attn_raw = L.attention_decode(cfg, lp, x, cache["k"][i], cache["v"][i],
+                                  lengths, window,
+                                  prefix=cfg.num_meta_tokens)
     attn = L.mm(attn_raw, lp["wo"])
     if cfg.post_norm:
         attn = L.rms_norm(attn, lp["post_ln1"], cfg.norm_eps)
@@ -305,10 +318,12 @@ def prefill(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
     positions = torch.arange(S, device=h.device)
     cache = init_cache(cfg, B, max_len, cache_dtype, device=h.device)
     for i, window in enumerate(_layer_windows(cfg)):
-        h, k, v = _block_prefill(cfg, h, _layer(params["layers"], i),
-                                 window, positions)
-        cache["k"][i, :, :S] = k.to(cache_dtype)
-        cache["v"][i, :, :S] = v.to(cache_dtype)
+        h, leaves = _block_prefill(cfg, h, _layer(params["layers"], i),
+                                   window, positions)
+        # k/v and the conv tail in cache_dtype, the SSM state in f32.
+        for name, t in leaves.items():
+            dst = cache[name][i]
+            (dst[:, :S] if name in ("k", "v") else dst).copy_(t)
     cache["lengths"].fill_(S)
     logits = lm_logits(cfg, params, h[:, -1:, :])[:, 0]
     return logits, cache
@@ -321,15 +336,15 @@ def decode_step(cfg: ModelConfig, params, cache: PyTree,
                 tokens: torch.Tensor):
     """tokens: (B,) or (B, Kcb).  Returns (logits (B, Kcb, Vp), cache).
 
-    The returned cache holds the same k/v tensors, updated in place, and a
-    new ``lengths``."""
+    The returned cache holds the same k/v (or state/conv) tensors, updated
+    in place, and a new ``lengths``."""
     _check_family(cfg)
     tok = tokens[:, None] if cfg.num_codebooks == 1 else tokens[:, None, :]
     h = embed_tokens(cfg, params, tok)  # (B, 1, D)
     lengths = cache["lengths"]
     for i, window in enumerate(_layer_windows(cfg)):
         h = _block_decode(cfg, h, _layer(params["layers"], i), window,
-                          cache["k"][i], cache["v"][i], lengths)
+                          cache, i, lengths)
     new_cache = dict(cache, lengths=lengths + 1)
     logits = lm_logits(cfg, params, h)[:, 0]
     return logits, new_cache

@@ -44,7 +44,12 @@ def _generate_tokens(cfg: ModelConfig, params, prompts: torch.Tensor, *,
                      max_new: int, max_len: int,
                      extra: Optional[dict] = None) -> torch.Tensor:
     """Greedy decode: prefill, then ``max_new − 1`` decode steps, eagerly
-    (the cache is allocated once at ``max_len`` and written in place)."""
+    (the cache is allocated once at ``max_len`` and written in place).
+
+    Every cache leaf keeps the type prefill gave it, as the reference's
+    loop casts its carry: ``decode_step`` stores into the cache in place,
+    so the Mamba-2 conv buffer, for one, stays in the cache's bf16 although
+    an 8-bit variant's decode produces it in f32."""
     batch = {"tokens": prompts, **(extra or {})}
     logits, cache = T.prefill(cfg, params, batch, max_len=max_len)
     toks = [T.greedy_token(cfg, logits)]

@@ -8,6 +8,8 @@ Pallas kernels), on the sweeps of ``test_kernels.py``, from the same
 numpy inputs.  The kernels themselves are held against these plain
 versions on the card by ``test_torch_kernels_cuda.py``.
 """
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,7 +19,9 @@ from repro.kernels import decode_attention as da
 from repro.kernels import flash_attention as fa
 from repro.kernels import quant_matmul as qm
 from repro.kernels import ref as jref
+from repro.kernels import ssd_scan as jssd
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref as tref
 
 # Tolerances of tests/test_kernels.py.
 TOL = {"float32": dict(rtol=3e-5, atol=3e-5),
@@ -176,6 +180,158 @@ def test_quantize_weights_bit_exact(bits, group, shape):
                                   np.asarray(js).view(np.uint32))
 
 
+# ---------------------------------------------------------------------------
+SSD_SHAPES = [(1, 64, 2, 16, 1, 8, 16), (2, 96, 4, 32, 2, 16, 32),
+              (1, 50, 2, 16, 1, 8, 16),  # ragged chunk
+              (2, 128, 48, 64, 1, 128, 64)]  # mamba2-like dims
+SSD_TOL = dict(rtol=2e-4, atol=2e-4)
+# The port's three forms of the scan; ops.ssd_scan is the CPU path of the
+# kernel wrapper (the chunked form at the caller's chunk).
+SSD_FORMS = {
+    "ref.ssd_scan": lambda *a, chunk, **kw: tref.ssd_scan(*a, **kw),
+    "ref.ssd_scan_chunked": tref.ssd_scan_chunked,
+    "ops.ssd_scan": ops.ssd_scan,
+}
+
+
+def _ssd_inputs(seed, B, S, H, P, G, N):
+    """x, dt (post-softplus), A (negative), Bm, Cm, D as numpy, the way
+    test_kernels.py draws them."""
+    rng = np.random.default_rng(seed)
+    x = rand(rng, B, S, H, P, scale=0.5)
+    dt = np.logaddexp(rand(rng, B, S, H), 0).astype(np.float32)
+    A = -np.exp(rand(rng, H, scale=0.5))
+    Bm = rand(rng, B, S, G, N, scale=0.3)
+    Cm = rand(rng, B, S, G, N, scale=0.3)
+    D = rand(rng, H)
+    return x, dt, A, Bm, Cm, D
+
+
+@functools.lru_cache(maxsize=None)
+def _ssd_reference(shape):
+    """The JAX package's sequential oracle and Pallas kernel (interpret
+    mode) on one sweep shape: ((y, state), (y, state)) as numpy."""
+    *dims, chunk = shape
+    args = [jnp.asarray(a) for a in _ssd_inputs(11, *dims)]
+    want = jref.ssd_scan(*args, return_state=True)
+    pallas = jssd.ssd_scan(*args, chunk=chunk, return_state=True,
+                           interpret=True)
+    return (tuple(np.asarray(t) for t in want),
+            tuple(np.asarray(t) for t in pallas))
+
+
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+@pytest.mark.parametrize("form", list(SSD_FORMS))
+def test_ssd_scan_plain_matches_reference_and_pallas(shape, form):
+    *dims, chunk = shape
+    args = [torch.from_numpy(a) for a in _ssd_inputs(11, *dims)]
+    y, state = SSD_FORMS[form](*args, chunk=chunk, return_state=True)
+    assert y.dtype == torch.float32 and state.dtype == torch.float32
+    (want_y, want_s), (pal_y, pal_s) = _ssd_reference(shape)
+    for ref_y, ref_s in ((want_y, want_s), (pal_y, pal_s)):
+        close(y, ref_y, SSD_TOL)
+        close(state, ref_s, SSD_TOL)
+
+
+@pytest.mark.parametrize("shape", SSD_SHAPES[:3])
+def test_ssd_scan_plain_bf16_matches_reference(shape):
+    """bf16 inputs (the 16-bit variant's prefill): y in bf16 at the bf16
+    tolerance, the f32 state at 2e-4 (both sides compute in f32 from the
+    same bf16 values)."""
+    *dims, chunk = shape
+    arrays = _ssd_inputs(12, *dims)
+    j = [both(a, "bfloat16")[0] for a in arrays[:2]] + [
+        jnp.asarray(arrays[2])] + [both(a, "bfloat16")[0]
+                                   for a in arrays[3:5]] + [
+        jnp.asarray(arrays[5])]
+    t = [both(a, "bfloat16")[1] for a in arrays[:2]] + [
+        torch.from_numpy(arrays[2])] + [both(a, "bfloat16")[1]
+                                        for a in arrays[3:5]] + [
+        torch.from_numpy(arrays[5])]
+    want_y, want_s = jref.ssd_scan_chunked(*j, chunk=chunk,
+                                           return_state=True)
+    y, state = ops.ssd_scan(*t, chunk=chunk, return_state=True)
+    assert y.dtype == torch.bfloat16
+    close(y, want_y, TOL["bfloat16"])
+    close(state, want_s, SSD_TOL)
+
+
+@pytest.mark.parametrize("form", ["ref.ssd_scan_chunked", "ops.ssd_scan"])
+def test_ssd_state_continuation(form):
+    """Scanning [0:48] then [48:80] with the carried state equals scanning
+    [0:80], and both equal the JAX package's chunked scan."""
+    args = [torch.from_numpy(a) for a in _ssd_inputs(9, 1, 80, 2, 16, 1, 8)]
+    x, dt, A, Bm, Cm, D = args
+    fn = SSD_FORMS[form]
+    full = fn(*args, chunk=16)
+    y1, st1 = fn(x[:, :48], dt[:, :48], A, Bm[:, :48], Cm[:, :48], D,
+                 chunk=16, return_state=True)
+    y2 = fn(x[:, 48:], dt[:, 48:], A, Bm[:, 48:], Cm[:, 48:], D, chunk=16,
+            init_state=st1)
+    close(torch.cat([y1, y2], dim=1), full.numpy(), SSD_TOL)
+    want = jref.ssd_scan_chunked(*[jnp.asarray(a.numpy()) for a in args],
+                                 chunk=16)
+    close(full, want, SSD_TOL)
+
+
+def test_ssd_step_matches_scan():
+    """The sequential ssd_step over tokens equals the batched scan, and
+    each step equals the JAX package's ssd_step."""
+    arrays = _ssd_inputs(13, 1, 12, 2, 8, 1, 4)
+    x, dt, A, Bm, Cm, D = [torch.from_numpy(a) for a in arrays]
+    jx, jdt, jA, jB, jC, jD = [jnp.asarray(a) for a in arrays]
+    want = tref.ssd_scan(x, dt, A, Bm, Cm, D)
+    state = torch.zeros((1, 2, 8, 4))
+    jstate = jnp.zeros((1, 2, 8, 4), jnp.float32)
+    outs = []
+    for t in range(12):
+        y, state = ops.ssd_step(x[:, t], dt[:, t], A, Bm[:, t], Cm[:, t], D,
+                                state)
+        jy, jstate = jref.ssd_step(jx[:, t], jdt[:, t], jA, jB[:, t],
+                                   jC[:, t], jD, jstate)
+        close(y, jy, SSD_TOL)
+        close(state, jstate, SSD_TOL)
+        outs.append(y)
+    close(torch.stack(outs, dim=1), want.numpy(), SSD_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_conv1d_step_matches_batch(dtype):
+    """The rolling-buffer conv step equals the whole-sequence conv, and
+    both equal the JAX package's (in bf16 too: each rounds once, from the
+    same f32 sum)."""
+    B, S, C, W = 2, 10, 8, 4
+    rng = np.random.default_rng(17)
+    (jx, tx), (jw, tw) = both(rand(rng, B, S, C), dtype), both(
+        rand(rng, W, C), dtype)
+    jb, tb = both(rand(rng, C, scale=0.1), dtype)
+    want = ops.causal_conv1d(tx, tw, tb)
+    assert want.dtype == TDT[dtype]
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == "float32" else \
+        TOL["bfloat16"]
+    close(want, jref.causal_conv1d(jx, jw, jb), tol)
+    buf = torch.zeros((B, W - 1, C), dtype=TDT[dtype])
+    outs = []
+    for t in range(S):
+        y, buf = ops.causal_conv1d_step(tx[:, t], tw, tb, buf)
+        outs.append(y)
+    close(torch.stack(outs, 1), want.float().numpy(), tol)
+
+
+def test_conv1d_step_promotes_the_buffer_like_the_reference():
+    """An 8-bit variant's decode: f32 activations against the cache's
+    bf16 buffer give an f32 buffer, in both packages."""
+    rng = np.random.default_rng(18)
+    (jx, tx), (jw, tw), (jb, tb) = (both(rand(rng, *s))
+                                    for s in ((2, 8), (4, 8), (8,)))
+    jbuf, tbuf = both(rand(rng, 2, 3, 8), "bfloat16")
+    jy, jnew = jref.causal_conv1d_step(jx, jw, jb, jbuf)
+    ty, tnew = ops.causal_conv1d_step(tx, tw, tb, tbuf)
+    assert tnew.dtype == torch.float32 and jnew.dtype == jnp.float32
+    close(ty, jy, dict(rtol=1e-5, atol=1e-5))
+    np.testing.assert_array_equal(tnew.numpy(), np.asarray(jnew))
+
+
 def test_wrappers_refuse_non_cpu_non_cuda_tensors():
     """Only a CPU tensor takes the plain version; anything else goes to
     the kernel's checks, which refuse a device that is not CUDA."""
@@ -189,3 +345,7 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors():
         ops.quant_matmul(torch.zeros((2, 8), device="meta"),
                          torch.zeros((8, 4), dtype=torch.int8, device="meta"),
                          torch.zeros((1, 4), device="meta"))
+    m = functools.partial(torch.zeros, device="meta")
+    with pytest.raises(ValueError):
+        ops.ssd_scan(m((1, 4, 2, 8)), m((1, 4, 2)), m(2), m((1, 4, 1, 4)),
+                     m((1, 4, 1, 4)), m(2))

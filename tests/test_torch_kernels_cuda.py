@@ -1,7 +1,8 @@
 """Each hand-written Hopper kernel against its plain PyTorch version, on
 the card (marked ``cuda``; skipped without an sm_90 device).  The shapes
-are the sweeps of ``test_kernels.py`` plus the main path's widths, in the
-dtype combinations the serving path uses.  Imports no JAX: it runs on
+are the sweeps of ``test_kernels.py`` plus the main path's widths
+(tinyllama's and gemma2's attention, D=256 with window and softcap;
+mamba2's scan), in the dtype combinations the serving path uses.  Imports no JAX: it runs on
 the machine with the card.
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
@@ -18,11 +19,18 @@ TOL = {"float32": dict(rtol=3e-5, atol=3e-5),
 QMM_TOL = dict(rtol=2e-4, atol=2e-4)
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 FLASH_SHAPES = [(1, 64, 4, 4, 32), (2, 160, 8, 4, 64), (1, 257, 6, 2, 128),
-                (2, 128, 25, 5, 64), (4, 12, 32, 4, 64)]
+                (2, 128, 25, 5, 64), (4, 12, 32, 4, 64), (4, 12, 8, 4, 256),
+                (1, 300, 8, 4, 256)]
 FLASH_MODES = [dict(window=32), dict(softcap=20.0), dict(window=16, prefix=8),
                dict(window=32, softcap=50.0, prefix=4), dict(q_offset=64)]
 DECODE_SHAPES = [(2, 300, 8, 4, 64), (1, 64, 4, 4, 32), (3, 1000, 14, 2, 64),
-                 (4, 20, 32, 4, 64)]
+                 (4, 20, 32, 4, 64), (4, 20, 8, 4, 256), (2, 300, 8, 4, 256)]
+# gemma2-2b's attention: window 4096 with logit softcap 50 (at D=256 above).
+GEMMA2_MODE = dict(window=4096, softcap=50.0)
+SSD_SHAPES = [(1, 64, 2, 16, 1, 8), (2, 96, 4, 32, 2, 16),
+              (1, 50, 2, 16, 1, 8), (2, 128, 48, 64, 1, 128),
+              (4, 12, 48, 64, 1, 128),  # mamba2-780m serving prefill
+              (1, 300, 48, 64, 1, 128)]  # several 64-token chunks, ragged
 QMM_SHAPES = [(64, 256, 128, 128, 8), (100, 384, 200, 128, 8),
               (32, 128, 64, 32, 4), (8, 512, 512, 512, 8)]
 
@@ -46,7 +54,7 @@ def _on(dev, *arrays, dtype="float32"):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,H,KV,D", FLASH_SHAPES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("kwargs", [{}] + FLASH_MODES)
+@pytest.mark.parametrize("kwargs", [{}] + FLASH_MODES + [GEMMA2_MODE])
 def test_flash_attention_kernel(sm90, B, S, H, KV, D, dtype, kwargs):
     rng = np.random.default_rng(8)
     q, k, v = _on(sm90, rand(rng, B, S, H, D), rand(rng, B, S, KV, D),
@@ -66,7 +74,7 @@ def test_flash_attention_kernel(sm90, B, S, H, KV, D, dtype, kwargs):
     ("float32", "float32"), ("bfloat16", "bfloat16"),
     ("float32", "bfloat16"), ("bfloat16", "float32")])
 @pytest.mark.parametrize("kwargs", [{}, dict(window=64), dict(softcap=30.0),
-                                    dict(window=32, prefix=8)])
+                                    dict(window=32, prefix=8), GEMMA2_MODE])
 def test_decode_attention_kernel(sm90, B, T, H, KV, D, dtype, kv_dtype,
                                  kwargs):
     rng = np.random.default_rng(9)
@@ -95,3 +103,83 @@ def test_quant_matmul_kernel(sm90, M, K, N, group, bits, dtype):
     tol = QMM_TOL if dtype == "float32" else TOL["bfloat16"]
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), **tol)
+
+
+def _ssd_inputs(dev, B, S, H, P, G, N, dtype):
+    rng = np.random.default_rng(12)
+    x = rand(rng, B, S, H, P, scale=0.5)
+    dt = np.logaddexp(rand(rng, B, S, H), 0).astype(np.float32)
+    A = -np.exp(rand(rng, H, scale=0.5))
+    Bm, Cm = rand(rng, B, S, G, N, scale=0.3), rand(rng, B, S, G, N,
+                                                    scale=0.3)
+    D = rand(rng, H)
+    init = rand(rng, B, H, P, N, scale=0.5)
+    xs, dts, Bs, Cs = _on(dev, x, dt, Bm, Cm, dtype=dtype)
+    As, Ds, inits = _on(dev, A, D, init)
+    return xs, dts, As, Bs, Cs, Ds, inits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,P,G,N", SSD_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_init", [False, True])
+def test_ssd_scan_kernel(sm90, B, S, H, P, G, N, dtype, with_init):
+    """y and the final state against the sequential oracle (f32: 2e-4;
+    bf16 inputs: y at the bf16 tolerance, the f32 state at 2e-4), and one
+    launch counted per call."""
+    x, dt, A, Bm, Cm, D, init = _ssd_inputs(sm90, B, S, H, P, G, N, dtype)
+    init = init if with_init else None
+    before = ops.ssd_scan.launches
+    y, state = ops.ssd_scan(x, dt, A, Bm, Cm, D, init_state=init,
+                            return_state=True)
+    torch.cuda.synchronize()
+    assert ops.ssd_scan.launches == before + 1
+    assert y.dtype == x.dtype and state.dtype == torch.float32
+    want_y, want_s = tref.ssd_scan(x, dt, A, Bm, Cm, D, init_state=init,
+                                   return_state=True)
+    tol = dict(rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(
+        y.float().cpu().numpy(), want_y.float().cpu().numpy(),
+        **(tol if dtype == "float32" else TOL["bfloat16"]))
+    np.testing.assert_allclose(state.cpu().numpy(), want_s.cpu().numpy(),
+                               **tol)
+    y_only = ops.ssd_scan(x, dt, A, Bm, Cm, D, init_state=init)
+    assert ops.ssd_scan.launches == before + 2
+    assert torch.equal(y_only, y)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_kernel_reads_column_slices_in_place(sm90):
+    """The model hands the scan column slices of one (B, S, C) tensor:
+    the kernel reads them through their row stride and agrees with the
+    same inputs made contiguous."""
+    B, S, H, P, G, N = 2, 70, 4, 16, 1, 8
+    rng = np.random.default_rng(13)
+    (xbc,) = _on(sm90, rand(rng, B, S, H * P + 2 * G * N, scale=0.3))
+    x = xbc[..., :H * P].reshape(B, S, H, P)
+    Bm = xbc[..., H * P:H * P + G * N].reshape(B, S, G, N)
+    Cm = xbc[..., H * P + G * N:].reshape(B, S, G, N)
+    assert not x.is_contiguous()
+    dt, A, D = _on(sm90, np.logaddexp(rand(rng, B, S, H), 0),
+                   -np.exp(rand(rng, H)), rand(rng, H))
+    got = ops.ssd_scan(x, dt, A, Bm, Cm, D)
+    want = ops.ssd_scan(x.contiguous(), dt, A, Bm.contiguous(),
+                        Cm.contiguous(), D)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_kernel_refuses_what_it_cannot_take(sm90):
+    x, dt, A, Bm, Cm, D, _ = _ssd_inputs(sm90, 1, 8, 4, 16, 2, 8, "float32")
+    with pytest.raises(TypeError):
+        ops.ssd_scan(x, dt.bfloat16(), A, Bm, Cm, D)
+    with pytest.raises(TypeError):
+        ops.ssd_scan(x.half(), dt.half(), A, Bm.half(), Cm.half(), D)
+    with pytest.raises(ValueError):  # H % G != 0
+        ops.ssd_scan(x[:, :, :3], dt[:, :, :3], A[:3], Bm, Cm, D[:3])
+    with pytest.raises(ValueError):  # P beyond the shared-memory state
+        ops.ssd_scan(torch.zeros((1, 8, 4, 65), device=sm90), dt, A, Bm, Cm,
+                     D)
+    with pytest.raises(ValueError):  # mixed devices
+        ops.ssd_scan(x, dt, A.cpu(), Bm, Cm, D)

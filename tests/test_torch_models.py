@@ -1,9 +1,10 @@
 """The port's model, zoo and budget math against the JAX package's.
 
-Reduced tinyllama with the reference's weights carried over as numpy:
-prefill logits of the 32-, 16- and 8-bit variants against
-``repro.models.transformer.prefill``, and 8-token greedy decodes against
-``repro.serving.server._generate_tokens``.  For all ten configs: the
+Reduced tinyllama and mamba2 with the reference's weights carried over
+as numpy: prefill logits (and mamba2's SSM cache) of the 32-, 16- and
+8-bit variants against ``repro.models.transformer.prefill``, and 8-token
+greedy decodes against ``repro.serving.server._generate_tokens``; reduced
+gemma2's prefill and greedy decodes.  For all ten configs: the
 configs, ``params_nbytes`` per zoo variant, ``zoo_from_config`` and
 ``kv_cache_mb`` equal to the reference's, at reduced size and (by shape
 math, no weights) at full size.
@@ -134,8 +135,123 @@ def test_windowed_softcapped_family_prefill_matches_reference():
                                **LOGIT_TOL[32])
 
 
-@pytest.mark.parametrize("name", ["mamba2-780m", "hymba-1.5b",
-                                  "olmoe-1b-7b"])
+@pytest.fixture(scope="module")
+def mamba2():
+    cfg = jget("mamba2-780m", reduced=True)
+    return cfg, JT.init_params(cfg, jax.random.key(3), jnp.float32)
+
+
+def _mamba2_prompts(cfg, S):
+    return np.random.default_rng(S).integers(
+        0, cfg.vocab_size, (2, S)).astype(np.int32)
+
+
+@pytest.mark.parametrize("bits", [32, 16, 8])
+def test_mamba2_zoo_variant_matches_reference_bit_for_bit(mamba2, bits):
+    _, params = mamba2
+    jvar, tvar = _variants(params, bits)
+    got, want = _flat(tvar), _flat(TT.params_from_numpy(_np_tree(jvar)))
+    assert got.keys() == want.keys()
+    for path, w in want.items():
+        assert got[path].dtype == w.dtype, path
+        assert torch.equal(got[path], w), path
+    if bits == 8:  # depthwise conv taps are never quantized
+        assert not TQ.is_quantized(tvar["layers"]["conv_w"])
+        assert TQ.is_quantized(tvar["layers"]["ssm_in"])
+
+
+# 20 tokens cross the reduced config's 16-token chunk with a ragged tail;
+# 1 and 2 are shorter than the conv's 3-token tail (zeros in front).
+@pytest.mark.parametrize("S", [20, 1, 2])
+@pytest.mark.parametrize("bits", [32, 16, 8])
+def test_mamba2_prefill_logits_and_cache_match_reference(mamba2, bits, S):
+    cfg, params = mamba2
+    jvar, tvar = _variants(params, bits)
+    prompts = _mamba2_prompts(cfg, S)
+    want, jcache = JT.prefill(cfg, jvar, {"tokens": jnp.asarray(prompts)},
+                              max_len=S + 4)
+    got, tcache = TT.prefill(tget("mamba2-780m", reduced=True), tvar,
+                             {"tokens": torch.from_numpy(prompts)},
+                             max_len=S + 4)
+    assert set(tcache) == set(jcache) == {"state", "conv", "lengths"}
+    assert tcache["state"].dtype == torch.float32
+    assert tcache["conv"].dtype == torch.bfloat16
+    got_s, want_s = tcache["state"].numpy(), np.asarray(jcache["state"])
+    got_c = tcache["conv"].float().numpy()
+    want_c = np.asarray(jcache["conv"].astype(jnp.float32))
+    got, want = got.numpy(), np.asarray(want)
+    if bits == 16:
+        # bf16 products round at other points in the two packages, and
+        # the scan carries the difference through the layers: hold the
+        # logits and the cache as relative errors at the bf16 tolerance.
+        for g, w in ((got, want), (got_s, want_s), (got_c, want_c)):
+            rel = np.linalg.norm(g - w) / np.linalg.norm(w)
+            assert rel < LOGIT_TOL[16]["rtol"], rel
+    else:
+        np.testing.assert_allclose(got, want, **LOGIT_TOL[bits])
+        np.testing.assert_allclose(got_s, want_s, rtol=2e-4, atol=2e-4)
+        np.testing.assert_array_equal(got_c, want_c)
+    np.testing.assert_array_equal(tcache["lengths"].numpy(),
+                                  np.asarray(jcache["lengths"]))
+
+
+def test_mamba2_decode_step_keeps_the_cache_types(mamba2):
+    """The 8-bit variant decodes its conv buffer in f32 (its embedding
+    stays f32); the port stores it in the cache's bf16 as the reference's
+    serving loop casts it, and the state and buffer match that cast."""
+    cfg, params = mamba2
+    jvar, tvar = _variants(params, 8)
+    prompts = _mamba2_prompts(cfg, 20)
+    tok = prompts[:, -1]
+    _, jcache = JT.prefill(cfg, jvar, {"tokens": jnp.asarray(prompts)},
+                           max_len=24)
+    _, jnew = JT.decode_step(cfg, jvar, jcache, jnp.asarray(tok))
+    assert jnew["conv"].dtype == jnp.float32
+    _, tcache = TT.prefill(tget("mamba2-780m", reduced=True), tvar,
+                           {"tokens": torch.from_numpy(prompts)}, max_len=24)
+    _, tnew = TT.decode_step(tget("mamba2-780m", reduced=True), tvar,
+                             tcache, torch.from_numpy(tok))
+    assert tnew["conv"].dtype == torch.bfloat16
+    assert tnew["state"].dtype == torch.float32
+    np.testing.assert_array_equal(
+        tnew["conv"].float().numpy(),
+        np.asarray(jnew["conv"].astype(jnp.bfloat16).astype(jnp.float32)))
+    np.testing.assert_allclose(tnew["state"].numpy(),
+                               np.asarray(jnew["state"]), rtol=2e-4,
+                               atol=2e-4)
+
+
+@pytest.mark.parametrize("bits", [32, 16, 8])
+def test_mamba2_greedy_decode_ids_match_reference(mamba2, bits):
+    """8 greedy tokens after a 20-token prompt: the SSM state and the conv
+    buffer carried through the decode loop in the cache's types."""
+    cfg, params = mamba2
+    jvar, tvar = _variants(params, bits)
+    prompts = _mamba2_prompts(cfg, 20)
+    want = np.asarray(jgen(cfg, jvar, jnp.asarray(prompts), max_new=8,
+                           max_len=28))
+    got = tgen(tget("mamba2-780m", reduced=True), tvar,
+               torch.from_numpy(prompts), max_new=8, max_len=28)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("bits", [32, 8])
+def test_gemma2_greedy_decode_ids_match_reference(bits):
+    """Reduced gemma2 decodes past its 8-token window: the windowed and
+    softcapped decode path against the reference's serving loop."""
+    cfg = jget("gemma2-2b", reduced=True)
+    params = JT.init_params(cfg, jax.random.key(5), jnp.float32)
+    jvar, tvar = _variants(params, bits)
+    prompts = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 12)).astype(np.int32)
+    want = np.asarray(jgen(cfg, jvar, jnp.asarray(prompts), max_new=8,
+                           max_len=20))
+    got = tgen(tget("gemma2-2b", reduced=True), tvar,
+               torch.from_numpy(prompts), max_new=8, max_len=20)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("name", ["hymba-1.5b", "olmoe-1b-7b"])
 def test_unported_families_raise_naming_the_roadmap_item(name):
     cfg = tget(name, reduced=True)
     params = TT.init_params(cfg, 0, torch.float32, device="cpu")

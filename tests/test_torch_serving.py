@@ -96,6 +96,52 @@ def test_real_server_serves_on_cpu():
         assert tr.host[8]["layers"]["wq"]["q"].dtype == torch.int8
 
 
+def test_real_server_serves_the_three_tenant_mix_on_cpu():
+    """The serving benchmark's tenants (tinyllama, mamba2, gemma2) at
+    reduced size through the Batcher on the CPU: every request served,
+    the event invariant holds, and each mamba2 batch's ids equal the
+    port's own greedy decode of the same prompts on the variant served."""
+    from repro_torch.serving import Batcher, Request
+    from repro_torch.serving.server import _generate_tokens
+
+    srv = TServer.build(tapi.ServingConfig(
+        tenants=tuple(tapi.TenantSpec(n) for n in TENANTS),
+        executor="real", kv_headroom_shape=(4, 20),
+        batching=tapi.BatchingSpec(max_batch=4)), device="cpu")
+    rng = np.random.default_rng(4)
+    batcher = Batcher(max_batch=4)
+    results = []
+    now = 0.0
+    for i in range(12):
+        app = TENANTS[i % 3]
+        vocab = srv.tenants[app].cfg.vocab_size
+        plen = int(rng.integers(4, 13))
+        batcher.submit(Request(app=app, prompt=rng.integers(
+            0, vocab, plen).astype(np.int32), max_new=6, arrival_ms=now))
+        now += 300.0
+        if batcher.pending() >= 3 or i == 11:
+            while (b := batcher.next_batch()) is not None:
+                srv.predict_and_preload(now)
+                results.append((b, srv.serve(b.app, b.prompts, b.max_new,
+                                             now_ms=now)))
+    srv.engine.check_event_invariant()
+    stats = srv.stats()
+    srv.close()
+    assert stats.requests == sum(len(b.requests) for b, _ in results) == 12
+    assert not any(r.failed for _, r in results)
+    assert {b.app for b, _ in results} == set(TENANTS)
+    mamba = srv.tenants["mamba2-780m"]
+    for b, r in results:
+        assert r.tokens.shape == (len(b.requests), 6)
+        if b.app != "mamba2-780m":
+            continue
+        with torch.inference_mode():
+            want = _generate_tokens(
+                mamba.cfg, mamba.host[r.bits], torch.from_numpy(b.prompts),
+                max_new=6, max_len=b.prompts.shape[1] + 6)
+        np.testing.assert_array_equal(r.tokens, want.numpy())
+
+
 def test_real_server_generate_shapes_on_cpu():
     srv = TServer.build(tapi.ServingConfig(
         tenants=(tapi.TenantSpec("tinyllama-1.1b"),), executor="real",
