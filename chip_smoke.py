@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 1. Prints the card (``nvidia-smi`` name and power limit) and builds the
-   port's four Hopper kernels from ``src/repro_torch/csrc`` (one ``nvcc``
-   each, in parallel).
+   port's Hopper kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
+   source, all in parallel; the dense and the paged decode share
+   ``decode_attention.cu``).
 2. Holds each kernel against its plain PyTorch version on the card, at the
    sweep shapes of ``tests/test_kernels.py`` and at the main path's
    shapes (every projection of the three tenants; tinyllama's and
@@ -13,7 +14,9 @@
    scan at a serving prefill and at a 2048-token prompt), and times
    kernel, plain version, the bound (bytes over 3.35 TB/s or operations
    over the peak rate of their type) and, for attention,
-   ``scaled_dot_product_attention`` as a yardstick.
+   ``scaled_dot_product_attention`` as a yardstick.  The paged decode's
+   sweep runs every q/pool dtype pair and masking mode, rows with
+   nothing visible, and holds it to the dense kernel too.
 3. Serves the serving benchmark's three tenants, tinyllama-1.1b,
    mamba2-780m and gemma2-2b, at full width (random weights from seeds)
    through ``EdgeServer.build(ServingConfig(executor="real"))``:
@@ -24,7 +27,19 @@
 4. Checks each served model: the card's prefill logits (and, for the
    8-bit variants, greedy tokens) against the plain versions on the host,
    and profiles one ``generate`` per tenant and variant.
-5. Prints the kernels as one JSON line, the card, and last
+5. The paged decode's path, over real decode caches: tinyllama-1.1b
+   (8-bit, 4 prompts of 1024 tokens) and gemma2-2b (16-bit, 2 prompts of
+   4200, past its 4096-token window) prefill on the card and take
+   REPLAY_STEPS greedy steps densely, then again with every layer's
+   decode read through ``paginate_kv`` pages (16 and 128 rows) and
+   ``paged_decode_attention``: equal greedy ids, logits within the decode
+   kernel's tolerance.  Its launch count is zeroed just before and read
+   just after.  Times one layer's call and one decode step on the bf16
+   cache against the int8 cache.
+6. The int8 KV cache and the ``uniform_pos`` decode of both attention
+   tenants at the serving batch, on the card against the host's plain
+   run from the same inputs, by step 4's rules.
+7. Prints the kernels as one JSON line, the card, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a CUDA device, or without
@@ -60,6 +75,12 @@ FLASH_MODES = [{}, dict(window=32), dict(softcap=20.0),
 DECODE_SWEEP = [(2, 300, 8, 4, 64), (1, 64, 4, 4, 32), (3, 1000, 14, 2, 64)]
 DECODE_MODES = [{}, dict(window=64), dict(softcap=30.0),
                 dict(window=32, prefix=8)]
+PAGED_SWEEP = [(2, 300, 8, 4, 64, 128), (3, 96, 4, 2, 32, 16),
+               (1, 64, 4, 4, 32, 64)]  # tests/test_kernels.py
+DTYPE_PAIRS = [(torch.float32, torch.float32),
+               (torch.bfloat16, torch.bfloat16),
+               (torch.float32, torch.bfloat16),
+               (torch.bfloat16, torch.float32)]
 QMM_SWEEP = [(64, 256, 128, 128, 8), (100, 384, 200, 128, 8),
              (32, 128, 64, 32, 4), (8, 512, 512, 512, 8)]
 SSD_SWEEP = [(1, 64, 2, 16, 1, 8), (2, 96, 4, 32, 2, 16),
@@ -72,6 +93,15 @@ SSD_CHUNK = 64  # the kernel's chunk (kQ in csrc/ssd_scan.cu)
 ARCHS = ("tinyllama-1.1b", "mamba2-780m", "gemma2-2b")
 MAX_BATCH, MAX_PROMPT, MAX_NEW, REQUESTS = 4, 12, 8, 18
 LONG_PROMPT = 2048  # a long mamba2 prefill: the scan bound by operations
+
+# The paged decode's path: real decode caches of the two attention
+# tenants, (arch, variant bits, batch, prompt length); gemma2's prompt
+# runs past its local layers' 4096-token window.
+REPLAY = (("tinyllama-1.1b", 8, 4, 1024), ("gemma2-2b", 16, 2, 4200))
+REPLAY_STEPS = 3
+PAGE_SIZES = (16, 128)
+# The int8 KV cache and the deferred (uniform_pos) write: (arch, bits).
+CACHE_LAYOUTS = (("tinyllama-1.1b", 8), ("gemma2-2b", 16))
 
 
 def fail(msg: str) -> None:
@@ -195,10 +225,8 @@ def check_flash(ops, ref, g, cfgs) -> dict:
 def check_decode(ops, ref, g, cfgs) -> dict:
     worst = 0.0
     n = 0
-    combos = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
-              (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)]
     for (B, T, H, KV, D) in DECODE_SWEEP:
-        for qdt, kvdt in combos:
+        for qdt, kvdt in DTYPE_PAIRS:
             q = rand(g, B, H, D, dtype=qdt)
             k, v = rand(g, B, T, KV, D, dtype=kvdt), rand(g, B, T, KV, D,
                                                           dtype=kvdt)
@@ -261,6 +289,73 @@ def check_decode(ops, ref, g, cfgs) -> dict:
               f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}), max abs err "
               f"{r['max_abs_err']:.3g}")
     return rows[cfgs[0].name, torch.float32]
+
+
+def check_paged(ops, ref, g) -> None:
+    """The paged decode on test_kernels.py's sweep, every q/pool dtype
+    pair and masking mode: against its plain version, and against the
+    dense kernel on the same logical cache (the largest difference is
+    recorded; one body serves both layouts).  Then rows with nothing
+    visible (lengths == 0), against the plain version only (it averages
+    the gathered rows, which are not the dense cache's)."""
+    worst = worst_dense = 0.0
+    n = 0
+    for (B, T, H, KV, D, ps) in PAGED_SWEEP:
+        for qdt, kvdt in DTYPE_PAIRS:
+            q = rand(g, B, H, D, dtype=qdt)
+            k, v = (rand(g, B, T, KV, D, dtype=kvdt) for _ in range(2))
+            lens = torch.randint(1, T, (B,), generator=g, device="cuda",
+                                 dtype=torch.int32)
+            pages = ops.paginate_kv(k, v, lens, ps)
+            tol = TOL[torch.bfloat16 if torch.bfloat16 in (qdt, kvdt)
+                      else torch.float32]
+            for kw in DECODE_MODES:
+                what = f"paged_decode_attention {B, T, H, KV, D, ps} " \
+                       f"{qdt}/{kvdt} {kw}"
+                got = ops.paged_decode_attention(q, *pages, lens, **kw)
+                worst = max(worst, compare(
+                    what, got, ref.paged_decode_attention(q, *pages, lens,
+                                                          **kw), tol, tol))
+                worst_dense = max(worst_dense, compare(
+                    what + " vs dense kernel", got,
+                    ops.decode_attention(q, k, v, lens, **kw), tol, tol))
+                n += 1
+            empty = torch.zeros_like(lens)
+            empty[1:] = lens[1:]
+            epages = ops.paginate_kv(k, v, empty, ps)
+            worst = max(worst, compare(
+                f"paged_decode_attention {B, T, H, KV, D, ps} {qdt}/{kvdt} "
+                "lengths[0] == 0",
+                ops.paged_decode_attention(q, *epages, empty),
+                ref.paged_decode_attention(q, *epages, empty), tol, tol))
+            n += 1
+    # The serving decode's shape (tinyllama's last step, f32 query, bf16
+    # cache, 16-row pages), paged against dense.
+    B, T, H, KV, D = MAX_BATCH, MAX_PROMPT + MAX_NEW, 32, 4, 64
+    q = rand(g, B, H, D)
+    k, v = (rand(g, B, T, KV, D, dtype=torch.bfloat16) for _ in range(2))
+    lens = torch.tensor([T, T - 3, T - 5, T - 8], dtype=torch.int32,
+                        device="cuda")
+    pages = ops.paginate_kv(k, v, lens, 16)
+    paged = time_ms(lambda: ops.paged_decode_attention(q, *pages, lens))
+    dense = time_ms(lambda: ops.decode_attention(q, k, v, lens))
+    print(f"paged_decode_attention: {n} cases within tolerance (f32 "
+          f"{TOL[torch.float32]}, bf16 {TOL[torch.bfloat16]}); sweep max abs "
+          f"err {worst:.3g}; max abs diff from the dense kernel on the same "
+          f"cache {worst_dense:.3g}; at the serving decode shape (B={B}, "
+          f"T={T}, H={H}, KV={KV}, D={D}, page size 16): paged {paged:.4f} ms"
+          f", dense {dense:.4f} ms")
+
+
+def visible(lens, T: int, window: int, prefix: int) -> np.ndarray:
+    """(B, T) mask of the keys a decode reads: before each row's length,
+    inside the window or the prefix."""
+    t = np.arange(T)[None, :]
+    lens = np.asarray(lens)[:, None]
+    vis = t < lens
+    if window:
+        vis &= (t >= lens - window) | (t < prefix)
+    return vis
 
 
 def ssd_inputs(g, B, S, H, P, G, N, dtype):
@@ -442,6 +537,27 @@ def check_qmm(ops, ref, g, cfgs) -> dict:
     return rows[cfgs[0].name]
 
 
+def kernel_ms(fn, reps: int = 5) -> float:
+    """Device time of one call of ``fn`` (one kernel launch): CUDA events
+    around the call, with a spin kernel queued just before, so that the
+    call is enqueued while the card spins and the card never waits for
+    the host between the two events.  The median of ``reps`` calls.  (The
+    profiler recorded these single ctypes launches only now and then.)"""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
 def device_kernels(fn):
     """(wall ms, {kernel name: device ms}, kernels launched) of one call
     of ``fn``, from the profiler's CUDA activity (kernels of every
@@ -476,7 +592,7 @@ def bound(nbytes: float, ops_: float, dtype) -> dict:
 # ---------------------------------------------------------------------------
 # Phase 3: the main path
 # ---------------------------------------------------------------------------
-def serve(kernels) -> dict:
+def serve(kernels) -> tuple:
     from repro_torch.serving import Batcher, Request
     from repro_torch.serving.api import (BatchingSpec, EdgeServer,
                                          ServingConfig, TenantSpec)
@@ -539,8 +655,7 @@ def serve(kernels) -> dict:
         t0 = time.perf_counter()
         check_outputs(srv.tenants[name])
         print(f"checked {name} in {time.perf_counter() - t0:.1f} s")
-    srv.close()
-    return launches
+    return launches, srv
 
 
 def check_outputs(tr) -> None:
@@ -614,6 +729,388 @@ def check_outputs(tr) -> None:
     tr.set_variant(None)
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the paged decode over real decode caches
+# ---------------------------------------------------------------------------
+def pages_read(vis: np.ndarray, ps: int) -> int:
+    """Table entries the paged kernel reads: the pages holding visible
+    keys (``vis`` from :func:`visible`), over all rows."""
+    B, T = vis.shape
+    NP = -(-T // ps)
+    vis = np.pad(vis, ((0, 0), (0, NP * ps - T)))
+    return int(vis.reshape(B, NP, ps).any(-1).sum())
+
+
+def time_paged(ops, ref, arch, q, k, v, lens, kw) -> dict:
+    """One layer's call at a tenant's last replay step: the paged kernel
+    at each page size (event and device time), the dense kernel, the
+    plain version, SDPA over the dense layout, and the bound."""
+    B, H, D = q.shape
+    _, T, KV, _ = k.shape
+    window, prefix = kw.get("window", 0), kw.get("prefix", 0)
+    vis = visible(lens.cpu().numpy(), T, window, prefix)
+    n_vis = int(vis.sum())
+    # SDPA takes one dtype: the query cast to the cache's, a key mask
+    # (lengths and window; no softcap).
+    t = torch.arange(T, device="cuda")[None, :]
+    mask = t < lens[:, None]
+    if window:
+        mask &= (t >= lens[:, None] - window) | (t < prefix)
+    q4, kt, vt = q.to(k.dtype)[:, :, None, :], k.transpose(1, 2), \
+        v.transpose(1, 2)
+    row = dict(
+        dense_ms=time_ms(lambda: ops.decode_attention(q, k, v, lens, **kw)),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q4, kt, vt, attn_mask=mask[:, None, None, :], enable_gqa=True)))
+    row["dense_device_ms"] = kernel_ms(
+        lambda: ops.decode_attention(q, k, v, lens, **kw))
+    for ps in PAGE_SIZES:
+        pages = ops.paginate_kv(k, v, lens, ps)
+        got = ops.paged_decode_attention(q, *pages, lens, **kw)
+        err = compare(f"replay {arch} paged vs plain, page size {ps}", got,
+                      ref.paged_decode_attention(q, *pages, lens, **kw),
+                      TOL[torch.bfloat16], TOL[torch.bfloat16])
+        nbytes = (2 * n_vis * KV * D * k.element_size()
+                  + 2 * q.numel() * q.element_size() + 4 * B
+                  + 4 * pages_read(vis, ps))
+        row[ps] = dict(
+            max_abs_err=err,
+            ms=time_ms(lambda: ops.paged_decode_attention(q, *pages, lens,
+                                                          **kw)),
+            device_ms=kernel_ms(lambda: ops.paged_decode_attention(
+                q, *pages, lens, **kw)),
+            plain_ms=time_ms(lambda: ref.paged_decode_attention(
+                q, *pages, lens, **kw), iters=10),
+            **bound(nbytes, 4 * n_vis * H * D, q.dtype))
+    return row
+
+
+def step_time(fn) -> tuple:
+    """(wall ms over 3 synchronized calls, device busy ms of one profiled
+    call) of one decode step."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / 3
+    _, kern, _ = device_kernels(fn)
+    return wall, sum(kern.values())
+
+
+def replay(srv, ops, ref) -> tuple:
+    """Each attention tenant's real decode cache, read through pages.
+
+    Full width, the tenants' own weights: prefill a long batch on the
+    card, then REPLAY_STEPS greedy decode steps twice from the same
+    cache, once dense and once with a hook on ``ops.decode_attention``
+    that pages every layer's cache with ``paginate_kv`` at each page
+    size, runs ``ops.paged_decode_attention``, holds it to the dense
+    kernel and passes the paged result on down the layer.  The greedy
+    ids must be equal and the logits within the decode kernel's bf16
+    tolerance.  Then times one layer's call, and one decode step on the
+    bf16 cache against one on the same cache quantized to int8."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    dense_fn = ops.decode_attention
+    tol = TOL[torch.bfloat16]  # the caches are bf16
+    rows = {}
+    launches = 0
+    for arch, bits, B, S in REPLAY:
+        tr = srv.tenants[arch]
+        cfg = tr.cfg
+        tr.set_variant(tr.zoo.by_bits(bits))
+        params = tr.device_params
+        prompts = torch.from_numpy(np.random.default_rng(5).integers(
+            0, cfg.vocab_size, (B, S)).astype(np.int32)).cuda()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            logits0, cache0 = T.prefill(cfg, params, {"tokens": prompts},
+                                        max_len=S + REPLAY_STEPS + 1)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        calls = {}
+        worst = [0.0]
+
+        def hook(q, k_cache, v_cache, lengths, **kw):
+            want = dense_fn(q, k_cache, v_cache, lengths, **kw)
+            for ps in PAGE_SIZES:
+                pages = ops.paginate_kv(k_cache, v_cache, lengths, ps)
+                got = ops.paged_decode_attention(q, *pages, lengths, **kw)
+                worst[0] = max(worst[0], compare(
+                    f"replay {arch} page size {ps}", got, want, tol, tol))
+            calls[kw.get("window", 0)] = (q, k_cache, v_cache, lengths, kw)
+            return got
+
+        def run(fn):
+            cache = {n: t.clone() for n, t in cache0.items()}
+            logits, out, ids = logits0, [], []
+            ops.decode_attention = fn
+            try:
+                with torch.inference_mode():
+                    for _ in range(REPLAY_STEPS):
+                        ids.append(T.greedy_token(cfg, logits))
+                        logits, cache = T.decode_step(cfg, params, cache,
+                                                      ids[-1])
+                        out.append(logits)
+            finally:
+                ops.decode_attention = dense_fn
+            return torch.stack(out), torch.stack(ids), cache
+
+        t0 = time.perf_counter()
+        dense_logits, dense_ids, cache = run(dense_fn)
+        ops.paged_decode_attention.launches = 0
+        paged_logits, paged_ids, _ = run(hook)
+        launches += ops.paged_decode_attention.launches
+        torch.cuda.synchronize()
+        t_steps = time.perf_counter() - t0
+        if not torch.equal(dense_ids, paged_ids):
+            raise AssertionError(f"replay {arch}: greedy ids differ: "
+                                 f"{dense_ids.tolist()} vs "
+                                 f"{paged_ids.tolist()}")
+        logit_diff = compare(f"replay {arch} step logits", paged_logits,
+                             dense_logits, tol, tol)
+        row = {w: time_paged(ops, ref, arch, *c) for w, c in calls.items()}
+        # One decode step at this context: the bf16 cache, and the same
+        # cache quantized to int8 (the plain-PyTorch int8 path).
+        tok = T.greedy_token(cfg, dense_logits[-1])
+        qcache = {"lengths": cache["lengths"]}
+        for n in ("k", "v"):
+            qcache[n], qcache[n + "_scale"] = L.quantize_kv(cache[n])
+        with torch.inference_mode():
+            bf16_step = step_time(lambda: T.decode_step(cfg, params, cache,
+                                                        tok))
+            int8_step = step_time(lambda: T.decode_step(cfg, params, qcache,
+                                                        tok))
+        rows[arch] = row
+        print(f"replay {arch} {bits}-bit, {B} x {S} prompt, "
+              f"{REPLAY_STEPS} steps: prefill {t_prefill:.2f} s, dense and "
+              f"paged steps {t_steps:.2f} s; greedy ids {dense_ids.tolist()} "
+              f"equal; paged vs dense: layer outputs max abs diff "
+              f"{worst[0]:.3g}, step logits {logit_diff:.3g}")
+        for w, r in row.items():
+            q, k = calls[w][0], calls[w][1]
+            print(f"  last step, layer with window {w} (B={B}, T="
+                  f"{k.shape[1]}, H={q.shape[1]}, KV={k.shape[2]}, D="
+                  f"{q.shape[2]}, q {q.dtype}/cache {k.dtype}): dense kernel "
+                  f"{r['dense_ms']:.4f} ms (device {r['dense_device_ms']:.4f}"
+                  f"), sdpa {r['library_ms']:.4f} ms; " + "; ".join(
+                      f"paged ps {ps}: {r[ps]['ms']:.4f} ms (device "
+                      f"{r[ps]['device_ms']:.4f}), plain "
+                      f"{r[ps]['plain_ms']:.4f} ms, bound "
+                      f"{r[ps]['bound_ms']:.6f} ms "
+                      f"({r[ps]['bound_by']}), max abs err "
+                      f"{r[ps]['max_abs_err']:.3g}" for ps in PAGE_SIZES))
+        print(f"  one decode step at {S + REPLAY_STEPS} tokens: bf16 cache "
+              f"wall {bf16_step[0]:.2f} ms (device busy {bf16_step[1]:.2f}"
+              f" ms), int8 cache wall {int8_step[0]:.2f} ms (device busy "
+              f"{int8_step[1]:.2f} ms)")
+        del cache0, cache, qcache, calls
+        tr.set_variant(None)
+        torch.cuda.empty_cache()
+    want = REPLAY_STEPS * len(PAGE_SIZES) * sum(
+        srv.tenants[a].cfg.num_layers for a, *_ in REPLAY)
+    if launches != want:
+        raise AssertionError(f"paged_decode_attention launched {launches} "
+                             f"times in the replay, not {want}")
+    first = rows[REPLAY[0][0]][0][PAGE_SIZES[0]]
+    r = rows[REPLAY[0][0]][0]
+    return launches, dict(max_abs_err=first["max_abs_err"], ms=first["ms"],
+                          plain_ms=first["plain_ms"],
+                          bound_ms=first["bound_ms"],
+                          bound_by=first["bound_by"],
+                          library_ms=r["library_ms"])
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the int8 KV cache and the deferred write, card against host
+# ---------------------------------------------------------------------------
+def card_decode(cfg, params, prompts, *, prefill_kw, step_kw):
+    """Prefill and MAX_NEW greedy decode steps on the card: the logits and
+    the greedy id of every step, and a host copy of the cache before each
+    step and after the last."""
+    from repro_torch.models import transformer as T
+
+    with torch.inference_mode():
+        logits, cache = T.prefill(cfg, params, {"tokens": prompts},
+                                  max_len=MAX_PROMPT + MAX_NEW, **prefill_kw)
+        out, ids = [logits], [T.greedy_token(cfg, logits)]
+        states = []
+        for _ in range(MAX_NEW):
+            states.append({n: t.to("cpu", copy=True)
+                           for n, t in cache.items()})
+            logits, cache = T.decode_step(cfg, params, cache, ids[-1],
+                                          **step_kw)
+            out.append(logits)
+            ids.append(T.greedy_token(cfg, logits))
+        states.append({n: t.to("cpu", copy=True) for n, t in cache.items()})
+    return torch.stack(out).cpu(), torch.stack(ids).cpu(), states
+
+
+def host_decode(cfg, params, prompts, ids, states, *, prefill_kw, step_kw):
+    """The host's plain run on the card's inputs: its prefill, then every
+    decode step from the card's cache before that step and the card's
+    token.  The steps do not depend on each other, so they run as one
+    batch of MAX_NEW x B rows.  Returns the logits and greedy ids of every
+    step, the host's cache after the prefill, and each step's written
+    token's cache entries (``{name: (L, B, ...)}``; the deferred write of
+    the stacked batch puts every row's token at the first step's
+    position)."""
+    from repro_torch.models import transformer as T
+
+    B = prompts.shape[0]
+    with torch.inference_mode():
+        logits, cache = T.prefill(cfg, params, {"tokens": prompts},
+                                  max_len=MAX_PROMPT + MAX_NEW, **prefill_kw)
+        stacked = {n: torch.cat([st[n] for st in states[:MAX_NEW]],
+                                dim=0 if n == "lengths" else 1)
+                   for n in states[0]}
+        tokens = ids[:MAX_NEW].reshape(MAX_NEW * B, *ids.shape[2:])
+        steps, after = T.decode_step(cfg, params, stacked, tokens, **step_kw)
+    out = torch.cat([logits[None], steps.reshape(MAX_NEW, B,
+                                                 *steps.shape[1:])])
+    pos = int(states[0]["lengths"][0])
+    written = [{n: t[:, i * B:(i + 1) * B, pos] for n, t in after.items()
+                if n != "lengths"} for i in range(MAX_NEW)]
+    return out, torch.stack([T.greedy_token(cfg, t) for t in out]), cache, \
+        written
+
+
+def cache_gap(card, host, bits: int) -> tuple:
+    """Hold the cache the card wrote to the host's.  At 8 bits (f32
+    activations): int8 k/v within one quantization step (a value near a
+    rounding boundary may round either way), scales within 2e-4, a bf16
+    cache within the bf16 tolerance.  At 16 bits the activations round at
+    other points on the two sides, so the dequantized (or bf16) cache and
+    the scales are held as relative L2 errors at the bf16 tolerance."""
+    flips = total = 0
+    worst = 0.0
+    for n in ("k", "v"):
+        got, want = card[n].float(), host[n].float()
+        scaled = n + "_scale" in host
+        if scaled:
+            gs, ws = card[n + "_scale"], host[n + "_scale"]
+            flips += int((card[n] != host[n]).sum())
+            total += got.numel()
+            if bits == 8:
+                compare(f"{n} scales", gs, ws, QMM_TOL, QMM_TOL)
+                err = (got * gs[..., None] - want * ws[..., None]).abs()
+                if (err > ws[..., None] * 1.001 + 1e-12).any():
+                    raise AssertionError(f"{n}: int8 cache beyond one "
+                                         "quantization step of the host's")
+                continue
+            worst = max(worst, rel_l2(gs, ws))
+            got, want = got * gs[..., None], want * ws[..., None]
+        if bits == 8:
+            compare(f"{n} cache", got, want, TOL[torch.bfloat16],
+                    TOL[torch.bfloat16])
+        else:
+            worst = max(worst, rel_l2(got, want))
+    if worst > TOL[torch.bfloat16]:
+        raise AssertionError(f"cache rel L2 err {worst:.3g} past the bf16 "
+                             "tolerance")
+    return flips, total, worst
+
+
+def gap_text(gaps, bits: int) -> str:
+    flips, total = sum(g[0] for g in gaps), sum(g[1] for g in gaps)
+    out = (f"{flips} of {total} int8 values differ from the host's"
+           if total else "bf16")
+    return out + (f", rel L2 err max {max(g[2] for g in gaps):.3g}"
+                  if bits == 16 else ", each by one step at most" if total
+                  else ", within 3e-2")
+
+
+CACHE_MODES = (("int8 cache", dict(prefill_kw=dict(quantize_cache=True),
+                                   step_kw={})),
+               ("uniform_pos", dict(prefill_kw={},
+                                    step_kw=dict(uniform_pos=True))))
+
+
+def check_cache_layouts(srv) -> None:
+    """For each attention tenant at the serving batch: the int8 KV cache
+    (``prefill(quantize_cache=True)`` and MAX_NEW greedy steps), then the
+    bf16 cache through ``decode_step(uniform_pos=True)``, on the card
+    against the host's plain run from the same inputs (each step from the
+    card's cache and token).  check_outputs's rules per step: 8-bit weights
+    within 2e-4 relative L2 with equal greedy ids; 16-bit within 3e-2, or
+    past that no further from the f32 evaluation of the same weights than
+    twice the plain run.  The uniform_pos path rounds its softmax weights
+    to the bf16 cache's type (as the reference does), so a weight on a
+    rounding boundary may round the other way on the two sides: at 8 bits
+    its logits are held to one bf16 step, 2^-8, not 2e-4.  The caches the
+    two write are held to each other by ``cache_gap``."""
+    for arch, bits in CACHE_LAYOUTS:
+        tr = srv.tenants[arch]
+        cfg = tr.cfg
+        tr.set_variant(tr.zoo.by_bits(bits))
+        prompts = torch.from_numpy(np.random.default_rng(6).integers(
+            0, cfg.vocab_size, (MAX_BATCH, MAX_PROMPT)).astype(np.int32))
+        for mode, kw in CACHE_MODES:
+            check_cache_layout(tr, bits, mode, kw, prompts)
+        tr.set_variant(None)
+    torch.cuda.empty_cache()
+
+
+def check_cache_layout(tr, bits: int, mode: str, kw: dict,
+                       prompts) -> None:
+    """One tenant and cache layout of :func:`check_cache_layouts`."""
+    from repro_torch.quant.quantize import tree_map
+
+    cfg = tr.cfg
+    t0 = time.perf_counter()
+    got, ids, states = card_decode(cfg, tr.device_params, prompts.cuda(),
+                                   **kw)
+    t_card = time.perf_counter() - t0
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{cfg.name} {mode}: non-finite logits")
+    t0 = time.perf_counter()
+    want, host_ids, cache, written = host_decode(
+        cfg, tr.host[bits], prompts, ids, states, **kw)
+    t_host = time.perf_counter() - t0
+    # The prefill's whole cache, then the token each step wrote (the
+    # card's at the step's own position).
+    pos = int(states[0]["lengths"][0])
+    gaps = [cache_gap(states[0], cache, bits)] + [
+        cache_gap({n: states[i + 1][n][:, :, pos + i] for n in w}, w,
+                  bits) for i, w in enumerate(written)]
+    rel = [rel_l2(g, w) for g, w in zip(got, want)]
+    line = (f"check {cfg.name} {bits}-bit {mode}: prefill + {MAX_NEW} "
+            f"steps on the card in {t_card:.2f} s, on the host in "
+            f"{t_host:.1f} s; logits rel L2 err per step max "
+            f"{max(rel):.3g}; prefill's cache: {gap_text(gaps[:1], bits)};"
+            f" the tokens the steps wrote: {gap_text(gaps[1:], bits)}")
+    if bits == 8:
+        tol = QMM_TOL if mode == "int8 cache" else 2.0 ** -8
+        line += f" (tol {tol:.3g})"
+        if max(rel) > tol or not torch.equal(ids, host_ids):
+            raise AssertionError(f"{line}; greedy ids {ids.tolist()} vs "
+                                 f"{host_ids.tolist()}")
+        line += "; greedy ids equal"
+    elif max(rel) > TOL[torch.bfloat16]:
+        # As check_outputs does: where a step is past the bf16
+        # tolerance, card and plain run against the same weights
+        # evaluated in f32 on the host.
+        exact, *_ = host_decode(
+            cfg, tree_map(lambda _, t: t.float() if
+                          t.is_floating_point() else t, tr.host[16]),
+            prompts, ids, states, **kw)
+        card_err = [rel_l2(g, e) for g, e in zip(got, exact)]
+        plain_err = [rel_l2(w, e) for w, e in zip(want, exact)]
+        line += (f" (tol {TOL[torch.bfloat16]}); against the f32 "
+                 f"evaluation: card max {max(card_err):.3g}, plain "
+                 f"max {max(plain_err):.3g} (tol 2x plain at each "
+                 "step past the bf16 tolerance)")
+        if any(r > TOL[torch.bfloat16] and c > 2 * p
+               for r, c, p in zip(rel, card_err, plain_err)):
+            raise AssertionError(line)
+    else:
+        line += f" (tol {TOL[torch.bfloat16]})"
+    print(line)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -640,6 +1137,7 @@ def main() -> None:
             "decode_attention": check_decode(ops, ref, g, cfgs),
             "flash_attention": check_flash(ops, ref, g, cfgs),
             "ssd_scan": check_ssd(ops, ref, g, cfgs[1])}
+    check_paged(ops, ref, g)
     torch.cuda.empty_cache()
     print(f"kernel checks took {time.perf_counter() - t0:.1f} s")
 
@@ -647,16 +1145,26 @@ def main() -> None:
                "decode_attention": ops.decode_attention,
                "flash_attention": ops.flash_attention,
                "ssd_scan": ops.ssd_scan}
-    launches = serve(kernels)
+    launches, srv = serve(kernels)
+    t0 = time.perf_counter()
+    launches["paged_decode_attention"], rows["paged_decode_attention"] = \
+        replay(srv, ops, ref)
+    print(f"replay took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    check_cache_layouts(srv)
+    print(f"cache layout checks took {time.perf_counter() - t0:.1f} s")
+    srv.close()
 
     replaces = {
         "quant_matmul": "src/repro/kernels/quant_matmul.py:102",
         "decode_attention": "src/repro/kernels/decode_attention.py:122",
         "flash_attention": "src/repro/kernels/flash_attention.py:124",
-        "ssd_scan": "src/repro/kernels/ssd_scan.py:137"}
-    out = [dict(name=k, route="cuda", source=f"src/repro_torch/csrc/{k}.cu",
+        "ssd_scan": "src/repro/kernels/ssd_scan.py:137",
+        "paged_decode_attention": "src/repro/kernels/decode_attention.py:191"}
+    out = [dict(name=k, route="cuda", source="src/repro_torch/csrc/"
+                f"{'decode_attention' if k.startswith('paged') else k}.cu",
                 replaces=replaces[k], launches=launches[k], **rows[k])
-           for k in kernels]
+           for k in replaces]
     print(json.dumps({"kernels": out}))
     print(card())
     print(json.dumps({"ok": True, "device": {

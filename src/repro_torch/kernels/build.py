@@ -104,11 +104,12 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launcher(name: str, argtypes) -> ctypes._CFuncPtr:
-    """The C launcher ``<name>_launch`` of kernel ``name`` (built on first
-    use), typed: pointers and the stream as ``c_void_p`` (a bare Python
-    int would be cut to 32 bits), the CUDA error code as the result."""
-    fn = getattr(library(name), f"{name}_launch")
+def launcher(name: str, argtypes, symbol: str = "") -> ctypes._CFuncPtr:
+    """The C launcher ``symbol`` (by default ``<name>_launch``) of kernel
+    source ``name`` (built on first use), typed: pointers and the stream
+    as ``c_void_p`` (a bare Python int would be cut to 32 bits), the CUDA
+    error code as the result."""
+    fn = getattr(library(name), symbol or f"{name}_launch")
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn

@@ -6,12 +6,16 @@ the CPU is computed by the plain PyTorch version in
 Hopper kernel, which raises on an input it cannot take.  There is no
 override and no silent fallback on a GPU.  ``quantize_weights``,
 ``ssd_step``, ``causal_conv1d`` and ``causal_conv1d_step`` are no kernels
-(as in the reference) and run the plain versions on any device.
+(as in the reference) and run the plain versions on any device;
+``paginate_kv`` lays a dense cache out as the pages and table that
+``paged_decode_attention`` reads.
 """
 from __future__ import annotations
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  paged_decode_attention,
+                                                  paginate_kv)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.quant_matmul import quant_matmul
 from repro_torch.kernels.ssd_scan import ssd_scan
@@ -22,5 +26,5 @@ causal_conv1d = ref.causal_conv1d
 causal_conv1d_step = ref.causal_conv1d_step
 
 __all__ = ["causal_conv1d", "causal_conv1d_step", "decode_attention",
-           "flash_attention", "quant_matmul", "quantize_weights", "ssd_scan",
-           "ssd_step"]
+           "flash_attention", "paged_decode_attention", "paginate_kv",
+           "quant_matmul", "quantize_weights", "ssd_scan", "ssd_step"]

@@ -3,6 +3,8 @@
 These mirror :mod:`repro.kernels.ref` operation for operation and are the
 port's oracles: the CPU path of every kernel wrapper computes with them,
 and ``chip_smoke.py`` holds each Hopper kernel against them on the card.
+``paged_decode_attention`` gathers the pages that ``paginate_kv``
+(:mod:`repro_torch.kernels.decode_attention`) lays out.
 Scores, softmax and products run in float32; outputs are cast back to the
 query's (or ``out_dtype``'s) type, as in the reference.
 """
@@ -83,6 +85,31 @@ def decode_attention(
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgt,btkd->bkgd", p, v_cache.float())
     return o.reshape(B, H, D).to(q.dtype)
+
+
+def paged_decode_attention(
+    q: torch.Tensor,  # (B, H, D)
+    k_pages: torch.Tensor,  # (P, KV, page_size, D)
+    v_pages: torch.Tensor,  # (P, KV, page_size, D)
+    page_table: torch.Tensor,  # (B, NP) int32
+    lengths: torch.Tensor,  # (B,) int32
+    *,
+    window: int = 0,
+    softcap: float = 0.0,
+    scale: float = 0.0,
+    prefix: int = 0,
+) -> torch.Tensor:
+    """Gather each sequence's pages back into a dense cache, then run the
+    dense version.  Table entries past ``lengths`` may point anywhere
+    (they are masked)."""
+    B, NP = page_table.shape
+    _, KV, ps, D = k_pages.shape
+    idx = page_table.long()
+    # (B, NP, KV, ps, D) -> (B, NP, ps, KV, D) -> (B, NP*ps, KV, D)
+    k = k_pages[idx].transpose(2, 3).reshape(B, NP * ps, KV, D)
+    v = v_pages[idx].transpose(2, 3).reshape(B, NP * ps, KV, D)
+    return decode_attention(q, k, v, lengths, window=window, softcap=softcap,
+                            scale=scale, prefix=prefix)
 
 
 def quant_matmul(

@@ -3,9 +3,13 @@
 Port of :mod:`repro.models.layers`: pure functions over explicit parameter
 dicts.  Per-layer parameters arrive as one slice of the stacked ``(L, ...)``
 leaves.  Attention runs through the port's kernels: prefill through
-``ops.flash_attention``, decode through ``ops.decode_attention``; the
-Mamba-2 branch's prefill scan through ``ops.ssd_scan``.  The MoE branch is
-not ported yet.
+``ops.flash_attention``, decode against a dense bf16 or f32 cache through
+``ops.decode_attention``; the Mamba-2 branch's prefill scan through
+``ops.ssd_scan``.  The reference's two other decode paths, the deferred
+write (``uniform_pos``) and the int8 KV cache (``quantize_kv``,
+``attention_decode_q``), are written inline in ``jnp`` there, outside any
+Pallas kernel, and are plain PyTorch here on every device.  The MoE
+branch is not ported yet.
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.config import ModelConfig
 from repro_torch.quant.quantize import dequantize_leaf, is_quantized
 
@@ -117,15 +122,29 @@ def attention_prefill(cfg: ModelConfig, lp: dict, x: torch.Tensor,
 
 def attention_decode(cfg: ModelConfig, lp: dict, x: torch.Tensor,
                      k_cache: torch.Tensor, v_cache: torch.Tensor,
-                     lengths: torch.Tensor, window: int, prefix: int = 0):
+                     lengths: torch.Tensor, window: int, prefix: int = 0,
+                     uniform_pos: bool = False):
     """One token per sequence.  x: (B, 1, D) input-normed; k/v cache:
     (B, T, KV, hd); lengths: (B,) int32, the new token's index.
 
     Unlike the reference, which returns updated copies of the caches,
-    the new token's k/v are written into ``k_cache``/``v_cache`` in place
-    (one row per sequence); returns attn_out (B, 1, H*hd)."""
+    the new token's k/v are written into ``k_cache``/``v_cache`` in place;
+    returns attn_out (B, 1, H*hd).  By default each row's k/v are written
+    at its own length and the dense cache is read through
+    ``ops.decode_attention``.  ``uniform_pos=True`` is the reference's
+    deferred write: the attention reads the cache as it was plus the fresh
+    token (:func:`_decode_attention_deferred`), and the fresh k/v are then
+    written at ``lengths[0]`` for every row."""
     B = x.shape[0]
     q, k, v = _qkv(cfg, lp, x, lengths[:, None])
+    if uniform_pos:
+        out = _decode_attention_deferred(
+            q[:, 0], k[:, 0], v[:, 0], k_cache, v_cache, lengths,
+            window=window, softcap_v=cfg.attn_logit_softcap,
+            scale=cfg.attn_scale, prefix=prefix)
+        write_token(k_cache, k[:, 0], lengths)
+        write_token(v_cache, v[:, 0], lengths)
+        return out.reshape(B, 1, -1)
     bidx = torch.arange(B, device=x.device)
     pos = lengths.long()
     k_cache[bidx, pos] = k[:, 0].to(k_cache.dtype)
@@ -134,6 +153,119 @@ def attention_decode(cfg: ModelConfig, lp: dict, x: torch.Tensor,
         q[:, 0].contiguous(), k_cache, v_cache, lengths + 1, window=window,
         softcap=cfg.attn_logit_softcap, scale=cfg.attn_scale, prefix=prefix)
     return out.reshape(B, 1, -1)
+
+
+def write_token(cache: torch.Tensor, fresh: torch.Tensor,
+                lengths: torch.Tensor) -> None:
+    """Write one token's ``fresh`` (B, ...) into ``cache`` (B, T, ...) at
+    position ``lengths[0]`` of every row, in the cache's type, in place:
+    the reference's deferred ``dynamic_update_slice`` (which clamps the
+    start so the slice fits), without a host sync."""
+    pos = lengths[:1].long().clamp(0, cache.shape[1] - 1)
+    cache.index_copy_(1, pos, fresh[:, None].to(cache.dtype))
+
+
+def quantize_kv(x: torch.Tensor):
+    """Per-(token, kv-head) symmetric int8 quantization of k/v rows.
+    x: (..., KV, hd) -> (int8 values, f32 scales (..., KV)).  Bit-exact
+    with the reference: f32 division, round half to even."""
+    xf = x.float()
+    scales = torch.clamp_min(xf.abs().amax(dim=-1) / 127.0, 1e-8)
+    q = torch.clamp(torch.round(xf / scales[..., None]), -128, 127)
+    return q.to(torch.int8), scales
+
+
+def _masked_scores(s, s_self, lengths, *, window, softcap_v, prefix):
+    """Soft-capped scores over the cache, masked to the keys before
+    ``lengths`` inside the window (which counts the fresh token), and the
+    fresh token's own score."""
+    if softcap_v:
+        s = softcap(s, softcap_v)
+        s_self = softcap(s_self, softcap_v)
+    T = s.shape[-1]
+    kv_pos = torch.arange(T, device=s.device)[None, :]
+    lens = lengths.long()[:, None]
+    valid = kv_pos < lens
+    if window:
+        valid &= (kv_pos >= lens + 1 - window) | (kv_pos < prefix)
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    return s, s_self
+
+
+def _lse_weights(s, s_self):
+    """Unnormalised softmax weights of the cache's keys and of the fresh
+    token, combined through a log-sum-exp (not concatenated), and their
+    sum."""
+    m = torch.maximum(s.amax(dim=-1, keepdim=True), s_self)
+    e = torch.exp(s - m)
+    e_self = torch.exp(s_self - m)
+    return e, e_self, e.sum(dim=-1, keepdim=True) + e_self
+
+
+def _scaled_query(q: torch.Tensor, scale: float):
+    """q·scale computed in f32 and rounded back to q's type."""
+    return (q.float() * (scale or q.shape[-1] ** -0.5)).to(q.dtype)
+
+
+def _decode_attention_deferred(q, k_new, v_new, k_cache, v_cache, lengths,
+                               *, window, softcap_v, scale, prefix):
+    """Decode attention where the fresh token's k/v ride alongside the
+    (not yet updated) cache: scores over [cache, self].  The weights are
+    cast to the cache's type before the value product, as the reference
+    casts them."""
+    B, H, D = q.shape
+    KV = k_cache.shape[2]
+    qf = _scaled_query(q, scale).reshape(B, KV, H // KV, D).float()
+    s = torch.einsum("bkgd,btkd->bkgt", qf, k_cache.float())
+    s_self = torch.einsum("bkgd,bkd->bkg", qf, k_new.float())[..., None]
+    s, s_self = _masked_scores(s, s_self, lengths, window=window,
+                               softcap_v=softcap_v, prefix=prefix)
+    e, e_self, denom = _lse_weights(s, s_self)
+    o = torch.einsum("bkgt,btkd->bkgd", e.to(v_cache.dtype).float(),
+                     v_cache.float())
+    o = (o + e_self * v_new.float()[:, :, None, :]) / denom
+    return o.reshape(B, H, D).to(q.dtype)
+
+
+def _decode_attention_deferred_q(q, k_new, v_new, kq, ks, vq, vs, lengths,
+                                 *, window, softcap_v, scale, prefix):
+    """int8-KV-cache decode attention: as in the reference, the k scales
+    fold into the scores and the v scales into the weights, one multiply
+    per (token, head), and the int8 values and the v-scaled weights are
+    cast to the query's type before their products (here the products
+    then run in f32 on widened copies of the layer's int8 cache).
+    kq/vq: (B, T, KV, hd) int8; ks/vs: (B, T, KV) f32."""
+    B, H, D = q.shape
+    KV = kq.shape[2]
+    qf = _scaled_query(q, scale).reshape(B, KV, H // KV, D).float()
+    s = torch.einsum("bkgd,btkd->bkgt", qf, kq.to(q.dtype).float())
+    s = s * ks.transpose(1, 2)[:, :, None, :]  # fold in k scales
+    s_self = torch.einsum("bkgd,bkd->bkg", qf, k_new.float())[..., None]
+    s, s_self = _masked_scores(s, s_self, lengths, window=window,
+                               softcap_v=softcap_v, prefix=prefix)
+    e, e_self, denom = _lse_weights(s, s_self)
+    ec = (e * vs.transpose(1, 2)[:, :, None, :]).to(q.dtype)
+    o = torch.einsum("bkgt,btkd->bkgd", ec.float(), vq.to(q.dtype).float())
+    o = (o + e_self * v_new.float()[:, :, None, :]) / denom
+    return o.reshape(B, H, D).to(q.dtype)
+
+
+def attention_decode_q(cfg: ModelConfig, lp: dict, x: torch.Tensor, kq, ks,
+                       vq, vs, lengths: torch.Tensor, window: int,
+                       prefix: int = 0):
+    """Quantized-cache decode step (deferred write): attends over the int8
+    cache plus the fresh token and returns (attn_out (B, 1, H*hd), the
+    fresh token's int8 k, its k scales, int8 v, v scales), which the
+    caller writes at ``lengths[0]``."""
+    B = x.shape[0]
+    q, k, v = _qkv(cfg, lp, x, lengths[:, None])
+    out = _decode_attention_deferred_q(
+        q[:, 0], k[:, 0], v[:, 0], kq, ks, vq, vs, lengths, window=window,
+        softcap_v=cfg.attn_logit_softcap, scale=cfg.attn_scale,
+        prefix=prefix)
+    knq, kns = quantize_kv(k[:, 0])
+    vnq, vns = quantize_kv(v[:, 0])
+    return out.reshape(B, 1, -1), knq, kns, vnq, vns
 
 
 # ---------------------------------------------------------------------------

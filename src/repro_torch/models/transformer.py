@@ -242,10 +242,13 @@ def _block_prefill(cfg: ModelConfig, h, lp, window: int, positions):
 
 
 def _block_decode(cfg: ModelConfig, h, lp, window: int, cache, i: int,
-                  lengths):
-    """One decode step of layer ``i``; writes the new k/v, or the new SSM
-    state and conv buffer, into the layer's cache slices in place (in the
-    cache's types, as the reference's serving loop casts its carry)."""
+                  lengths, uniform_pos: bool = False):
+    """One decode step of layer ``i``; writes the new k/v (with their
+    scales, in an int8 cache), or the new SSM state and conv buffer, into
+    the layer's cache slices in place (in the cache's types, as the
+    reference's serving loop casts its carry).  With ``uniform_pos`` or an
+    int8 cache the fresh token is written at ``lengths[0]`` after its
+    attention, the reference's deferred write."""
     x = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
     if cfg.uses_ssm:
         y, state, conv = L.ssm_decode(cfg, lp, x, cache["state"][i],
@@ -253,9 +256,17 @@ def _block_decode(cfg: ModelConfig, h, lp, window: int, cache, i: int,
         cache["state"][i].copy_(state)
         cache["conv"][i].copy_(conv)
         return _ffn(cfg, h + L.mm(y, lp["ssm_out"]), lp)
-    attn_raw = L.attention_decode(cfg, lp, x, cache["k"][i], cache["v"][i],
-                                  lengths, window,
-                                  prefix=cfg.num_meta_tokens)
+    if "k_scale" in cache:  # int8 KV cache
+        names = ("k", "k_scale", "v", "v_scale")
+        attn_raw, *fresh = L.attention_decode_q(
+            cfg, lp, x, *(cache[n][i] for n in names), lengths, window,
+            prefix=cfg.num_meta_tokens)
+        for n, t in zip(names, fresh):
+            L.write_token(cache[n][i], t, lengths)
+    else:
+        attn_raw = L.attention_decode(
+            cfg, lp, x, cache["k"][i], cache["v"][i], lengths, window,
+            prefix=cfg.num_meta_tokens, uniform_pos=uniform_pos)
     attn = L.mm(attn_raw, lp["wo"])
     if cfg.post_norm:
         attn = L.rms_norm(attn, lp["post_ln1"], cfg.norm_eps)
@@ -310,20 +321,29 @@ def _frontend(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
 # Prefill: run the full prompt, build the decode cache
 # ---------------------------------------------------------------------------
 def prefill(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
-            max_len: int, *, cache_dtype=torch.bfloat16):
-    """Returns (last-token logits (B, Kcb, Vp), populated cache)."""
+            max_len: int, *, cache_dtype=torch.bfloat16,
+            quantize_cache: bool = False):
+    """Returns (last-token logits (B, Kcb, Vp), populated cache).
+    ``quantize_cache=True`` stores k/v as int8 with per-(token, kv-head)
+    f32 scales (:func:`~repro_torch.models.layers.quantize_kv`)."""
     _check_family(cfg)
     h = _frontend(cfg, params, batch)
     B, S = h.shape[0], h.shape[1]
     positions = torch.arange(S, device=h.device)
-    cache = init_cache(cfg, B, max_len, cache_dtype, device=h.device)
+    cache = init_cache(cfg, B, max_len, cache_dtype, quantized=quantize_cache,
+                       device=h.device)
     for i, window in enumerate(_layer_windows(cfg)):
         h, leaves = _block_prefill(cfg, h, _layer(params["layers"], i),
                                    window, positions)
-        # k/v and the conv tail in cache_dtype, the SSM state in f32.
+        if quantize_cache and "k" in leaves:
+            for name in ("k", "v"):
+                leaves[name], leaves[name + "_scale"] = L.quantize_kv(
+                    leaves[name])
+        # k/v (and scales) and the conv tail in the cache's types, the SSM
+        # state in f32.
         for name, t in leaves.items():
             dst = cache[name][i]
-            (dst[:, :S] if name in ("k", "v") else dst).copy_(t)
+            (dst if name in ("state", "conv") else dst[:, :S]).copy_(t)
     cache["lengths"].fill_(S)
     logits = lm_logits(cfg, params, h[:, -1:, :])[:, 0]
     return logits, cache
@@ -333,18 +353,21 @@ def prefill(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
 # Decode: one token for every sequence in the batch
 # ---------------------------------------------------------------------------
 def decode_step(cfg: ModelConfig, params, cache: PyTree,
-                tokens: torch.Tensor):
+                tokens: torch.Tensor, *, uniform_pos: bool = False):
     """tokens: (B,) or (B, Kcb).  Returns (logits (B, Kcb, Vp), cache).
 
     The returned cache holds the same k/v (or state/conv) tensors, updated
-    in place, and a new ``lengths``."""
+    in place, and a new ``lengths``.  ``uniform_pos=True`` (every row at
+    the same position, as in the reference's lowered serve step) reads
+    the cache through the deferred path and writes the fresh token at
+    ``lengths[0]``; an int8 cache always does."""
     _check_family(cfg)
     tok = tokens[:, None] if cfg.num_codebooks == 1 else tokens[:, None, :]
     h = embed_tokens(cfg, params, tok)  # (B, 1, D)
     lengths = cache["lengths"]
     for i, window in enumerate(_layer_windows(cfg)):
         h = _block_decode(cfg, h, _layer(params["layers"], i), window,
-                          cache, i, lengths)
+                          cache, i, lengths, uniform_pos)
     new_cache = dict(cache, lengths=lengths + 1)
     logits = lm_logits(cfg, params, h)[:, 0]
     return logits, new_cache

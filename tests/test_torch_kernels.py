@@ -132,6 +132,89 @@ def test_decode_attention_plain_f32_query_bf16_cache():
 
 
 # ---------------------------------------------------------------------------
+# The paged decode: test_kernels.py's sweep (many small pages with a ragged
+# last page, a single page per sequence) plus a page size that is no
+# multiple of 8 and does not divide T.
+PAGED_SHAPES = [(2, 300, 8, 4, 64, 128), (3, 96, 4, 2, 32, 16),
+                (1, 64, 4, 4, 32, 64), (2, 37, 4, 2, 16, 5)]
+PAGED_MODES = [{}, dict(window=64), dict(softcap=30.0),
+               dict(window=32, prefix=8)]
+
+
+@pytest.mark.parametrize("B,T,H,KV,D,ps", PAGED_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("permute", [True, False])
+def test_paginate_kv_bit_exact(B, T, H, KV, D, ps, dtype, permute):
+    """The same pages and table as the reference's helper, bit for bit:
+    the odd-stride permutation, the zero tail of a ragged last page, and
+    entries past each sequence's last page pointing to page 0."""
+    rng = np.random.default_rng(14)
+    (jk, tk), (jv, tv) = (both(rand(rng, B, T, KV, D), dtype)
+                          for _ in range(2))
+    lens = rng.integers(1, T, B).astype(np.int32)
+    lens[0] = 1  # a row that uses a single page
+    want = da.paginate_kv(jk, jv, jnp.asarray(lens), ps, permute=permute)
+    got = ops.paginate_kv(tk, tv, torch.from_numpy(lens), ps,
+                          permute=permute)
+    assert got[2].dtype == torch.int32
+    assert all(t.is_contiguous() for t in got), "the kernel's layout"
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.float().numpy(),
+                                      np.asarray(w.astype(jnp.float32)))
+    P = B * -(-T // ps)
+    assert got[0].shape == (P, KV, ps, D)
+    if permute and P > 1:  # the physical layout is really scattered
+        assert not np.array_equal(got[2].numpy().ravel(), np.arange(P))
+
+
+def _paged_inputs(seed, B, T, H, KV, D, ps, dtype, kv_dtype=None):
+    (jq, tq), (jk, tk), (jv, tv), (jl, tl) = _decode_inputs(
+        np.random.default_rng(seed), B, T, H, KV, D, dtype, kv_dtype)
+    jkp, jvp, jtab = da.paginate_kv(jk, jv, jl, ps)
+    tkp, tvp, ttab = ops.paginate_kv(tk, tv, tl, ps)
+    return ((jq, jkp, jvp, jtab, jl), (tq, tkp, tvp, ttab, tl),
+            (jk, jv), (tk, tv))
+
+
+@pytest.mark.parametrize("B,T,H,KV,D,ps", PAGED_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kwargs", PAGED_MODES)
+def test_paged_decode_attention_plain_matches_reference(B, T, H, KV, D, ps,
+                                                        dtype, kwargs):
+    """The port's plain paged version against the reference's oracle, the
+    Pallas kernel in interpret mode (f32) and the dense version on the
+    same logical cache."""
+    jargs, targs, (jk, jv), (tk, tv) = _paged_inputs(
+        15, B, T, H, KV, D, ps, dtype)
+    got = ops.paged_decode_attention(*targs, **kwargs)
+    assert got.dtype == TDT[dtype] and got.shape == (B, H, D)
+    close(got, jref.paged_decode_attention(*jargs, **kwargs), TOL[dtype])
+    close(got, ops.decode_attention(targs[0], tk, tv, targs[4],
+                                    **kwargs).float().numpy(), TOL[dtype])
+    if dtype == "float32":  # test_kernels.py holds Pallas to ref in bf16
+        close(got, da.paged_decode_attention(*jargs, interpret=True,
+                                             **kwargs), TOL[dtype])
+
+
+def test_paged_decode_attention_plain_empty_row():
+    """A row with nothing visible (lengths == 0) gets the reference's
+    answer: the mean of v over every gathered row, the zero tail of the
+    last page and the repeated page 0 included."""
+    rng = np.random.default_rng(16)
+    (jq, tq), (jk, tk), (jv, tv) = (both(rand(rng, *s)) for s in (
+        (3, 4, 16), (3, 40, 2, 16), (3, 40, 2, 16)))
+    lens = np.array([0, 17, 0], np.int32)
+    jargs = (jq, *da.paginate_kv(jk, jv, jnp.asarray(lens), 16),
+             jnp.asarray(lens))
+    targs = (tq, *ops.paginate_kv(tk, tv, torch.from_numpy(lens), 16),
+             torch.from_numpy(lens))
+    got = ops.paged_decode_attention(*targs)
+    close(got, jref.paged_decode_attention(*jargs), TOL["float32"])
+    close(got, da.paged_decode_attention(*jargs, interpret=True),
+          TOL["float32"])
+
+
+# ---------------------------------------------------------------------------
 QMM_SHAPES = [(64, 256, 128, 128, 8), (100, 384, 200, 128, 8),
               (32, 128, 64, 32, 4), (8, 512, 512, 512, 8)]
 
@@ -346,6 +429,10 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors():
                          torch.zeros((8, 4), dtype=torch.int8, device="meta"),
                          torch.zeros((1, 4), device="meta"))
     m = functools.partial(torch.zeros, device="meta")
+    with pytest.raises(ValueError):
+        ops.paged_decode_attention(
+            m((1, 2, 8)), m((2, 2, 4, 8)), m((2, 2, 4, 8)),
+            m((1, 2), dtype=torch.int32), m(1, dtype=torch.int32))
     with pytest.raises(ValueError):
         ops.ssd_scan(m((1, 4, 2, 8)), m((1, 4, 2)), m(2), m((1, 4, 1, 4)),
                      m((1, 4, 1, 4)), m(2))

@@ -2,8 +2,11 @@
 the card (marked ``cuda``; skipped without an sm_90 device).  The shapes
 are the sweeps of ``test_kernels.py`` plus the main path's widths
 (tinyllama's and gemma2's attention, D=256 with window and softcap;
-mamba2's scan), in the dtype combinations the serving path uses.  Imports no JAX: it runs on
-the machine with the card.
+mamba2's scan; the paged decode at the replay's long caches), in the
+dtype combinations the serving path uses; the paged decode also against
+the dense kernel on the same logical cache, and the int8-cache decode
+step on the card against the CPU.  Imports no JAX: it runs on the
+machine with the card.
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 """
@@ -183,3 +186,134 @@ def test_ssd_scan_kernel_refuses_what_it_cannot_take(sm90):
                      D)
     with pytest.raises(ValueError):  # mixed devices
         ops.ssd_scan(x, dt, A.cpu(), Bm, Cm, D)
+
+
+PAGED_SHAPES = [(2, 300, 8, 4, 64, 128), (3, 96, 4, 2, 32, 16),
+                (1, 64, 4, 4, 32, 64),
+                (2, 37, 4, 2, 16, 5)]  # a page size that does not divide T
+DTYPE_PAIRS = [("float32", "float32"), ("bfloat16", "bfloat16"),
+               ("float32", "bfloat16"), ("bfloat16", "float32")]
+
+
+def _paged_case(dev, B, T, H, KV, D, ps, dtype, kv_dtype, lens, seed=11):
+    rng = np.random.default_rng(seed)
+    (q,) = _on(dev, rand(rng, B, H, D), dtype=dtype)
+    k, v = _on(dev, rand(rng, B, T, KV, D), rand(rng, B, T, KV, D),
+               dtype=kv_dtype)
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return q, k, v, lens, ops.paginate_kv(k, v, lens, ps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,KV,D,ps", PAGED_SHAPES)
+@pytest.mark.parametrize("dtype,kv_dtype", DTYPE_PAIRS)
+@pytest.mark.parametrize("kwargs", [{}, dict(window=64), dict(softcap=30.0),
+                                    dict(window=32, prefix=8)])
+def test_paged_decode_attention_kernel(sm90, B, T, H, KV, D, ps, dtype,
+                                       kv_dtype, kwargs):
+    """Against the plain version at the tolerance of the inputs' types,
+    and equal to the dense kernel on the same logical cache (one body
+    serves both layouts); one launch counted per call."""
+    lens = np.random.default_rng(B * T).integers(1, T, B).tolist()
+    q, k, v, lens, pages = _paged_case(sm90, B, T, H, KV, D, ps, dtype,
+                                       kv_dtype, lens)
+    before = ops.paged_decode_attention.launches
+    got = ops.paged_decode_attention(q, *pages, lens, **kwargs)
+    torch.cuda.synchronize()
+    assert ops.paged_decode_attention.launches == before + 1
+    want = tref.paged_decode_attention(q, *pages, lens, **kwargs)
+    tol = TOL["bfloat16" if "bfloat16" in (dtype, kv_dtype) else "float32"]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **tol)
+    dense = ops.decode_attention(q, k, v, lens, **kwargs)
+    assert torch.equal(got, dense)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,kv_dtype", DTYPE_PAIRS)
+@pytest.mark.parametrize("ps", [16, 5])
+def test_paged_decode_attention_kernel_empty_rows(sm90, dtype, kv_dtype, ps):
+    """Rows with nothing visible (lengths == 0) get the mean of v over
+    every gathered row, read through the table (page 0 repeated, the zero
+    tail of a ragged last page included)."""
+    q, k, v, lens, pages = _paged_case(sm90, 3, 37, 4, 2, 32, ps, dtype,
+                                       kv_dtype, [0, 20, 0])
+    got = ops.paged_decode_attention(q, *pages, lens)
+    want = tref.paged_decode_attention(q, *pages, lens)
+    tol = TOL["bfloat16" if "bfloat16" in (dtype, kv_dtype) else "float32"]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,KV,D,dtype,kwargs", [
+    (4, 1027, 32, 4, 64, "float32", {}),  # tinyllama, 8-bit, 1024 + 3
+    (2, 4203, 8, 4, 256, "bfloat16", GEMMA2_MODE)])  # gemma2, 16-bit
+@pytest.mark.parametrize("ps", [16, 128])
+def test_paged_decode_attention_kernel_replay_shapes(sm90, B, T, H, KV, D,
+                                                     dtype, kwargs, ps):
+    """One layer of the real-cache replay: a bf16 cache of the replay's
+    length, rows ending at different points (gemma2's past its window)."""
+    lens = [T - 1 - 7 * i for i in range(B)]
+    q, k, v, lens, pages = _paged_case(sm90, B, T, H, KV, D, ps, dtype,
+                                       "bfloat16", lens)
+    got = ops.paged_decode_attention(q, *pages, lens, **kwargs)
+    want = tref.paged_decode_attention(q, *pages, lens, **kwargs)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **TOL["bfloat16"])
+    assert torch.equal(got, ops.decode_attention(q, k, v, lens, **kwargs))
+
+
+@pytest.mark.cuda
+def test_paged_decode_attention_refuses_what_it_cannot_take(sm90):
+    q, k, v, lens, (kp, vp, tab) = _paged_case(
+        sm90, 2, 40, 4, 2, 32, 8, "float32", "float32", [10, 30])
+    with pytest.raises(TypeError):  # an int64 table
+        ops.paged_decode_attention(q, kp, vp, tab.long(), lens)
+    with pytest.raises(ValueError):  # mixed devices
+        ops.paged_decode_attention(q, kp, vp, tab.cpu(), lens)
+    with pytest.raises(ValueError):  # a non-contiguous pool
+        ops.paged_decode_attention(q, kp.transpose(1, 2), vp.transpose(1, 2),
+                                   tab, lens)
+    with pytest.raises(TypeError):  # k and v pools of different types
+        ops.paged_decode_attention(q, kp, vp.bfloat16(), tab, lens)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tinyllama-1.1b", "gemma2-2b"])
+def test_int8_cache_decode_step_on_card(sm90, name):
+    """prefill(quantize_cache=True) and 4 greedy decode steps of the
+    reduced 8-bit variant on the card against the same on the CPU: logits
+    at quant_matmul's tolerance, equal ids, and the int8 cache equal
+    within one quantization step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.quant.quantize import quantize_params, tree_map
+
+    cfg = get_config(name, reduced=True)
+    host = quantize_params(T.init_params(cfg, 0, torch.float32,
+                                         device="cpu"), bits=8, group=32)
+    card = tree_map(lambda _, t: t.to(sm90), host)
+    prompts = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 12)).astype(np.int32))
+    outs = []
+    for params, dev in ((card, sm90), (host, torch.device("cpu"))):
+        with torch.inference_mode():
+            logits, cache = T.prefill(cfg, params, {"tokens": prompts.to(dev)},
+                                      max_len=16, quantize_cache=True)
+            steps = [logits]
+            for _ in range(4):
+                logits, cache = T.decode_step(cfg, params, cache,
+                                              T.greedy_token(cfg, logits))
+                steps.append(logits)
+        outs.append(([t.cpu() for t in steps],
+                     {n: t.cpu() for n, t in cache.items()}))
+    (got, gc), (want, wc) = outs
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), **QMM_TOL)
+        assert torch.equal(T.greedy_token(cfg, g), T.greedy_token(cfg, w))
+    assert gc["k"].dtype == torch.int8
+    for n in ("k", "v"):
+        deq = lambda c: c[n].float() * c[n + "_scale"][..., None]  # noqa: E731
+        assert ((deq(gc) - deq(wc)).abs()
+                <= wc[n + "_scale"][..., None] * 1.001 + 1e-12).all()

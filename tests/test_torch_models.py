@@ -251,6 +251,203 @@ def test_gemma2_greedy_decode_ids_match_reference(bits):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+# ---------------------------------------------------------------------------
+# The decode cache's other layouts: int8 k/v with f32 scales, the deferred
+# write of uniform_pos, and pages read through paged_decode_attention.
+# ---------------------------------------------------------------------------
+ATTN = {"tinyllama-1.1b": 3, "gemma2-2b": 5}  # arch -> reference init key
+
+
+@functools.lru_cache(maxsize=None)
+def _attn_model(name):
+    cfg = jget(name, reduced=True)
+    return cfg, JT.init_params(cfg, jax.random.key(ATTN[name]), jnp.float32)
+
+
+def _attn_variants(name, bits):
+    cfg, params = _attn_model(name)
+    if bits == 32:
+        return cfg, params, TT.params_from_numpy(_np_tree(params))
+    return (cfg,) + _variants(params, bits)
+
+
+def _attn_prompts(cfg):
+    # 12 tokens: past reduced gemma2's 8-token window, as its decode is.
+    return np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 12)).astype(np.int32)
+
+
+def _close_logits(got, want, bits):
+    got, want = got.numpy(), np.asarray(want)
+    if bits == 16:  # as in test_prefill_logits_match_reference
+        rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+        assert rel < LOGIT_TOL[16]["rtol"], rel
+    else:
+        np.testing.assert_allclose(got, want, **LOGIT_TOL[bits])
+
+
+@pytest.mark.parametrize("shape", [(2, 7, 4, 16), (3, 2, 64), (1, 5, 1, 8)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_kv_bit_exact(shape, dtype):
+    """Equal int8 values and f32 scales on equal inputs (round half to
+    even, the 1e-8 floor on an all-zero row)."""
+    from repro.models.layers import quantize_kv as jquant
+    from repro_torch.models.layers import quantize_kv as tquant
+
+    x = np.random.default_rng(2).standard_normal(shape).astype(np.float32)
+    x[0, 0] = 0.0  # a row whose scale takes the floor
+    x.reshape(-1, shape[-1])[-1, :3] = (127.0, 2.5, -0.5)  # scale 1: ties
+    jx = jnp.asarray(x).astype(jnp.bfloat16 if dtype == "bfloat16"
+                               else jnp.float32)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    jq, js = jquant(jx)
+    tq, ts = tquant(tx)
+    assert tq.dtype == torch.int8 and ts.dtype == torch.float32
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy().view(np.uint32),
+                                  np.asarray(js).view(np.uint32))
+
+
+@pytest.mark.parametrize("name", list(ATTN))
+@pytest.mark.parametrize("bits", [32, 16, 8])
+def test_int8_cache_prefill_matches_reference(name, bits):
+    """prefill(quantize_cache=True): the int8 cache's scales at the
+    variant's tolerance, its dequantized k/v within one quantization step
+    of the reference's (16-bit: bf16 activations round at other points,
+    so the dequantized cache is held as a relative error at the bf16
+    tolerance), and the logits as for the bf16 cache."""
+    cfg, jvar, tvar = _attn_variants(name, bits)
+    prompts = _attn_prompts(cfg)
+    want, jc = JT.prefill(cfg, jvar, {"tokens": jnp.asarray(prompts)},
+                          max_len=20, quantize_cache=True)
+    got, tc = TT.prefill(tget(name, reduced=True), tvar,
+                         {"tokens": torch.from_numpy(prompts)}, max_len=20,
+                         quantize_cache=True)
+    assert set(tc) == set(jc) == {"k", "v", "k_scale", "v_scale", "lengths"}
+    _close_logits(got, want, bits)
+    for n in ("k", "v"):
+        assert tc[n].dtype == torch.int8 and tc[n].shape == jc[n].shape
+        assert tc[n + "_scale"].dtype == torch.float32
+        ts, js = tc[n + "_scale"].numpy(), np.asarray(jc[n + "_scale"])
+        deq_t = tc[n].numpy() * ts[..., None]
+        deq_j = np.asarray(jc[n]) * js[..., None]
+        if bits == 16:
+            for g, w in ((ts, js), (deq_t, deq_j)):
+                rel = np.linalg.norm(g - w) / np.linalg.norm(w)
+                assert rel < LOGIT_TOL[16]["rtol"], (n, rel)
+        else:
+            np.testing.assert_allclose(ts, js, **LOGIT_TOL[32])
+            step = js[..., None] * (1 + 1e-5)
+            assert (np.abs(deq_t - deq_j) <= step).all(), n
+    np.testing.assert_array_equal(tc["lengths"].numpy(),
+                                  np.asarray(jc["lengths"]))
+
+
+def _decode_both(name, bits, steps, *, quantize_cache=False,
+                 cache_dtype="bfloat16", uniform_pos=False):
+    """Prefill and ``steps`` greedy decode steps in both packages; the
+    ids must agree at every step (so both decode the same tokens).
+    Returns [(port logits, reference logits)] and the final caches."""
+    cfg, jvar, tvar = _attn_variants(name, bits)
+    tcfg = tget(name, reduced=True)
+    prompts = _attn_prompts(cfg)
+    jl, jc = JT.prefill(cfg, jvar, {"tokens": jnp.asarray(prompts)},
+                        max_len=20, quantize_cache=quantize_cache,
+                        cache_dtype=getattr(jnp, cache_dtype))
+    tl, tc = TT.prefill(tcfg, tvar, {"tokens": torch.from_numpy(prompts)},
+                        max_len=20, quantize_cache=quantize_cache,
+                        cache_dtype=getattr(torch, cache_dtype))
+    pairs = [(tl, jl)]
+    for step in range(steps):
+        jt, tt = JT.greedy_token(cfg, jl), TT.greedy_token(tcfg, tl)
+        np.testing.assert_array_equal(tt.numpy(), np.asarray(jt),
+                                      err_msg=f"step {step}")
+        jl, jc = JT.decode_step(cfg, jvar, jc, jt, uniform_pos=uniform_pos)
+        tl, tc = TT.decode_step(tcfg, tvar, tc, tt, uniform_pos=uniform_pos)
+        pairs.append((tl, jl))
+    return pairs, tc, jc
+
+
+@pytest.mark.parametrize("name", list(ATTN))
+@pytest.mark.parametrize("bits", [32, 16, 8])
+def test_int8_cache_decode_matches_reference(name, bits):
+    """8 greedy steps on the int8 cache (the deferred write of the fresh
+    token's int8 k/v and scales at lengths[0]): equal ids, and every
+    step's logits within the variant's tolerance."""
+    pairs, tc, jc = _decode_both(name, bits, 8, quantize_cache=True)
+    for got, want in pairs:
+        _close_logits(got, want, bits)
+    np.testing.assert_array_equal(tc["lengths"].numpy(),
+                                  np.asarray(jc["lengths"]))
+    if bits != 16:  # the written tokens' scales (f32 activations)
+        np.testing.assert_allclose(tc["k_scale"].numpy(),
+                                   np.asarray(jc["k_scale"]),
+                                   **LOGIT_TOL[32])
+
+
+@pytest.mark.parametrize("name", list(ATTN))
+@pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16"])
+def test_uniform_pos_decode_matches_reference(name, cache_dtype):
+    """decode_step(uniform_pos=True) on the f32 variant: the attention
+    reads the cache plus the fresh token through a log-sum-exp, and the
+    fresh k/v land at lengths[0].  With an f32 cache both packages
+    compute in f32 (tolerance 3e-5); with a bf16 cache the reference
+    rounds the softmax weights to bf16 before the value product, and a
+    weight that falls on a rounding boundary may round the other way, so
+    the bf16 tolerance holds."""
+    tol = LOGIT_TOL[32 if cache_dtype == "float32" else 16]
+    pairs, tc, jc = _decode_both(name, 32, 8, cache_dtype=cache_dtype,
+                                 uniform_pos=True)
+    for got, want in pairs:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
+    for n in ("k", "v"):
+        assert tc[n].dtype == getattr(torch, cache_dtype)
+        np.testing.assert_allclose(
+            tc[n].float().numpy(), np.asarray(jc[n].astype(jnp.float32)),
+            **tol)
+
+
+@pytest.mark.parametrize("name", list(ATTN))
+def test_paged_decode_replay_matches_dense(name, monkeypatch):
+    """A CPU replay whose decode attention pages each layer's cache with
+    paginate_kv (page sizes 3 and 8) and reads it through the plain
+    paged_decode_attention gives the dense decode's logits."""
+    from repro_torch.kernels import ops
+
+    cfg = tget(name, reduced=True)
+    _, _, tvar = _attn_variants(name, 32)
+    prompts = torch.from_numpy(_attn_prompts(cfg))
+    dense = ops.decode_attention
+    calls = []
+
+    def paged(q, k_cache, v_cache, lengths, **kw):
+        want = dense(q, k_cache, v_cache, lengths, **kw)
+        for ps in (3, 8):
+            pages = ops.paginate_kv(k_cache, v_cache, lengths, ps)
+            got = ops.paged_decode_attention(q, *pages, lengths, **kw)
+            np.testing.assert_allclose(got.numpy(), want.numpy(),
+                                       **LOGIT_TOL[32])
+            calls.append(ps)
+        return got
+
+    def run():
+        logits, cache = TT.prefill(cfg, tvar, {"tokens": prompts},
+                                   max_len=16)
+        out = [logits]
+        for _ in range(4):
+            logits, cache = TT.decode_step(cfg, tvar, cache,
+                                           TT.greedy_token(cfg, logits))
+            out.append(logits)
+        return out
+
+    want = run()
+    monkeypatch.setattr(ops, "decode_attention", paged)
+    got = run()
+    assert len(calls) == 4 * cfg.num_layers * 2
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), **LOGIT_TOL[32])
+
+
 @pytest.mark.parametrize("name", ["hymba-1.5b", "olmoe-1b-7b"])
 def test_unported_families_raise_naming_the_roadmap_item(name):
     cfg = tget(name, reduced=True)
