@@ -32,10 +32,11 @@
    4200, past its 4096-token window) prefill on the card and take
    REPLAY_STEPS greedy steps densely, then again with every layer's
    decode read through ``paginate_kv`` pages (16 and 128 rows) and
-   ``paged_decode_attention``: equal greedy ids, logits within the decode
-   kernel's tolerance.  Its launch count is zeroed just before and read
-   just after.  Times one layer's call and one decode step on the bf16
-   cache against the int8 cache.
+   ``paged_decode_attention``: every layer's output equal to the dense
+   kernel's bit for bit, equal greedy ids.  Its launch count is zeroed
+   just before and read just after.  Times one layer's call (dense,
+   paged, SDPA; device time, share of the bound, the split plan) and one
+   decode step on the bf16 cache against the int8 cache.
 6. The int8 KV cache and the ``uniform_pos`` decode of both attention
    tenants at the serving batch, on the card against the host's plain
    run from the same inputs, by step 4's rules.
@@ -148,6 +149,13 @@ def compare(what: str, got, want, rtol: float, atol: float) -> float:
 
 def rand(g, *shape, dtype=torch.float32, scale=1.0):
     return (torch.randn(shape, generator=g, device="cuda") * scale).to(dtype)
+
+
+def plan_text(plan) -> str:
+    """A decode call's split plan (``ops.split_plan``) in words."""
+    return (f"splits of {plan.split} rows x {plan.splits}, tiles of "
+            f"{plan.tile}, {plan.blocks} blocks"
+            + (" + combine" if plan.splits > 1 else ""))
 
 
 # ---------------------------------------------------------------------------
@@ -278,14 +286,17 @@ def check_decode(ops, ref, g, cfgs) -> dict:
                     q4, kt, vt, attn_mask=mask, enable_gqa=True)),
                 **bound(nbytes, ops_, qdt))
             rows[label, qdt] = row
+            dev = kernel_ms(lambda: ops.decode_attention(q, k, v, lens, **kw))
             print_rows.append((f"{label} B={B} T={T} H={H} KV={KV} D={D}"
                                f"{' ' + str(kw) if kw else ''} q {qdt}/cache "
-                               "bf16", row))
+                               "bf16", row, dev,
+                               ops.split_plan(B, H, KV, D, k.dtype, T)))
     print(f"decode_attention: {n} cases within tolerance; sweep max abs err "
           f"{worst:.3g}")
-    for what, r in print_rows:
-        print(f"  main {what}: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, "
+    for what, r, dev, plan in print_rows:
+        print(f"  main {what}: kernel {r['ms']:.4f} ms (device {dev:.4f} ms, "
+              f"{r['bound_ms'] / dev:.1%} of the bound; {plan_text(plan)}), "
+              f"plain {r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}), max abs err "
               f"{r['max_abs_err']:.3g}")
     return rows[cfgs[0].name, torch.float32]
@@ -537,7 +548,7 @@ def check_qmm(ops, ref, g, cfgs) -> dict:
     return rows[cfgs[0].name]
 
 
-def kernel_ms(fn, reps: int = 5) -> float:
+def kernel_ms(fn, reps: int = 9) -> float:
     """Device time of one call of ``fn`` (one kernel launch): CUDA events
     around the call, with a spin kernel queued just before, so that the
     call is enqueued while the card spins and the card never waits for
@@ -758,15 +769,27 @@ def time_paged(ops, ref, arch, q, k, v, lens, kw) -> dict:
         mask &= (t >= lens[:, None] - window) | (t < prefix)
     q4, kt, vt = q.to(k.dtype)[:, :, None, :], k.transpose(1, 2), \
         v.transpose(1, 2)
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            q4, kt, vt, attn_mask=mask[:, None, None, :], enable_gqa=True)
+
     row = dict(
         dense_ms=time_ms(lambda: ops.decode_attention(q, k, v, lens, **kw)),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            q4, kt, vt, attn_mask=mask[:, None, None, :], enable_gqa=True)))
+        library_ms=time_ms(sdpa), library_device_ms=kernel_ms(sdpa),
+        dense_plan=ops.split_plan(B, H, KV, D, k.dtype, T))
     row["dense_device_ms"] = kernel_ms(
         lambda: ops.decode_attention(q, k, v, lens, **kw))
+    dense = ops.decode_attention(q, k, v, lens, **kw)
+    if not torch.equal(dense, ops.decode_attention(q, k, v, lens, **kw)):
+        raise AssertionError(f"replay {arch}: two dense calls differ")
     for ps in PAGE_SIZES:
         pages = ops.paginate_kv(k, v, lens, ps)
         got = ops.paged_decode_attention(q, *pages, lens, **kw)
+        if not (torch.equal(got, dense) and torch.equal(
+                got, ops.paged_decode_attention(q, *pages, lens, **kw))):
+            raise AssertionError(f"replay {arch}, page size {ps}: the paged "
+                                 "call differs from the dense one or from "
+                                 "itself")
         err = compare(f"replay {arch} paged vs plain, page size {ps}", got,
                       ref.paged_decode_attention(q, *pages, lens, **kw),
                       TOL[torch.bfloat16], TOL[torch.bfloat16])
@@ -781,13 +804,14 @@ def time_paged(ops, ref, arch, q, k, v, lens, kw) -> dict:
                 q, *pages, lens, **kw)),
             plain_ms=time_ms(lambda: ref.paged_decode_attention(
                 q, *pages, lens, **kw), iters=10),
+            plan=ops.split_plan(B, H, KV, D, k.dtype, pages[2].shape[1] * ps),
             **bound(nbytes, 4 * n_vis * H * D, q.dtype))
     return row
 
 
 def step_time(fn) -> tuple:
     """(wall ms over 3 synchronized calls, device busy ms of one profiled
-    call) of one decode step."""
+    call, its top kernels as text) of one decode step."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -796,7 +820,9 @@ def step_time(fn) -> tuple:
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / 3
     _, kern, _ = device_kernels(fn)
-    return wall, sum(kern.values())
+    top = sorted(kern.items(), key=lambda kv: -kv[1])[:5]
+    return wall, sum(kern.values()), "; ".join(
+        f"{k[:50]} {t:.2f} ms" for k, t in top)
 
 
 def replay(srv, ops, ref) -> tuple:
@@ -807,10 +833,12 @@ def replay(srv, ops, ref) -> tuple:
     cache, once dense and once with a hook on ``ops.decode_attention``
     that pages every layer's cache with ``paginate_kv`` at each page
     size, runs ``ops.paged_decode_attention``, holds it to the dense
-    kernel and passes the paged result on down the layer.  The greedy
-    ids must be equal and the logits within the decode kernel's bf16
-    tolerance.  Then times one layer's call, and one decode step on the
-    bf16 cache against one on the same cache quantized to int8."""
+    kernel bit for bit and passes the paged result on down the layer.
+    The greedy ids must be equal and the logits within the decode
+    kernel's bf16 tolerance.  Then times one layer's call (with its split
+    plan, its device time and its share of the bound), and one decode
+    step on the bf16 cache against one on the same cache quantized to
+    int8."""
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
 
@@ -832,15 +860,19 @@ def replay(srv, ops, ref) -> tuple:
         torch.cuda.synchronize()
         t_prefill = time.perf_counter() - t0
         calls = {}
-        worst = [0.0]
+        equal = [0]
 
         def hook(q, k_cache, v_cache, lengths, **kw):
             want = dense_fn(q, k_cache, v_cache, lengths, **kw)
             for ps in PAGE_SIZES:
                 pages = ops.paginate_kv(k_cache, v_cache, lengths, ps)
                 got = ops.paged_decode_attention(q, *pages, lengths, **kw)
-                worst[0] = max(worst[0], compare(
-                    f"replay {arch} page size {ps}", got, want, tol, tol))
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"replay {arch} page size {ps}: paged differs from "
+                        "dense by up to "
+                        f"{float((got.float() - want.float()).abs().max())}")
+                equal[0] += 1
             calls[kw.get("window", 0)] = (q, k_cache, v_cache, lengths, kw)
             return got
 
@@ -888,25 +920,33 @@ def replay(srv, ops, ref) -> tuple:
         print(f"replay {arch} {bits}-bit, {B} x {S} prompt, "
               f"{REPLAY_STEPS} steps: prefill {t_prefill:.2f} s, dense and "
               f"paged steps {t_steps:.2f} s; greedy ids {dense_ids.tolist()} "
-              f"equal; paged vs dense: layer outputs max abs diff "
-              f"{worst[0]:.3g}, step logits {logit_diff:.3g}")
+              f"equal; paged vs dense: layer outputs bit-equal in all "
+              f"{equal[0]} paged calls, step logits max abs diff "
+              f"{logit_diff:.3g}")
         for w, r in row.items():
             q, k = calls[w][0], calls[w][1]
+            bnd = r[PAGE_SIZES[0]]["bound_ms"]
             print(f"  last step, layer with window {w} (B={B}, T="
                   f"{k.shape[1]}, H={q.shape[1]}, KV={k.shape[2]}, D="
                   f"{q.shape[2]}, q {q.dtype}/cache {k.dtype}): dense kernel "
                   f"{r['dense_ms']:.4f} ms (device {r['dense_device_ms']:.4f}"
-                  f"), sdpa {r['library_ms']:.4f} ms; " + "; ".join(
+                  f", {bnd / r['dense_device_ms']:.1%} of the bound; "
+                  f"{plan_text(r['dense_plan'])}), sdpa "
+                  f"{r['library_ms']:.4f} ms (device "
+                  f"{r['library_device_ms']:.4f}); " + "; ".join(
                       f"paged ps {ps}: {r[ps]['ms']:.4f} ms (device "
-                      f"{r[ps]['device_ms']:.4f}), plain "
+                      f"{r[ps]['device_ms']:.4f}, "
+                      f"{r[ps]['bound_ms'] / r[ps]['device_ms']:.1%} of the "
+                      f"bound; {plan_text(r[ps]['plan'])}), plain "
                       f"{r[ps]['plain_ms']:.4f} ms, bound "
                       f"{r[ps]['bound_ms']:.6f} ms "
                       f"({r[ps]['bound_by']}), max abs err "
                       f"{r[ps]['max_abs_err']:.3g}" for ps in PAGE_SIZES))
         print(f"  one decode step at {S + REPLAY_STEPS} tokens: bf16 cache "
               f"wall {bf16_step[0]:.2f} ms (device busy {bf16_step[1]:.2f}"
-              f" ms), int8 cache wall {int8_step[0]:.2f} ms (device busy "
-              f"{int8_step[1]:.2f} ms)")
+              f" ms; top kernels: {bf16_step[2]}), int8 cache wall "
+              f"{int8_step[0]:.2f} ms (device busy {int8_step[1]:.2f} ms; "
+              f"top kernels: {int8_step[2]})")
         del cache0, cache, qcache, calls
         tr.set_variant(None)
         torch.cuda.empty_cache()

@@ -5,9 +5,11 @@ Ports of :func:`repro.kernels.decode_attention.decode_attention` and
 :func:`~repro.kernels.decode_attention.paged_decode_attention` (the Pallas
 kernels ``_decode_kernel`` and ``_paged_decode_kernel``), and of the
 ``paginate_kv`` helper that lays a dense cache out as pages.  The CUDA
-source is ``repro_torch/csrc/decode_attention.cu``: one body serves both
-layouts, and its header comment gives the design and what bounds it on
-the H100 (the cache bytes it reads).
+source is ``repro_torch/csrc/decode_attention.cu``: one split-key body
+serves both layouts, and a second kernel combines the splits; its header
+comment gives the design and what bounds it on the H100 (the cache bytes
+it reads).  :func:`split_plan` decides how a call cuts its keys, from the
+shapes and types alone.
 
 A tensor on the CPU is computed by the plain versions,
 :func:`repro_torch.kernels.ref.decode_attention` and
@@ -19,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -28,12 +31,111 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.build import check_launch, launcher, stream_ptr
 
 _TYPES = (torch.float32, torch.bfloat16)
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-              + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
-                 ctypes.c_int, ctypes.c_void_p])
-_PAGED_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
-                    + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
-                       ctypes.c_int, ctypes.c_void_p])
+_MAX_HEADS = 8  # query heads per block (kMaxHeads in the source)
+_SPLIT_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 14
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_int, ctypes.c_void_p])
+_COMBINE_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 11
+                     + [ctypes.c_void_p])
+
+
+class SplitPlan(NamedTuple):
+    """How one call cuts its keys: ``splits`` splits of ``split`` logical
+    rows, staged ``tile`` rows at a time, ``heads`` query heads a block,
+    ``blocks`` blocks of the split kernel in all."""
+    split: int
+    splits: int
+    tile: int
+    heads: int
+    blocks: int
+
+
+def _pow2_floor(x: int) -> int:
+    return 1 << (max(1, x).bit_length() - 1)
+
+
+def _pow2_ceil(x: int) -> int:
+    return 1 << (max(1, x) - 1).bit_length()
+
+
+def split_plan(B: int, H: int, KV: int, D: int, kv_dtype: torch.dtype,
+               rows: int) -> SplitPlan:
+    """The split plan of one decode call over ``rows`` logical cache rows
+    (T for the dense cache, NP * page_size for the pool).
+
+    A block holds the ``heads`` query heads of one KV head (G = H / KV, cut
+    into chunks of at most 8).  The tile is the most rows (8 to 64, a power
+    of two) whose k takes at most 8 KB of shared memory and whose scores
+    take at most 16K multiply-adds.  The split length is 16 rows for each
+    (sequence, KV head) pair over the heads a block holds, in powers of
+    two, between 1 and 16 tiles: few pairs over a long cache still fill
+    the card (gemma2's replay, 8 pairs of 2 heads at D=256, splits every
+    64 rows, 528 blocks at 4204 rows), and the serving batch's 20 rows stay
+    one split and one launch.  Neither depends on ``rows``, nor on the
+    lengths: a dense cache and its page pool split at the same logical
+    rows, and the pool's rows past T only add splits at the end."""
+    esz = torch.finfo(kv_dtype).bits // 8
+    G = H // KV
+    chunks = -(-G // _MAX_HEADS)
+    heads = -(-G // chunks)
+    tile = min(64, max(8, _pow2_floor(min(8192 // (D * esz),
+                                          16384 // (heads * D)))))
+    split = 16 * _pow2_ceil(B * KV) // _pow2_ceil(heads)
+    split = min(16 * tile, max(tile, split))
+    splits = -(-rows // split)
+    return SplitPlan(split, splits, tile, heads, B * KV * chunks * splits)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _check(name: str, q, k, v, lengths, extra=()) -> None:
+    dev = q.device
+    if dev.type != "cuda" or any(t.device != dev
+                                 for t in (k, v, lengths, *extra)):
+        raise ValueError(f"{name}: all inputs must share one CUDA device")
+    if q.dtype not in _TYPES or k.dtype not in _TYPES or v.dtype != k.dtype:
+        raise TypeError(f"{name}: q {q.dtype}, k {k.dtype}, v {v.dtype} not "
+                        "float32/bfloat16 with k and v alike")
+
+
+def _launch(name: str, q, k, v, table, lengths, n: int, P: int, ps: int,
+            NP: int, *, window: int, softcap: float, scale: float,
+            prefix: int) -> torch.Tensor:
+    """Both layouts: the split kernel, then (with more than one split) the
+    combine kernel, each launch checked.  The f32 partials and their
+    (m, l) pairs are allocated here; the kernels allocate nothing."""
+    B, H, D = q.shape
+    KV = k.shape[1] if table is not None else k.shape[2]
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    plan = split_plan(B, H, KV, D, k.dtype, n)
+    part = ml = None
+    if plan.splits > 1:
+        G = H // KV
+        part = torch.empty((B, KV, plan.splits, G, D), dtype=torch.float32,
+                           device=q.device)
+        ml = torch.empty((B, KV, plan.splits, G, 2), dtype=torch.float32,
+                         device=q.device)
+    flags = (int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16))
+    dims = (B, H, KV, n, D, P, ps, NP)
+    stream = stream_ptr(q.device)
+    err = launcher("decode_attention", _SPLIT_ARGTYPES, "decode_split_launch")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(table),
+        lengths.data_ptr(), out.data_ptr(), _ptr(part), _ptr(ml), *flags,
+        *dims, plan.split, plan.splits, plan.tile, plan.heads,
+        float(scale or D ** -0.5), int(window), float(softcap), int(prefix),
+        stream)
+    check_launch(name, err)
+    if plan.splits > 1:
+        err = launcher("decode_attention", _COMBINE_ARGTYPES,
+                       "decode_combine_launch")(
+            part.data_ptr(), ml.data_ptr(), v.data_ptr(), _ptr(table),
+            out.data_ptr(), *flags, *dims, plan.splits, stream)
+        check_launch(name, err)
+    return out
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -47,16 +149,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                                     scale=scale, prefix=prefix)
     B, H, D = q.shape
     _, T, KV, _ = k_cache.shape
-    dev = q.device
-    if dev.type != "cuda" or any(t.device != dev
-                                 for t in (k_cache, v_cache, lengths)):
-        raise ValueError("decode_attention: all inputs must share one CUDA "
-                         "device")
-    if q.dtype not in _TYPES or k_cache.dtype not in _TYPES \
-            or v_cache.dtype != k_cache.dtype:
-        raise TypeError(f"decode_attention: q {q.dtype}, k {k_cache.dtype},"
-                        f" v {v_cache.dtype} not float32/bfloat16 with k "
-                        "and v alike")
+    _check("decode_attention", q, k_cache, v_cache, lengths)
     if lengths.dtype != torch.int32:
         raise TypeError("decode_attention: lengths must be int32")
     if (k_cache.shape != v_cache.shape or k_cache.shape[0] != B
@@ -65,21 +158,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"decode_attention: shapes q {tuple(q.shape)}, "
                          f"k/v {tuple(k_cache.shape)}, lengths "
                          f"{tuple(lengths.shape)}")
-    if D > 256 or T < 1:
-        raise ValueError(f"decode_attention: needs D <= 256 and T >= 1, "
-                         f"got D={D}, T={T}")
+    if D > 256 or D % 8 or T < 1:
+        raise ValueError(f"decode_attention: needs D <= 256, a multiple of "
+                         f"8, and T >= 1, got D={D}, T={T}")
     if not all(t.is_contiguous() for t in (q, k_cache, v_cache, lengths)):
         raise ValueError("decode_attention: inputs must be contiguous")
-    out = torch.empty_like(q)
-    if B == 0:
-        return out
-    err = launcher("decode_attention", _ARGTYPES)(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), int(q.dtype == torch.bfloat16),
-        int(k_cache.dtype == torch.bfloat16), B, H, KV, T, D,
-        float(scale or D ** -0.5), int(window), float(softcap), int(prefix),
-        stream_ptr(dev))
-    check_launch("decode_attention", err)
+    out = _launch("decode_attention", q, k_cache, v_cache, None, lengths, T,
+                  0, 1, 0, window=window, softcap=softcap, scale=scale,
+                  prefix=prefix)
     decode_attention.launches += 1
     return out
 
@@ -103,16 +189,8 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
             softcap=softcap, scale=scale, prefix=prefix)
     B, H, D = q.shape
     P, KV, ps, _ = k_pages.shape
-    dev = q.device
-    if dev.type != "cuda" or any(t.device != dev for t in (
-            k_pages, v_pages, page_table, lengths)):
-        raise ValueError("paged_decode_attention: all inputs must share one "
-                         "CUDA device")
-    if q.dtype not in _TYPES or k_pages.dtype not in _TYPES \
-            or v_pages.dtype != k_pages.dtype:
-        raise TypeError(f"paged_decode_attention: q {q.dtype}, k "
-                        f"{k_pages.dtype}, v {v_pages.dtype} not "
-                        "float32/bfloat16 with k and v alike")
+    _check("paged_decode_attention", q, k_pages, v_pages, lengths,
+           (page_table,))
     if page_table.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError("paged_decode_attention: page_table and lengths "
                         "must be int32")
@@ -125,24 +203,17 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                          f"{tuple(page_table.shape)}, lengths "
                          f"{tuple(lengths.shape)}")
     NP = page_table.shape[1]
-    if D > 256 or min(P, ps, NP) < 1:
-        raise ValueError(f"paged_decode_attention: needs D <= 256 and at "
-                         f"least one page, row and table entry, got D={D}, "
-                         f"P={P}, page_size={ps}, NP={NP}")
+    if D > 256 or D % 8 or min(P, ps, NP) < 1:
+        raise ValueError(f"paged_decode_attention: needs D <= 256, a "
+                         f"multiple of 8, and at least one page, row and "
+                         f"table entry, got D={D}, P={P}, page_size={ps}, "
+                         f"NP={NP}")
     if not all(t.is_contiguous()
                for t in (q, k_pages, v_pages, page_table, lengths)):
         raise ValueError("paged_decode_attention: inputs must be contiguous")
-    out = torch.empty_like(q)
-    if B == 0:
-        return out
-    err = launcher("decode_attention", _PAGED_ARGTYPES,
-                   "paged_decode_attention_launch")(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        int(q.dtype == torch.bfloat16), int(k_pages.dtype == torch.bfloat16),
-        B, H, KV, P, ps, NP, D, float(scale or D ** -0.5), int(window),
-        float(softcap), int(prefix), stream_ptr(dev))
-    check_launch("paged_decode_attention", err)
+    out = _launch("paged_decode_attention", q, k_pages, v_pages, page_table,
+                  lengths, NP * ps, P, ps, NP, window=window,
+                  softcap=softcap, scale=scale, prefix=prefix)
     paged_decode_attention.launches += 1
     return out
 

@@ -5,6 +5,8 @@ port's oracles: the CPU path of every kernel wrapper computes with them,
 and ``chip_smoke.py`` holds each Hopper kernel against them on the card.
 ``paged_decode_attention`` gathers the pages that ``paginate_kv``
 (:mod:`repro_torch.kernels.decode_attention`) lays out.
+``decode_attention_splits`` and its paged counterpart model the decode
+kernel's split-key passes for the tests; nothing else calls them.
 Scores, softmax and products run in float32; outputs are cast back to the
 query's (or ``out_dtype``'s) type, as in the reference.
 """
@@ -110,6 +112,87 @@ def paged_decode_attention(
     v = v_pages[idx].transpose(2, 3).reshape(B, NP * ps, KV, D)
     return decode_attention(q, k, v, lengths, window=window, softcap=softcap,
                             scale=scale, prefix=prefix)
+
+
+def decode_attention_splits(
+    q: torch.Tensor,  # (B, H, D)
+    k_cache: torch.Tensor,  # (B, T, KV, D)
+    v_cache: torch.Tensor,  # (B, T, KV, D)
+    lengths: torch.Tensor,  # (B,) int32
+    *,
+    split: int,
+    window: int = 0,
+    softcap: float = 0.0,
+    scale: float = 0.0,
+    prefix: int = 0,
+) -> torch.Tensor:
+    """A plain model of the two passes of the split-key decode kernel
+    (``csrc/decode_attention.cu``): each split of ``split`` keys gives a
+    partial (m, l, acc) over its visible keys, and the partials are folded
+    in split order, empty ones skipped; a row with no visible key gets the
+    mean of v over all T rows.  Equal to :func:`decode_attention` up to
+    rounding.  Only the tests call it."""
+    B, H, D = q.shape
+    T, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    if scale == 0.0:
+        scale = D ** -0.5
+    qf = q.float().reshape(B, KV, G, D) * scale
+    s = torch.einsum("bkgd,btkd->bkgt", qf, k_cache.float())  # (B, KV, G, T)
+    if softcap:
+        s = _softcap(s, softcap)
+    kv_pos = torch.arange(T, device=q.device)[None, :]
+    lens = lengths.to(q.device, torch.int64)[:, None]
+    valid = kv_pos < lens
+    if window:
+        valid &= (kv_pos >= lens - window) | (kv_pos < prefix)
+    vf = v_cache.float()
+    m = torch.full((B, KV, G), NEG_INF, device=q.device)
+    den = torch.zeros((B, KV, G), device=q.device)
+    acc = torch.zeros((B, KV, G, D), device=q.device)
+    for lo in range(0, T, split):
+        vis = valid[:, None, None, lo:lo + split]
+        sv = torch.where(vis, s[..., lo:lo + split], float("-inf"))
+        m_s = sv.amax(-1)  # -inf for an empty split
+        p = torch.where(vis, torch.exp(sv - m_s[..., None]), 0.0)
+        acc_s = torch.einsum("bkgt,btkd->bkgd", p, vf[:, lo:lo + split])
+        keep = vis.any(-1)  # (B, 1, 1): the split holds a visible key
+        m_new = torch.where(keep, torch.maximum(m, m_s), m)
+        a = torch.exp(m - m_new)
+        w = torch.where(keep, torch.exp(m_s - m_new), 0.0)
+        den = den * a + p.sum(-1) * w
+        acc = acc * a[..., None] + acc_s * w[..., None]
+        m = m_new
+    out = acc / den.clamp_min(1e-30)[..., None]
+    mean = vf.mean(1)[:, :, None, :]  # (B, KV, 1, D)
+    out = torch.where((den == 0)[..., None], mean, out)
+    return out.reshape(B, H, D).to(q.dtype)
+
+
+def paged_decode_attention_splits(
+    q: torch.Tensor,  # (B, H, D)
+    k_pages: torch.Tensor,  # (P, KV, page_size, D)
+    v_pages: torch.Tensor,  # (P, KV, page_size, D)
+    page_table: torch.Tensor,  # (B, NP) int32
+    lengths: torch.Tensor,  # (B,) int32
+    *,
+    split: int,
+    window: int = 0,
+    softcap: float = 0.0,
+    scale: float = 0.0,
+    prefix: int = 0,
+) -> torch.Tensor:
+    """:func:`decode_attention_splits` over the gathered pages (NP *
+    page_size logical rows, split at the same positions as the dense
+    cache).  Only the tests call it."""
+    B, NP = page_table.shape
+    _, KV, ps, D = k_pages.shape
+    idx = page_table.long()
+    k = k_pages[idx].transpose(2, 3).reshape(B, NP * ps, KV, D)
+    v = v_pages[idx].transpose(2, 3).reshape(B, NP * ps, KV, D)
+    return decode_attention_splits(q, k, v, lengths, split=split,
+                                   window=window, softcap=softcap,
+                                   scale=scale, prefix=prefix)
 
 
 def quant_matmul(

@@ -4,9 +4,10 @@ are the sweeps of ``test_kernels.py`` plus the main path's widths
 (tinyllama's and gemma2's attention, D=256 with window and softcap;
 mamba2's scan; the paged decode at the replay's long caches), in the
 dtype combinations the serving path uses; the paged decode also against
-the dense kernel on the same logical cache, and the int8-cache decode
-step on the card against the CPU.  Imports no JAX: it runs on the
-machine with the card.
+the dense kernel on the same logical cache, bit for bit; the split-key
+decode at the replay's shapes, two calls bit-identical, and at masks
+that cut its splits; and the int8-cache decode step on the card against
+the CPU.  Imports no JAX: it runs on the machine with the card.
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 """
@@ -262,6 +263,84 @@ def test_paged_decode_attention_kernel_replay_shapes(sm90, B, T, H, KV, D,
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), **TOL["bfloat16"])
     assert torch.equal(got, ops.decode_attention(q, k, v, lens, **kwargs))
+
+
+# One layer of each replay: tinyllama (4 rows of 1024 + 3, f32 query of
+# the 8-bit variant) and gemma2 (2 rows of 4200 + 3, 16-bit), bf16 caches.
+REPLAY_SHAPES = [(4, 1027, 32, 4, 64, "float32", {}),
+                 (2, 4203, 8, 4, 256, "bfloat16", GEMMA2_MODE)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,KV,D,dtype,kwargs", REPLAY_SHAPES)
+def test_decode_attention_kernel_replay_shapes(sm90, B, T, H, KV, D, dtype,
+                                               kwargs):
+    """The dense kernel at the replay's shapes (tens of splits, then the
+    combine) against the plain version; one launch counted per call."""
+    lens = [T - 1 - 7 * i for i in range(B)]
+    q, k, v, lens, _ = _paged_case(sm90, B, T, H, KV, D, 16, dtype,
+                                   "bfloat16", lens)
+    assert ops.split_plan(B, H, KV, D, k.dtype, T).splits > 1
+    before = ops.decode_attention.launches
+    got = ops.decode_attention(q, k, v, lens, **kwargs)
+    torch.cuda.synchronize()
+    assert ops.decode_attention.launches == before + 1
+    want = tref.decode_attention(q, k, v, lens, **kwargs)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **TOL["bfloat16"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,KV,D,dtype,kwargs", REPLAY_SHAPES)
+@pytest.mark.parametrize("paged", [False, True])
+def test_decode_attention_kernel_run_to_run_bit_equal(sm90, B, T, H, KV, D,
+                                                      dtype, kwargs, paged):
+    """The combine reduces the splits in a fixed order, without atomics:
+    two calls on the same inputs give the same bits."""
+    lens = [T - 1 - 7 * i for i in range(B)]
+    q, k, v, lens, pages = _paged_case(sm90, B, T, H, KV, D, 16, dtype,
+                                       "bfloat16", lens)
+    if paged:
+        first = ops.paged_decode_attention(q, *pages, lens, **kwargs)
+        second = ops.paged_decode_attention(q, *pages, lens, **kwargs)
+    else:
+        first = ops.decode_attention(q, k, v, lens, **kwargs)
+        second = ops.decode_attention(q, k, v, lens, **kwargs)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,kv_dtype", DTYPE_PAIRS)
+@pytest.mark.parametrize("ps", [5, 16])
+@pytest.mark.parametrize("case", ["splits_past_length", "window_mid_split",
+                                  "prefix_then_window"])
+def test_decode_attention_kernel_split_edges(sm90, dtype, kv_dtype, ps,
+                                             case):
+    """Masks that cut the splits: lengths that leave whole splits empty,
+    a window that starts inside a split, and a prefix plus a window with
+    empty splits between them.  Against the plain version, and the paged
+    kernel equal to the dense one bit for bit (page sizes that do not
+    line up with the splits)."""
+    B, T, H, KV, D = 3, 700, 8, 2, 64
+    plan = ops.split_plan(B, H, KV, D, TDT[kv_dtype], T)
+    L = plan.split
+    assert plan.splits >= 5
+    kwargs, lens = {}, [L + 3, 2 * L, T - 1]
+    if case == "window_mid_split":
+        kwargs = dict(window=2 * L + L // 2 + 1)
+        lens = [T - 1, T - 50, 3 * L + 7]
+    elif case == "prefix_then_window":
+        kwargs = dict(window=L + 5, prefix=8)
+        lens = [T - 1, T - 50, 3 * L + 7]
+    q, k, v, lens, pages = _paged_case(sm90, B, T, H, KV, D, ps, dtype,
+                                       kv_dtype, lens)
+    got = ops.decode_attention(q, k, v, lens, **kwargs)
+    want = tref.decode_attention(q, k, v, lens, **kwargs)
+    tol = TOL["bfloat16" if "bfloat16" in (dtype, kv_dtype) else "float32"]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **tol)
+    assert torch.equal(ops.paged_decode_attention(q, *pages, lens, **kwargs),
+                       got)
 
 
 @pytest.mark.cuda
