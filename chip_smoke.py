@@ -14,7 +14,12 @@
    scan at a serving prefill and at a 2048-token prompt), and times
    kernel, plain version, the bound (bytes over 3.35 TB/s or operations
    over the peak rate of their type) and, for attention,
-   ``scaled_dot_product_attention`` as a yardstick.  The paged decode's
+   ``scaled_dot_product_attention`` as a yardstick.  ``quant_matmul`` is
+   timed over one decode step's and one prefill step's projections (device
+   time beside the bound, and the 16-bit variant's bf16 ``torch.matmul``
+   over the same shapes as a yardstick of another function), prints each
+   shape's plan, holds two calls bit-equal, and times the replay's
+   prefill projections.  The paged decode's
    sweep runs every q/pool dtype pair and masking mode, rows with
    nothing visible, and holds it to the dense kernel too.
 3. Serves the serving benchmark's three tenants, tinyllama-1.1b,
@@ -50,6 +55,7 @@ before printing any result.  Imports neither JAX nor the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -93,6 +99,7 @@ SSD_CHUNK = 64  # the kernel's chunk (kQ in csrc/ssd_scan.cu)
 # 4, prompts up to 12 tokens, 8 new tokens.
 ARCHS = ("tinyllama-1.1b", "mamba2-780m", "gemma2-2b")
 MAX_BATCH, MAX_PROMPT, MAX_NEW, REQUESTS = 4, 12, 8, 18
+GENERATE_RUNS = 5  # unprofiled generate walls per tenant and variant
 LONG_PROMPT = 2048  # a long mamba2 prefill: the scan bound by operations
 
 # The paged decode's path: real decode caches of the two attention
@@ -216,6 +223,8 @@ def check_flash(ops, ref, g, cfgs) -> dict:
                 library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=True, enable_gqa=True)),
                 **bound(nbytes, ops_, dt))
+            row["device_ms"] = kernel_ms(
+                lambda: ops.flash_attention(q, k, v, **kw))
             rows[label, dt] = row
             print_rows.append((f"{label} ({B}, {S}, {H}/{KV} heads, D={D}"
                                f"{', ' + str(kw) if kw else ''}) {dt}", row))
@@ -223,7 +232,8 @@ def check_flash(ops, ref, g, cfgs) -> dict:
           f"{TOL[torch.float32]}, bf16 {TOL[torch.bfloat16]}); sweep max abs "
           f"err {worst:.3g}")
     for what, r in print_rows:
-        print(f"  main {what}: kernel {r['ms']:.4f} ms, plain "
+        print(f"  main {what}: kernel {r['ms']:.4f} ms (event), device "
+              f"{r['device_ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}), max abs err "
               f"{r['max_abs_err']:.3g}")
@@ -481,6 +491,8 @@ def layer_shapes(cfg):
 
 
 def check_qmm(ops, ref, g, cfgs) -> dict:
+    from repro_torch.kernels.quant_matmul import qmm_plan
+
     worst = 0.0
     n = 0
     for (M, K, N, group, bits) in QMM_SWEEP:
@@ -497,55 +509,133 @@ def check_qmm(ops, ref, g, cfgs) -> dict:
     for cfg in cfgs:
         # Main path: every projection of every layer at full width, int8
         # at group 32 as the 8-bit variant holds them (0.7-2.1 GB: no
-        # decode step finds its weights in the 50 MB L2).
+        # decode step finds its weights in the 50 MB L2), and the same
+        # weights in bf16 as the 16-bit variant holds them (the yardstick).
         shapes = layer_shapes(cfg)
-        weights = []
+        weights, w16 = [], []
         for _ in range(cfg.num_layers):
             for name, (K, N) in shapes.items():
                 w = rand(g, K, N, scale=K ** -0.5)
                 weights.append(ops.quantize_weights(w, bits=8, group=32))
+                w16.append(w.bfloat16())
+                del w
         main_err = 0.0
-        for (K, N) in set(shapes.values()):
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        for (K, N) in sorted(set(shapes.values())):
             wq, sc = next(w for w in weights if w[0].shape == (K, N))
             for M in (MAX_BATCH, MAX_BATCH * MAX_PROMPT):  # decode, prefill
                 for dt in (torch.float32, torch.bfloat16):
                     x = rand(g, M, K, dtype=dt)
                     tol = QMM_TOL if dt == torch.float32 else TOL[dt]
+                    got = ops.quant_matmul(x, wq, sc)
                     err = compare(f"quant_matmul main {cfg.name} {M, K, N} "
-                                  f"{dt}", ops.quant_matmul(x, wq, sc),
-                                  ref.quant_matmul(x, wq, sc), tol, tol)
+                                  f"{dt}", got, ref.quant_matmul(x, wq, sc),
+                                  tol, tol)
+                    if not torch.equal(got, ops.quant_matmul(x, wq, sc)):
+                        raise AssertionError(
+                            f"quant_matmul main {cfg.name} {M, K, N} {dt}: "
+                            "two calls differ")
                     worst = max(worst, err)
                     if M == MAX_BATCH and dt == torch.float32:  # decode
                         main_err = max(main_err, err)
                     n += 1
-        xs = {K: rand(g, MAX_BATCH, K) for K, _ in shapes.values()}
-
-        def step(fn):
-            for wq, sc in weights:
-                fn(xs[wq.shape[0]], wq, sc)
-
-        nbytes = sum(wq.numel() + sc.numel() * 4 + 4 * MAX_BATCH * (K + N)
-                     for wq, sc in weights for K, N in [wq.shape])
-        ops_ = sum(2 * MAX_BATCH * wq.numel() for wq, _ in weights)
-        row = dict(max_abs_err=main_err,
-                   ms=time_ms(lambda: step(ops.quant_matmul), iters=20),
-                   plain_ms=time_ms(lambda: step(ref.quant_matmul), iters=5),
-                   library_ms=None, **bound(nbytes, ops_, torch.float32))
-        wall, kern, _ = device_kernels(lambda: step(ops.quant_matmul))
-        dev = sum(t for k, t in kern.items() if "qmm_" in k)
-        rows[cfg.name] = row
-        print(f"  main {cfg.name}: one decode step's {len(weights)} "
-              f"projections (M={MAX_BATCH}, f32 x, int8 group 32, "
-              f"{nbytes / 1e9:.3f} GB): kernel {row['ms']:.4f} ms, plain "
-              f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']}); profiled step: wall {wall:.3f} ms, qmm "
-              f"kernels on the device {dev:.4f} ms; max abs err {main_err:.3g}"
-              " at the decode shapes in f32")
-        del weights
+                p = qmm_plan(M, K, N, 32, sms)
+                blocks = (math.ceil(N / p.bn) * p.cluster
+                          * math.ceil(M / p.m_chunk))
+                print(f"  plan {cfg.name} {M, K, N}: BN {p.bn}, cluster "
+                      f"{p.cluster}, rows {p.rows}, M chunk {p.m_chunk}, "
+                      f"{p.threads} threads, {blocks} blocks; two calls "
+                      "bit-equal")
+        for M, what in ((MAX_BATCH, "decode"),
+                        (MAX_BATCH * MAX_PROMPT, "prefill")):
+            row = qmm_step(ops, ref, g, cfg, weights, w16, shapes, M, what,
+                           main_err if what == "decode" else None)
+            rows[cfg.name, what] = row
+        del weights, w16
+        torch.cuda.empty_cache()
+    replay_prefill_qmm(ops, g, cfgs[0])
     print(f"quant_matmul: {n} cases within tolerance (f32 {QMM_TOL}, bf16 "
-          f"{TOL[torch.bfloat16]}); max abs err {worst:.3g} (bf16 outputs "
-          f"of magnitude ~10)")
-    return rows[cfgs[0].name]
+          f"{TOL[torch.bfloat16]}), two calls bit-equal at every main "
+          f"shape; max abs err {worst:.3g} (bf16 outputs of magnitude ~10)")
+    return rows[cfgs[0].name, "decode"]
+
+
+def qmm_step(ops, ref, g, cfg, weights, w16, shapes, M, what, err) -> dict:
+    """Times one step's projections (every layer's, f32 x of M rows)
+    through the kernel, its plain version and, as a yardstick of another
+    function (bf16 weights, twice the bytes), the 16-bit variant's
+    ``torch.matmul``.  Prints the row and returns it."""
+    xs = {K: rand(g, M, K) for K, _ in shapes.values()}
+    xb = {K: v.bfloat16() for K, v in xs.items()}
+
+    def step(fn):
+        for wq, sc in weights:
+            fn(xs[wq.shape[0]], wq, sc)
+
+    def step16():
+        for w in w16:
+            torch.matmul(xb[w.shape[0]], w)
+
+    nbytes = sum(wq.numel() + sc.numel() * 4 + 4 * M * (K + N)
+                 for wq, sc in weights for K, N in [wq.shape])
+    ops_ = sum(2 * M * wq.numel() for wq, _ in weights)
+    if err is None:
+        x, (wq, sc) = xs[weights[0][0].shape[0]], weights[0]
+        err = compare(f"quant_matmul {what} {cfg.name}", ops.quant_matmul(
+            x, wq, sc), ref.quant_matmul(x, wq, sc), QMM_TOL, QMM_TOL)
+    iters = 20 if what == "decode" else 5
+    row = dict(max_abs_err=err,
+               ms=time_ms(lambda: step(ops.quant_matmul), iters=iters),
+               plain_ms=time_ms(lambda: step(ref.quant_matmul), iters=3),
+               library_ms=None, **bound(nbytes, ops_, torch.float32))
+    before = ops.quant_matmul.launches
+    wall, kern, counts = device_kernels(lambda: step(ops.quant_matmul))
+    calls = (ops.quant_matmul.launches - before) // 2  # warm-up and run
+    row["device_ms"] = sum(t for k, t in kern.items() if "qmm_" in k)
+    # Kernels on the card in the profiled step: one qmm_ kernel a call and
+    # nothing else (no reduction kernel, no copy, no memset).
+    row["kernels_per_step"] = sum(counts.values())
+    if (calls != len(weights) or row["kernels_per_step"] != len(weights)
+            or any("qmm_" not in k for k in counts)):
+        raise AssertionError(
+            f"quant_matmul {what} {cfg.name}: {calls} calls of "
+            f"{len(weights)} launched {dict(counts)}")
+    row["host_us_per_call"] = host_us(lambda: step(ops.quant_matmul),
+                                      len(weights))
+    _, kern16, _ = device_kernels(step16)
+    row["bf16_matmul_ms"] = sum(kern16.values())
+    print(f"  main {cfg.name}: one {what} step's {len(weights)} projections "
+          f"(M={M}, f32 x, int8 group 32, {nbytes / 1e9:.3f} GB, "
+          f"{ops_ / 1e9:.1f} GFLOP): kernel {row['ms']:.4f} ms (event), "
+          f"device {row['device_ms']:.4f} ms, plain {row['plain_ms']:.4f} "
+          f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}; device at "
+          f"{100 * row['bound_ms'] / row['device_ms']:.1f}% of it); "
+          f"profiled step wall {wall:.3f} ms, {row['kernels_per_step']} "
+          f"kernels on the card; host {row['host_us_per_call']:.2f} us a "
+          f"call; yardstick, a different "
+          f"function: bf16 x @ bf16 weights (torch.matmul, twice the weight "
+          f"bytes) {row['bf16_matmul_ms']:.4f} ms device; max abs err "
+          f"{err:.3g}")
+    return row
+
+
+def replay_prefill_qmm(ops, g, cfg) -> None:
+    """Device time of one tinyllama layer's projections at the replay's
+    prefill (4 prompts of 1024 tokens, f32 x, int8 group 32)."""
+    M = REPLAY[0][2] * REPLAY[0][3]
+    layer = []
+    for K, N in layer_shapes(cfg).values():
+        wq, sc = ops.quantize_weights(rand(g, K, N, scale=K ** -0.5),
+                                      bits=8, group=32)
+        layer.append((rand(g, M, K), wq, sc))
+    _, kern, _ = device_kernels(
+        lambda: [ops.quant_matmul(*a) for a in layer])
+    dev = sum(t for k, t in kern.items() if "qmm_" in k)
+    ops_ = sum(2 * M * wq.numel() for _, wq, _ in layer)
+    print(f"  replay prefill {cfg.name} (M={M}), one layer's "
+          f"{len(layer)} projections: device {dev:.4f} ms, f32 operations "
+          f"bound {ops_ / PEAK_OPS[torch.float32] * 1e3:.4f} ms "
+          f"({ops_ / 1e9:.1f} GFLOP)")
 
 
 def kernel_ms(fn, reps: int = 9) -> float:
@@ -569,9 +659,25 @@ def kernel_ms(fn, reps: int = 9) -> float:
     return float(np.median(times))
 
 
+def host_us(fn, calls: int, reps: int = 9) -> float:
+    """Host microseconds a launch of one call of ``fn`` (which makes
+    ``calls`` launches) takes: the wall of ``fn`` alone, without waiting
+    for the card, the median of ``reps`` runs, each begun on an idle
+    card (the queue never fills, so no launch waits on the card)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6 / calls)
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
 def device_kernels(fn):
-    """(wall ms, {kernel name: device ms}, kernels launched) of one call
-    of ``fn``, from the profiler's CUDA activity (kernels of every
+    """(wall ms, {kernel name: device ms}, {kernel name: count}) of one
+    call of ``fn``, from the profiler's CUDA activity (kernels of every
     runtime in the process, the port's ctypes-loaded ones included)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -586,7 +692,7 @@ def device_kernels(fn):
         wall = (time.perf_counter() - t0) * 1e3
     dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     kern = {e.key: e.self_device_time_total / 1e3 for e in dev}
-    return wall, kern, sum(e.count for e in dev)
+    return wall, kern, {e.key: e.count for e in dev}
 
 
 def rel_l2(got, want) -> float:
@@ -728,8 +834,9 @@ def check_outputs(tr) -> None:
         print(line)
         batch = np.random.default_rng(2).integers(
             0, cfg.vocab_size, (MAX_BATCH, MAX_PROMPT)).astype(np.int32)
-        wall, kern, launched = device_kernels(
+        wall, kern, counts = device_kernels(
             lambda: tr.generate(batch, MAX_NEW))
+        launched = sum(counts.values())
         busy = sum(kern.values())
         top = sorted(kern.items(), key=lambda kv: -kv[1])[:6]
         print(f"profile {cfg.name} {bits}-bit generate ({MAX_BATCH}x"
@@ -737,6 +844,16 @@ def check_outputs(tr) -> None:
               f"device busy {busy:.1f} ms (idle share {1 - busy / wall:.3f}), "
               f"{launched} kernels launched; top kernels: "
               + "; ".join(f"{k[:50]} {t:.2f} ms" for k, t in top))
+        walls = []
+        for _ in range(GENERATE_RUNS):  # unprofiled
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.generate(batch, MAX_NEW)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        print(f"  {cfg.name} {bits}-bit generate wall, {GENERATE_RUNS} runs "
+              f"unprofiled: median {np.median(walls):.1f} ms ("
+              + ", ".join(f"{w:.1f}" for w in walls) + ")")
     tr.set_variant(None)
 
 

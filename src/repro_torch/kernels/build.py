@@ -3,9 +3,11 @@
 Each source ``repro_torch/csrc/<name>.cu`` exposes a plain C launcher and
 is compiled for Hopper (``sm_90a``) into its own shared library under
 ``build/kernels/`` at the root of the checkout (listed in ``.gitignore``).
-The library's file name carries a digest of its source, the shared
-headers and the flags, so an edited kernel is rebuilt and a built one is
-reused.  Nothing is built when the
+A wrapper module may name preprocessor definitions in
+``NVCC_DEFINES`` (the limits its plan cuts calls to), which its source is
+compiled with.  The library's file name carries a digest of its source,
+the shared headers and the flags, so an edited kernel is rebuilt and a
+built one is reused.  Nothing is built when the
 package is imported: a wrapper asks for its library at its first launch,
 and :func:`build_all` compiles every source at once, one ``nvcc`` process
 each, all started together.
@@ -14,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib
 import os
 import shutil
 import subprocess
@@ -46,11 +49,19 @@ def _nvcc() -> str:
     return str(path)
 
 
+def flags(name: str) -> Tuple[str, ...]:
+    """nvcc's flags for source ``name``: the common ones, then the
+    ``-D`` definitions its wrapper module declares in ``NVCC_DEFINES``."""
+    mod = importlib.import_module(f"repro_torch.kernels.{name}")
+    return NVCC_FLAGS + tuple(
+        f"-D{k}={v}" for k, v in getattr(mod, "NVCC_DEFINES", {}).items())
+
+
 def _target(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags(name)).encode())
     digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
@@ -58,7 +69,7 @@ def _target(name: str) -> Path:
 def _start(name: str) -> Tuple[Path, Path, subprocess.Popen]:
     out = _target(name)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return out, tmp, proc

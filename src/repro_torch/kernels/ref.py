@@ -211,6 +211,36 @@ def quant_matmul(
     return y.to(out_dtype)
 
 
+def quant_matmul_splits(
+    x: torch.Tensor,  # (..., K)
+    w_q: torch.Tensor,  # (K, N) int8
+    scales: torch.Tensor,  # (K // group, N) float
+    *,
+    splits: int,
+    rows: int,
+    out_dtype=None,
+) -> torch.Tensor:
+    """A plain model of the split-K reduction of the ``quant_matmul``
+    kernel (``csrc/quant_matmul.cu``): split s takes rows [s * rows,
+    (s + 1) * rows) of K (the last may be short or empty) and gives an f32
+    partial; the partials are added in split order, as rank r of the
+    cluster adds ranks 0..S-1.  Equal to :func:`quant_matmul` up to
+    rounding.  Only the tests call it."""
+    K, N = w_q.shape
+    G = scales.shape[0]
+    group = K // G
+    out_dtype = out_dtype or x.dtype
+    w = (w_q.float().reshape(G, group, N) * scales.float()[:, None, :]
+         ).reshape(K, N)
+    xf = x.float()
+    y = None
+    for s in range(splits):
+        lo, hi = min(K, s * rows), min(K, (s + 1) * rows)
+        part = xf[..., lo:hi] @ w[lo:hi]
+        y = part if y is None else y + part
+    return y.to(out_dtype)
+
+
 def quantize_weights(
     w: torch.Tensor, *, bits: int = 8, group: int = 128
 ) -> tuple[torch.Tensor, torch.Tensor]:

@@ -33,7 +33,7 @@ def demangle(names):
 def report(name: str) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         log = subprocess.run(
-            [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+            [build._nvcc(), *build.flags(name), "-Xptxas", "-v", "-o",
              str(Path(tmp) / "lib.so"), str(build.CSRC / f"{name}.cu")],
             capture_output=True, text=True, check=True).stderr
     kernels, stats = [], []
@@ -53,8 +53,9 @@ def report(name: str) -> None:
             s = re.search(r"(\d+) bytes smem", line)
             stats[-1]["static smem"] = f"{s.group(1) if s else 0} B"
     for k, st in zip(demangle(kernels), stats):
-        k = re.sub(r"\(anonymous namespace\)::|__nv_bfloat16", lambda x:
-                   "bf16" if x.group(0) == "__nv_bfloat16" else "", k)
+        k = re.sub(r"\(anonymous namespace\)::|__nv_bfloat16|\((int|bool)\)",
+                   lambda x: "bf16" if x.group(0) == "__nv_bfloat16" else "",
+                   k)
         print(f"{name}.cu {k.split('(')[0]}: " + ", ".join(
             f"{key} {val}" for key, val in st.items()))
 

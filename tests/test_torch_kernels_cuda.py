@@ -6,8 +6,11 @@ mamba2's scan; the paged decode at the replay's long caches), in the
 dtype combinations the serving path uses; the paged decode also against
 the dense kernel on the same logical cache, bit for bit; the split-key
 decode at the replay's shapes, two calls bit-identical, and at masks
-that cut its splits; and the int8-cache decode step on the card against
-the CPU.  Imports no JAX: it runs on the machine with the card.
+that cut its splits; ``quant_matmul`` at every main-path projection
+(decode and prefill), the replay's prefill, hymba-1.5b's N = 3257 and
+each cluster size, one launch a call, two calls bit-identical; and the
+int8-cache decode step on the card against the CPU.  Imports no JAX: it
+runs on the machine with the card.
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 """
@@ -17,6 +20,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.quant_matmul import qmm_plan
 
 TOL = {"float32": dict(rtol=3e-5, atol=3e-5),
        "bfloat16": dict(rtol=3e-2, atol=3e-2)}
@@ -37,6 +41,11 @@ SSD_SHAPES = [(1, 64, 2, 16, 1, 8), (2, 96, 4, 32, 2, 16),
               (1, 300, 48, 64, 1, 128)]  # several 64-token chunks, ragged
 QMM_SHAPES = [(64, 256, 128, 128, 8), (100, 384, 200, 128, 8),
               (32, 128, 64, 32, 4), (8, 512, 512, 512, 8)]
+# Every distinct per-layer (K, N) at full width: tinyllama-1.1b,
+# mamba2-780m (ssm_in, ssm_out), gemma2-2b.
+QMM_MAIN_SHAPES = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048),
+                   (1536, 6448), (3072, 1536), (2304, 2048), (2304, 1024),
+                   (2048, 2304), (2304, 9216), (9216, 2304)]
 
 
 def rand(rng, *shape, scale=1.0):
@@ -107,6 +116,74 @@ def test_quant_matmul_kernel(sm90, M, K, N, group, bits, dtype):
     tol = QMM_TOL if dtype == "float32" else TOL["bfloat16"]
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), **tol)
+
+
+def _qmm_case(dev, M, K, N, dtype, group=32, bits=8, seed=11):
+    rng = np.random.default_rng(seed)
+    (x,) = _on(dev, rand(rng, M, K), dtype=dtype)
+    (w,) = _on(dev, rand(rng, K, N, scale=K ** -0.5))
+    wq, sc = ops.quantize_weights(w, bits=bits, group=group)
+    return x, wq, sc
+
+
+def _qmm_check(x, wq, sc, dtype):
+    """One call against the plain version; one launch counted."""
+    before = ops.quant_matmul.launches
+    got = ops.quant_matmul(x, wq, sc)
+    torch.cuda.synchronize()
+    assert ops.quant_matmul.launches == before + 1
+    assert got.dtype == x.dtype and got.shape == (x.shape[0], wq.shape[1])
+    want = tref.quant_matmul(x, wq, sc)
+    tol = QMM_TOL if dtype == "float32" else TOL["bfloat16"]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **tol)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N", QMM_MAIN_SHAPES)
+@pytest.mark.parametrize("M", [4, 48])  # decode at max_batch; prefill
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quant_matmul_main_shapes(sm90, M, K, N, dtype):
+    """Every distinct per-layer (K, N) of the served tenants, int8 at
+    group 32 as the 8-bit variant holds them."""
+    _qmm_check(*_qmm_case(sm90, M, K, N, dtype), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [
+    (4096, 2048, 5632),  # the replay's tinyllama prefill (wg, wu)
+    (4, 1600, 3257), (48, 1600, 3257),  # hymba-1.5b's ssm_in: N % 4 != 0
+    (3, 96, 40), (70, 200, 72)])  # odd widths, a second M chunk
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quant_matmul_replay_and_odd_widths(sm90, M, K, N, dtype):
+    group = 32 if K % 32 == 0 else (8 if K % 8 == 0 else K)
+    _qmm_check(*_qmm_case(sm90, M, K, N, dtype, group=group), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,S", [(4096, 1024, 1024, 1),
+                                     (4, 1024, 17920, 2),
+                                     (4, 2304, 9216, 4), (4, 2048, 2048, 8)])
+def test_quant_matmul_cluster_sizes(sm90, M, K, N, S):
+    """Shapes whose plan is a cluster of each size, on an H100's 132 SMs."""
+    assert qmm_plan(M, K, N, 32, 132).cluster == S
+    sms = torch.cuda.get_device_properties(sm90).multi_processor_count
+    if sms != 132:
+        pytest.skip(f"the shapes are picked for 132 SMs; this card has {sms}")
+    _qmm_check(*_qmm_case(sm90, M, K, N, "float32"), "float32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(4, 5632, 2048), (48, 2048, 5632),
+                                   (4, 1600, 3257)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quant_matmul_bit_identical(sm90, M, K, N, dtype):
+    """The split-K sum is taken in a fixed order: two calls agree bit for
+    bit."""
+    x, wq, sc = _qmm_case(sm90, M, K, N, dtype)
+    assert torch.equal(ops.quant_matmul(x, wq, sc),
+                       ops.quant_matmul(x, wq, sc))
 
 
 def _ssd_inputs(dev, B, S, H, P, G, N, dtype):
