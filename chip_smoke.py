@@ -10,11 +10,15 @@
 2. Holds each kernel against its plain PyTorch version on the card, at the
    sweep shapes of ``tests/test_kernels.py`` and at the main path's
    shapes (every projection of the three tenants; tinyllama's and
-   gemma2's attention, D=256 with window and softcap for gemma2; mamba2's
-   scan at a serving prefill and at a 2048-token prompt), and times
-   kernel, plain version, the bound (bytes over 3.35 TB/s or operations
-   over the peak rate of their type) and, for attention,
-   ``scaled_dot_product_attention`` as a yardstick.  ``quant_matmul`` is
+   gemma2's attention, D=256 with window and softcap for gemma2, at the
+   serving prefill and at the replay's prompts of 4 x 1024 and 2 x 4200
+   tokens; mamba2's scan at a serving prefill in f32 and bf16 and at a
+   2048-token prompt), and times kernel (event and device time, each
+   call's plan beside it), plain version, the bound (bytes over 3.35 TB/s
+   or operations over the peak rate of their type; the scan's operations
+   counted over 64-token chunks whatever chunk its plan runs) and, for
+   attention, the device time of ``scaled_dot_product_attention`` as a
+   yardstick.  ``quant_matmul`` is
    timed over one decode step's and one prefill step's projections (device
    time beside the bound, and the 16-bit variant's bf16 ``torch.matmul``
    over the same shapes as a yardstick of another function), prints each
@@ -93,7 +97,10 @@ QMM_SWEEP = [(64, 256, 128, 128, 8), (100, 384, 200, 128, 8),
 SSD_SWEEP = [(1, 64, 2, 16, 1, 8), (2, 96, 4, 32, 2, 16),
              (1, 50, 2, 16, 1, 8), (2, 128, 48, 64, 1, 128)]
 SSD_TOL = 2e-4  # tests/test_kernels.py's chunked-vs-sequential tolerance
-SSD_CHUNK = 64  # the kernel's chunk (kQ in csrc/ssd_scan.cu)
+# The yardstick's chunk: the bound counts the chunked form's operations
+# over 64-token chunks, whatever chunk the kernel's plan runs, so that it
+# reads the same work for every plan.
+SSD_BOUND_CHUNK = 64
 
 # The main path: the serving benchmark's three tenants, batches of up to
 # 4, prompts up to 12 tokens, 8 new tokens.
@@ -198,46 +205,82 @@ def check_flash(ops, ref, g, cfgs) -> dict:
                 n += 1
     # Main path: prefill of a full batch of the longest prompts, f32
     # (8-bit variant) and bf16 (16-bit variant), for each attention tenant
-    # (gemma2: D=256 with its window and softcap).  SDPA has no softcap:
-    # for gemma2 it times the same shapes without it.
+    # (gemma2: D=256 with its window and softcap); and the replay's long
+    # prefills.  SDPA has neither softcap nor window: it times the same
+    # shapes causal, a yardstick of a nearby function.
     rows = {}
-    print_rows = []
     for label, H, KV, D, kw in attn_main_shapes(cfgs):
-        B, S = MAX_BATCH, MAX_PROMPT
         for dt in (torch.bfloat16, torch.float32):
-            q, k, v = (rand(g, B, S, n_, D, dtype=dt) for n_ in (H, KV, KV))
-            err = compare(f"flash_attention main {label} {dt}",
-                          ops.flash_attention(q, k, v, **kw),
-                          ref.flash_attention(q, k, v, **kw), TOL[dt],
-                          TOL[dt])
+            rows[label, dt] = flash_row(
+                ops, ref, g, f"main {label}", MAX_BATCH, MAX_PROMPT, H, KV,
+                D, dt, kw)
             n += 1
-            esz = q.element_size()
-            nbytes = (q.numel() * 2 + k.numel() + v.numel()) * esz
-            pairs = B * H * S * (S + 1) // 2  # causal (query, key) pairs
-            ops_ = 4 * pairs * D
-            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            row = dict(
-                max_abs_err=err,
-                ms=time_ms(lambda: ops.flash_attention(q, k, v, **kw)),
-                plain_ms=time_ms(lambda: ref.flash_attention(q, k, v, **kw)),
-                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True)),
-                **bound(nbytes, ops_, dt))
-            row["device_ms"] = kernel_ms(
-                lambda: ops.flash_attention(q, k, v, **kw))
-            rows[label, dt] = row
-            print_rows.append((f"{label} ({B}, {S}, {H}/{KV} heads, D={D}"
-                               f"{', ' + str(kw) if kw else ''}) {dt}", row))
+    for arch, bits, B, S in REPLAY:
+        cfg = cfgs[ARCHS.index(arch)]
+        dt = torch.float32 if bits == 8 else torch.bfloat16
+        cap = dict(softcap=cfg.attn_logit_softcap) \
+            if cfg.attn_logit_softcap else {}
+        # A windowed model's local and global layers.
+        kws = [dict(cap, window=cfg.sliding_window), cap] \
+            if cfg.sliding_window else [cap]
+        for kw in kws:
+            flash_row(ops, ref, g, f"replay prefill {arch} {bits}-bit", B, S,
+                      cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
+                      dt, kw, iters=5, plain_iters=1)
+            n += 1
+            torch.cuda.empty_cache()
     print(f"flash_attention: {n} cases within tolerance (f32 "
           f"{TOL[torch.float32]}, bf16 {TOL[torch.bfloat16]}); sweep max abs "
           f"err {worst:.3g}")
-    for what, r in print_rows:
-        print(f"  main {what}: kernel {r['ms']:.4f} ms (event), device "
-              f"{r['device_ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}), max abs err "
-              f"{r['max_abs_err']:.3g}")
     return rows[cfgs[0].name, torch.float32]
+
+
+def visible_pairs(S: int, T: int, window: int) -> int:
+    """(query, key) pairs a causal prefill reads: key t <= position p, and
+    inside the window when there is one."""
+    p = np.arange(S)
+    lo = np.maximum(0, p - window + 1) if window else np.zeros_like(p)
+    return int(np.sum(np.minimum(p + 1, T) - np.minimum(lo, T)))
+
+
+def flash_row(ops, ref, g, what, B, S, H, KV, D, dt, kw, iters=50,
+              plain_iters=50) -> dict:
+    """One prefill call held to the plain version and timed: the kernel's
+    event and device time, the plain version's, SDPA's device time (causal,
+    no softcap or window), and the bound (bytes of q, k, v and out; 4 D
+    operations a visible (query, key) pair at the peak of dt)."""
+    q, k, v = (rand(g, B, S, n_, D, dtype=dt) for n_ in (H, KV, KV))
+    err = compare(f"flash_attention {what} {dt} {kw}",
+                  ops.flash_attention(q, k, v, **kw),
+                  ref.flash_attention(q, k, v, **kw), TOL[dt], TOL[dt])
+    esz = q.element_size()
+    nbytes = (q.numel() * 2 + k.numel() + v.numel()) * esz
+    ops_ = 4 * B * H * D * visible_pairs(S, S, kw.get("window", 0))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    row = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: ops.flash_attention(q, k, v, **kw), iters=iters),
+        plain_ms=time_ms(lambda: ref.flash_attention(q, k, v, **kw),
+                         iters=plain_iters, warmup=1),
+        library_ms=kernel_ms(sdpa), **bound(nbytes, ops_, dt))
+    row["device_ms"] = kernel_ms(lambda: ops.flash_attention(q, k, v, **kw))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    p = ops.flash_plan(B, S, S, H, KV, D, dt, sms)
+    print(f"  {what} ({B}, {S}, {H}/{KV} heads, D={D}"
+          f"{', ' + str(kw) if kw else ''}) {dt}: kernel {row['ms']:.4f} ms "
+          f"(event), device {row['device_ms']:.4f} ms "
+          f"({row['bound_ms'] / row['device_ms']:.1%} of the bound), plain "
+          f"{row['plain_ms']:.4f} ms, sdpa device {row['library_ms']:.4f} "
+          f"ms, bound {row['bound_ms']:.6f} ms ({row['bound_by']}), max abs "
+          f"err {err:.3g}; plan: {p.bq} positions x {p.heads} head(s) a "
+          f"block, tiles of {p.bk} keys, {p.stages} stage(s), {p.blocks} "
+          f"blocks, {p.smem} B shared, {p.sm_blocks} an SM")
+    return row
 
 
 def check_decode(ops, ref, g, cfgs) -> dict:
@@ -396,12 +439,12 @@ def ssd_work(B, S, H, P, G, N, esz, with_init):
     """(bytes, operations) of one scan: x, dt, B, C read and y written
     once, the state written (and read, with an initial state); the chunked
     form's 2q^2 N per (sequence, group, chunk) plus 2q^2 P + 4qPN per
-    (sequence, head, chunk), over the kernel's chunks of q tokens."""
+    (sequence, head, chunk), over chunks of SSD_BOUND_CHUNK tokens."""
     nbytes = (2 * B * S * H * P + B * S * H + 2 * B * S * G * N) * esz \
         + 4 * B * H * P * N * (2 if with_init else 1)
     ops_ = 0
-    for c0 in range(0, S, SSD_CHUNK):
-        q = min(SSD_CHUNK, S - c0)
+    for c0 in range(0, S, SSD_BOUND_CHUNK):
+        q = min(SSD_BOUND_CHUNK, S - c0)
         ops_ += B * (2 * q * q * N * G + (2 * q * q * P + 4 * q * P * N) * H)
     return nbytes, ops_
 
@@ -450,7 +493,7 @@ def check_ssd(ops, ref, g, cfg) -> dict:
             ey, es, args = one("main", shape, dt, False)
             n += 1
             nbytes, ops_ = ssd_work(*shape, args[0].element_size(), False)
-            rows[label, dt] = dict(
+            rows[label, dt] = r = dict(
                 max_abs_err=ey, state_err=es,
                 ms=time_ms(lambda: ops.ssd_scan(*args, return_state=True),
                            iters=20),
@@ -458,17 +501,20 @@ def check_ssd(ops, ref, g, cfg) -> dict:
                     *args, chunk=cfg.ssm_chunk, return_state=True), iters=5),
                 library_ms=None,
                 **bound(nbytes, ops_, torch.float32))  # f32 arithmetic
-            _, kern, _ = device_kernels(
+            r["device_ms"] = kernel_ms(
                 lambda: ops.ssd_scan(*args, return_state=True))
-            dev = sum(t for k, t in kern.items() if "ssd_chunked" in k)
-            print_shape = f"{label} {shape} {dt}"
-            r = rows[label, dt]
-            print(f"  main {print_shape}: kernel {r['ms']:.4f} ms (device "
-                  f"{dev:.4f} ms in one profiled call), plain "
-                  f"(chunked, chunk {cfg.ssm_chunk}) {r['plain_ms']:.4f} ms, "
-                  f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}; "
-                  f"{nbytes / 1e6:.2f} MB, {ops_ / 1e9:.3f} GFLOP), max abs "
-                  f"err y {ey:.3g} state {es:.3g}")
+            plan = ops.ssd_plan(*shape, dt)
+            print(f"  main {label} {shape} {dt}: kernel {r['ms']:.4f} ms "
+                  f"(event), device {r['device_ms']:.4f} ms "
+                  f"({r['bound_ms'] / r['device_ms']:.1%} of the bound), "
+                  f"plain (chunked, chunk {cfg.ssm_chunk}) "
+                  f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
+                  f"({r['bound_by']}; {nbytes / 1e6:.2f} MB, "
+                  f"{ops_ / 1e9:.3f} GFLOP over {SSD_BOUND_CHUNK}-token "
+                  f"chunks), max abs err y {ey:.3g} state {es:.3g}; plan: "
+                  f"chunk {plan.kq}, clusters of {plan.cluster}, "
+                  f"{plan.stages} stage(s), {plan.blocks} blocks, "
+                  f"{plan.smem} B shared, {plan.sm_blocks} an SM")
     print(f"ssd_scan: {n} cases within tolerance (y: f32 {SSD_TOL}, bf16 "
           f"{TOL[torch.bfloat16]}; state {SSD_TOL}); sweep max abs err y "
           f"{worst_y:.3g}, state {worst_s:.3g}")

@@ -8,8 +8,9 @@ override and no silent fallback on a GPU.  ``quantize_weights``,
 ``ssd_step``, ``causal_conv1d`` and ``causal_conv1d_step`` are no kernels
 (as in the reference) and run the plain versions on any device;
 ``paginate_kv`` lays a dense cache out as the pages and table that
-``paged_decode_attention`` reads, and ``split_plan`` says how the two
-decode kernels cut a call's keys.
+``paged_decode_attention`` reads, ``split_plan`` says how the two
+decode kernels cut a call's keys, ``flash_plan`` and ``ssd_plan`` how the
+prefill attention and the scan cut theirs.
 """
 from __future__ import annotations
 
@@ -17,9 +18,9 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   paged_decode_attention,
                                                   paginate_kv, split_plan)
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import flash_attention, flash_plan
 from repro_torch.kernels.quant_matmul import quant_matmul
-from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.kernels.ssd_scan import ssd_plan, ssd_scan
 
 quantize_weights = ref.quantize_weights
 ssd_step = ref.ssd_step
@@ -27,6 +28,6 @@ causal_conv1d = ref.causal_conv1d
 causal_conv1d_step = ref.causal_conv1d_step
 
 __all__ = ["causal_conv1d", "causal_conv1d_step", "decode_attention",
-           "flash_attention", "paged_decode_attention", "paginate_kv",
-           "quant_matmul", "quantize_weights", "split_plan", "ssd_scan",
-           "ssd_step"]
+           "flash_attention", "flash_plan", "paged_decode_attention", "paginate_kv",
+           "quant_matmul", "quantize_weights", "split_plan", "ssd_plan",
+           "ssd_scan", "ssd_step"]

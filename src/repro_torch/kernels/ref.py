@@ -6,7 +6,10 @@ and ``chip_smoke.py`` holds each Hopper kernel against them on the card.
 ``paged_decode_attention`` gathers the pages that ``paginate_kv``
 (:mod:`repro_torch.kernels.decode_attention`) lays out.
 ``decode_attention_splits`` and its paged counterpart model the decode
-kernel's split-key passes for the tests; nothing else calls them.
+kernel's split-key passes, ``quant_matmul_splits`` the cluster's split-K
+sum, ``ssd_scan_sliced`` the scan's chunks and slices and
+``flash_attention_tiles`` the prefill kernel's key tiles, for the tests;
+nothing else calls them.
 Scores, softmax and products run in float32; outputs are cast back to the
 query's (or ``out_dtype``'s) type, as in the reference.
 """
@@ -56,6 +59,78 @@ def flash_attention(
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgst,btkd->bskgd", p, v.float())
     return o.reshape(B, S, H, D).to(q.dtype)
+
+
+def flash_attention_tiles(
+    q: torch.Tensor,  # (B, S, H, D)
+    k: torch.Tensor,  # (B, T, KV, D)
+    v: torch.Tensor,  # (B, T, KV, D)
+    *,
+    bq: int,
+    bk: int,
+    causal: bool = True,
+    window: int = 0,
+    softcap: float = 0.0,
+    scale: float = 0.0,
+    q_offset: int = 0,
+    prefix: int = 0,
+) -> torch.Tensor:
+    """A plain model of the ``flash_attention`` kernel's arithmetic order
+    (``csrc/flash_attention.cu``): query positions in tiles of ``bq``,
+    all G query heads of a KV head together; keys in tiles of ``bk`` over
+    the range a tile's rows can see (the prefix before the window's
+    range, then the range); per key tile the row max and sum taken once
+    and the accumulator rescaled once; a row with no visible key in a tile
+    keeps its max and sum; a row with none at all gets the mean of v over
+    all T.  Equal to :func:`flash_attention` up to rounding.  Only the
+    tests call it."""
+    B, S, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    if scale == 0.0:
+        scale = D ** -0.5
+    dev = q.device
+    qf = (q.float() * scale).reshape(B, S, KV, G, D)
+    kf, vf = k.float(), v.float()
+    out = torch.empty((B, S, KV, G, D), device=dev)
+    for q0 in range(0, S, bq):
+        q1 = min(S, q0 + bq)
+        nq = q1 - q0
+        pos = q_offset + torch.arange(q0, q1, device=dev)[:, None]
+        hi = min(T, q_offset + q1) if causal else T
+        lo = max(0, q_offset + q0 - window + 1) if window else 0
+        a_end = min(prefix, lo, hi) if window else 0
+        tiles = [(t, min(t + bk, a_end)) for t in range(0, a_end, bk)]
+        tiles += [(t, min(t + bk, hi)) for t in range(lo, hi, bk)]
+        m = torch.full((B, KV, G, nq), float("-inf"), device=dev)
+        den = torch.zeros((B, KV, G, nq), device=dev)
+        acc = torch.zeros((B, KV, G, nq, D), device=dev)
+        for t0, t1 in tiles:
+            s = torch.einsum("bqkgd,btkd->bkgqt", qf[:, q0:q1], kf[:, t0:t1])
+            if softcap:
+                s = _softcap(s, softcap)
+            tk = torch.arange(t0, t1, device=dev)[None, :]
+            vis = torch.ones((nq, t1 - t0), dtype=torch.bool, device=dev)
+            if causal:
+                vis &= tk <= pos
+            if window:
+                vis &= (tk > pos - window) | (tk < prefix)
+            s = torch.where(vis, s, float("-inf"))
+            mt = s.amax(-1)
+            seen = mt > float("-inf")
+            m_new = torch.where(seen, torch.maximum(m, mt), m)
+            alpha = torch.where(seen, torch.exp(m - m_new), 1.0)
+            p = torch.where(seen[..., None], torch.exp(s - m_new[..., None]),
+                            0.0)
+            den = den * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgqt,btkd->bkgqd", p, vf[:, t0:t1])
+            m = m_new
+        o = acc / den.clamp_min(1e-30)[..., None]
+        mean = vf.mean(1)[:, :, None, None, :]  # (B, KV, 1, 1, D)
+        o = torch.where((den == 0)[..., None], mean, o)
+        out[:, q0:q1] = o.permute(0, 3, 1, 2, 4)
+    return out.reshape(B, S, H, D).to(q.dtype)
 
 
 def decode_attention(
@@ -362,6 +437,77 @@ def ssd_scan_chunked(
                          torch.exp(a_cum))
     y = (y_diag + y_off).reshape(Bb, S, H, P)[:, :S0]
     y = y + x.float()[:, :S0] * D.float()[None, None, :, None]
+    y = y.to(x.dtype)
+    if return_state:
+        return y, h
+    return y
+
+
+def ssd_scan_sliced(
+    x: torch.Tensor,  # (B, S, H, P)
+    dt: torch.Tensor,  # (B, S, H)
+    A: torch.Tensor,  # (H,)
+    Bm: torch.Tensor,  # (B, S, G, N)
+    Cm: torch.Tensor,  # (B, S, G, N)
+    D: torch.Tensor,  # (H,)
+    *,
+    kq: int,
+    ps: int = 16,
+    init_state: Optional[torch.Tensor] = None,
+    return_state: bool = False,
+):
+    """A plain model of the ``ssd_scan`` kernel's decomposition
+    (``csrc/ssd_scan.cu``): chunks of ``kq`` rows, the last one ragged;
+    each chunk's decay block M built in row blocks of kq / CS, one per
+    cluster rank (CS = 1, 2 or 4 slices of ``ps`` columns of P); each
+    slice's y columns and rows of the state from its own x columns; no
+    C . state term while the state is known to be zero (the first chunk
+    without ``init_state``), whose update is then the state itself.  Equal
+    to :func:`ssd_scan` up to rounding.  Only the tests call it."""
+    Bb, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep = H // G
+    cs = 1 if P <= ps else 2 if P <= 2 * ps else 4
+    xf = x.float()
+    dtf = dt.float()
+    Bf = Bm.float().repeat_interleave(rep, dim=2)  # (B, S, H, N)
+    Cf = Cm.float().repeat_interleave(rep, dim=2)
+    Af = A.float()
+    Df = D.float()[None, None, :, None]
+    h = None if init_state is None else init_state.float().clone()
+    y = torch.empty((Bb, S, H, P), dtype=torch.float32, device=x.device)
+    for c0 in range(0, S, kq):
+        nq = min(kq, S - c0)
+        sl = slice(c0, c0 + nq)
+        a_cum = torch.cumsum(dtf[:, sl] * Af, dim=1)  # (B, q, H)
+        a_end = a_cum[:, -1]  # (B, H)
+        blocks = []
+        for r in range(cs):  # rank r's rows of M
+            lo, hi = r * kq // cs, min(nq, (r + 1) * kq // cs)
+            if lo >= hi:
+                break
+            cb = torch.einsum("bihn,bjhn->bhij", Cf[:, c0 + lo:c0 + hi],
+                              Bf[:, sl])
+            seg = (a_cum[:, lo:hi, None, :] - a_cum[:, None, :, :]
+                   ).permute(0, 3, 1, 2)  # (B, H, i, j)
+            i = torch.arange(lo, hi, device=x.device)[:, None]
+            j = torch.arange(nq, device=x.device)[None, :]
+            L = torch.where(i >= j, torch.exp(seg),
+                            torch.zeros((), device=x.device))
+            blocks.append(cb * L * dtf[:, sl].permute(0, 2, 1)[:, :, None])
+        M = torch.cat(blocks, dim=2)  # (B, H, q, q)
+        w = torch.exp(a_end[:, None] - a_cum) * dtf[:, sl]  # (B, q, H)
+        for p0 in range(0, P, ps):
+            cols = slice(p0, min(P, p0 + ps))
+            xs = xf[:, sl, :, cols]
+            yc = torch.einsum("bhij,bjhp->bihp", M, xs)
+            if h is not None:
+                yc = yc + torch.exp(a_cum)[..., None] * torch.einsum(
+                    "bihn,bhpn->bihp", Cf[:, sl], h[:, :, cols])
+            y[:, sl, :, cols] = yc + xs * Df
+        upd = torch.einsum("bjh,bjhp,bjhn->bhpn", w, xf[:, sl], Bf[:, sl])
+        h = upd if h is None else (
+            torch.exp(a_end)[:, :, None, None] * h + upd)
     y = y.to(x.dtype)
     if return_state:
         return y, h

@@ -1,5 +1,6 @@
-"""Registers, shared memory and spills of each kernel in the port's CUDA
-sources, as ``nvcc -Xptxas -v`` reports them for sm_90a.
+"""Registers, stack frame (local memory), spills and static shared memory
+of each kernel in the port's CUDA sources, as ``nvcc -Xptxas -v`` reports
+them for sm_90a.
 
     PYTHONPATH=src python3 -m repro_torch.kernels.resources [name ...]
 
@@ -45,9 +46,10 @@ def report(name: str) -> None:
             continue
         if not kernels:
             continue
-        if m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", line):
-            stats[-1]["spill"] = f"{m.group(1)}/{m.group(2)} B"
+        if m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line):
+            stats[-1]["stack"] = f"{m.group(1)} B"
+            stats[-1]["spill"] = f"{m.group(2)}/{m.group(3)} B"
         if m := re.search(r"Used (\d+) registers", line):
             stats[-1]["registers"] = m.group(1)
             s = re.search(r"(\d+) bytes smem", line)

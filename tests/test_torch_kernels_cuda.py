@@ -1,14 +1,16 @@
 """Each hand-written Hopper kernel against its plain PyTorch version, on
 the card (marked ``cuda``; skipped without an sm_90 device).  The shapes
 are the sweeps of ``test_kernels.py`` plus the main path's widths
-(tinyllama's and gemma2's attention, D=256 with window and softcap;
-mamba2's scan; the paged decode at the replay's long caches), in the
+(tinyllama's and gemma2's attention, D=256 with window and softcap, and
+the replay's grouped prefill; mamba2's scan at every chunk the plan picks;
+the paged decode at the replay's long caches), in the
 dtype combinations the serving path uses; the paged decode also against
 the dense kernel on the same logical cache, bit for bit; the split-key
 decode at the replay's shapes, two calls bit-identical, and at masks
 that cut its splits; ``quant_matmul`` at every main-path projection
 (decode and prefill), the replay's prefill, hymba-1.5b's N = 3257 and
-each cluster size, one launch a call, two calls bit-identical; and the
+each cluster size, one launch a call, two calls bit-identical; the
+prefill attention and the scan two calls bit-identical; and the
 int8-cache decode step on the card against the CPU.  Imports no JAX: it
 runs on the machine with the card.
 
@@ -20,7 +22,9 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.flash_attention import flash_plan
 from repro_torch.kernels.quant_matmul import qmm_plan
+from repro_torch.kernels.ssd_scan import ssd_plan
 
 TOL = {"float32": dict(rtol=3e-5, atol=3e-5),
        "bfloat16": dict(rtol=3e-2, atol=3e-2)}
@@ -38,7 +42,13 @@ GEMMA2_MODE = dict(window=4096, softcap=50.0)
 SSD_SHAPES = [(1, 64, 2, 16, 1, 8), (2, 96, 4, 32, 2, 16),
               (1, 50, 2, 16, 1, 8), (2, 128, 48, 64, 1, 128),
               (4, 12, 48, 64, 1, 128),  # mamba2-780m serving prefill
-              (1, 300, 48, 64, 1, 128)]  # several 64-token chunks, ragged
+              (1, 300, 48, 64, 1, 128),  # several chunks, ragged
+              # The plan's edges: kQ = 32 in one stage with G > 1 and
+              # N = 16; kQ = 64 (N = 16) over ragged chunks; two slices at
+              # kQ = 32; P = 18 (no 16-byte rows: element-wise staging,
+              # a second slice of 2 columns) with G = 3 and N = 12.
+              (2, 20, 4, 64, 2, 16), (1, 150, 5, 64, 5, 16),
+              (1, 200, 4, 32, 1, 128), (2, 33, 6, 18, 3, 12)]
 QMM_SHAPES = [(64, 256, 128, 128, 8), (100, 384, 200, 128, 8),
               (32, 128, 64, 32, 4), (8, 512, 512, 512, 8)]
 # Every distinct per-layer (K, N) at full width: tinyllama-1.1b,
@@ -79,6 +89,81 @@ def test_flash_attention_kernel(sm90, B, S, H, KV, D, dtype, kwargs):
     want = tref.flash_attention(q, k, v, **kwargs)
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), **TOL[dtype])
+
+
+def test_flash_shapes_reach_every_tile():
+    """The card cases above run every key tile, one and two stages, and
+    D padded to 32, 64, 128 and 256; the grouped cases below group."""
+    plans = [flash_plan(B, S, S, H, KV, D, torch.float32)
+             for B, S, H, KV, D in FLASH_SHAPES]
+    assert {p.bk for p in plans} == {16, 32, 64}
+    assert {p.stages for p in plans} == {1, 2}
+    assert {p.dp for p in plans} == {32, 64, 128, 256}
+    for B, S, T, H, KV, D in FLASH_GROUPED:
+        assert flash_plan(B, S, T, H, KV, D, torch.float32).heads == H // KV
+
+
+# Shapes whose grid is large enough for the plan to group the query heads
+# of a KV head (the replay's tinyllama prefill; gemma2-2b's heads at 600
+# tokens); an odd T past S (a prefill continuing at q_offset); G = 5.
+FLASH_GROUPED = [(4, 1024, 1024, 32, 4, 64), (2, 600, 600, 8, 4, 256),
+                 (4, 77, 77, 32, 4, 64), (2, 200, 333, 25, 5, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,H,KV,D", FLASH_GROUPED)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kwargs", [{}, dict(window=64, softcap=50.0),
+                                    dict(window=16, prefix=8)])
+def test_flash_attention_kernel_grouped(sm90, B, S, T, H, KV, D, dtype,
+                                        kwargs):
+    """Grouped heads, T != S (q_offset = T - S), odd T, D = 256."""
+    rng = np.random.default_rng(14)
+    q, k, v = _on(sm90, rand(rng, B, S, H, D), rand(rng, B, T, KV, D),
+                  rand(rng, B, T, KV, D), dtype=dtype)
+    kwargs = dict(kwargs, q_offset=T - S)
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, **kwargs)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    want = tref.flash_attention(q, k, v, **kwargs)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,H,KV,D,kwargs", [
+    (2, 12, 40, 4, 2, 64, dict(window=4, q_offset=100)),
+    (1, 64, 64, 4, 4, 32, dict(window=2, prefix=0)),
+    (2, 300, 300, 8, 4, 256, dict(window=24, prefix=40))])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_masked_rows_and_tiles(sm90, B, S, T, H, KV,
+                                                      D, kwargs, dtype):
+    """Rows that see no key at all (the mean of v over T), tiles in which
+    a row sees nothing, and the prefix before a window's range."""
+    rng = np.random.default_rng(15)
+    q, k, v = _on(sm90, rand(rng, B, S, H, D), rand(rng, B, T, KV, D),
+                  rand(rng, B, T, KV, D), dtype=dtype)
+    got = ops.flash_attention(q, k, v, **kwargs)
+    want = tref.flash_attention(q, k, v, **kwargs)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV,D,kwargs", [
+    (4, 12, 32, 4, 64, {}), (4, 12, 8, 4, 256, GEMMA2_MODE),
+    (4, 1024, 32, 4, 64, {}), (2, 600, 8, 4, 256, GEMMA2_MODE)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_run_to_run_bit_equal(sm90, B, S, H, KV, D,
+                                                     kwargs, dtype):
+    rng = np.random.default_rng(16)
+    q, k, v = _on(sm90, rand(rng, B, S, H, D), rand(rng, B, S, KV, D),
+                  rand(rng, B, S, KV, D), dtype=dtype)
+    one = ops.flash_attention(q, k, v, **kwargs)
+    two = ops.flash_attention(q, k, v, **kwargs)
+    torch.cuda.synchronize()
+    assert torch.equal(one, two)
 
 
 @pytest.mark.cuda
@@ -227,6 +312,32 @@ def test_ssd_scan_kernel(sm90, B, S, H, P, G, N, dtype, with_init):
     y_only = ops.ssd_scan(x, dt, A, Bm, Cm, D, init_state=init)
     assert ops.ssd_scan.launches == before + 2
     assert torch.equal(y_only, y)
+
+
+def test_ssd_shapes_reach_every_chunk():
+    """The card cases above run every kQ the kernel is built for, one and
+    two stages, and clusters of 1, 2 and 4."""
+    plans = [ssd_plan(*shape, torch.float32) for shape in SSD_SHAPES]
+    assert {p.kq for p in plans} == {16, 32, 64}
+    assert {p.stages for p in plans} == {1, 2}
+    assert {p.cluster for p in plans} == {1, 2, 4}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,P,G,N", [(4, 12, 48, 64, 1, 128),
+                                         (1, 300, 48, 64, 1, 128),
+                                         (1, 150, 5, 64, 5, 16)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_kernel_run_to_run_bit_equal(sm90, B, S, H, P, G, N,
+                                              dtype):
+    """Two calls on the same inputs give the same bits, y and state."""
+    x, dt, A, Bm, Cm, D, init = _ssd_inputs(sm90, B, S, H, P, G, N, dtype)
+    y1, s1 = ops.ssd_scan(x, dt, A, Bm, Cm, D, init_state=init,
+                          return_state=True)
+    y2, s2 = ops.ssd_scan(x, dt, A, Bm, Cm, D, init_state=init,
+                          return_state=True)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
 
 
 @pytest.mark.cuda
