@@ -16,9 +16,11 @@
    2048-token prompt), and times kernel (event and device time, each
    call's plan beside it), plain version, the bound (bytes over 3.35 TB/s
    or operations over the peak rate of their type; the scan's operations
-   counted over 64-token chunks whatever chunk its plan runs) and, for
-   attention, the device time of ``scaled_dot_product_attention`` as a
-   yardstick.  ``quant_matmul`` is
+   are the least any form of it needs, whatever chunk its plan runs) and,
+   for attention, the device time of ``scaled_dot_product_attention`` as
+   a yardstick.  A long prefill's attention is also held to its plain
+   version by relative l2 error, over the rows past the window where a
+   window bites.  ``quant_matmul`` is
    timed over one decode step's and one prefill step's projections (device
    time beside the bound, and the 16-bit variant's bf16 ``torch.matmul``
    over the same shapes as a yardstick of another function), prints each
@@ -75,6 +77,11 @@ SRC = ROOT / "src"
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # dense FLOP/s
 TOL = {torch.float32: 3e-5, torch.bfloat16: 3e-2}  # tests/test_kernels.py
+# A prefill row over thousands of keys averages them to outputs near 3e-2
+# (about sqrt(e / keys) for N(0, 1) inputs), so the bf16 tolerance above
+# cannot fail a wrong kernel there: every attention row is also held to
+# this l2 error relative to the plain output.
+FLASH_REL_TOL = 1e-2
 QMM_TOL = 2e-4
 
 # The sweeps of tests/test_kernels.py.
@@ -97,10 +104,6 @@ QMM_SWEEP = [(64, 256, 128, 128, 8), (100, 384, 200, 128, 8),
 SSD_SWEEP = [(1, 64, 2, 16, 1, 8), (2, 96, 4, 32, 2, 16),
              (1, 50, 2, 16, 1, 8), (2, 128, 48, 64, 1, 128)]
 SSD_TOL = 2e-4  # tests/test_kernels.py's chunked-vs-sequential tolerance
-# The yardstick's chunk: the bound counts the chunked form's operations
-# over 64-token chunks, whatever chunk the kernel's plan runs, so that it
-# reads the same work for every plan.
-SSD_BOUND_CHUNK = 64
 
 # The main path: the serving benchmark's three tenants, batches of up to
 # 4, prompts up to 12 tokens, 8 new tokens.
@@ -203,36 +206,42 @@ def check_flash(ops, ref, g, cfgs) -> dict:
                     ops.flash_attention(q, k, v, **kw),
                     ref.flash_attention(q, k, v, **kw), TOL[dt], TOL[dt]))
                 n += 1
-    # Main path: prefill of a full batch of the longest prompts, f32
-    # (8-bit variant) and bf16 (16-bit variant), for each attention tenant
-    # (gemma2: D=256 with its window and softcap); and the replay's long
-    # prefills.  SDPA has neither softcap nor window: it times the same
+    # Main path.  SDPA has neither softcap nor window: it times the same
     # shapes causal, a yardstick of a nearby function.
-    rows = {}
-    for label, H, KV, D, kw in attn_main_shapes(cfgs):
-        for dt in (torch.bfloat16, torch.float32):
-            rows[label, dt] = flash_row(
-                ops, ref, g, f"main {label}", MAX_BATCH, MAX_PROMPT, H, KV,
-                D, dt, kw)
-            n += 1
+    first = f"main {cfgs[0].name}", torch.float32
+    for what, B, S, H, KV, D, dt, kw in flash_main_rows(cfgs):
+        iters = dict(iters=5, plain_iters=1) if S > MAX_PROMPT else {}
+        r = flash_row(ops, ref, g, what, B, S, H, KV, D, dt, kw, **iters)
+        if (what, dt) == first:
+            row = r
+        n += 1
+        torch.cuda.empty_cache()
+    print(f"flash_attention: {n} cases within tolerance (f32 "
+          f"{TOL[torch.float32]}, bf16 {TOL[torch.bfloat16]}); sweep max abs "
+          f"err {worst:.3g}")
+    return row
+
+
+def flash_main_rows(cfgs) -> list:
+    """(what, B, S, H, KV, D, dtype, kwargs) of the main path's prefill
+    attention: a full batch of the longest prompts, bf16 (16-bit variant)
+    and f32 (8-bit), for each attention tenant (gemma2: D=256 with its
+    window and softcap); then the replay's long prefills, a windowed
+    model's local and global layers.  ``cfgs`` in the order of ARCHS."""
+    out = [(f"main {label}", MAX_BATCH, MAX_PROMPT, H, KV, D, dt, kw)
+           for label, H, KV, D, kw in attn_main_shapes(cfgs)
+           for dt in (torch.bfloat16, torch.float32)]
     for arch, bits, B, S in REPLAY:
         cfg = cfgs[ARCHS.index(arch)]
         dt = torch.float32 if bits == 8 else torch.bfloat16
         cap = dict(softcap=cfg.attn_logit_softcap) \
             if cfg.attn_logit_softcap else {}
-        # A windowed model's local and global layers.
         kws = [dict(cap, window=cfg.sliding_window), cap] \
             if cfg.sliding_window else [cap]
-        for kw in kws:
-            flash_row(ops, ref, g, f"replay prefill {arch} {bits}-bit", B, S,
-                      cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
-                      dt, kw, iters=5, plain_iters=1)
-            n += 1
-            torch.cuda.empty_cache()
-    print(f"flash_attention: {n} cases within tolerance (f32 "
-          f"{TOL[torch.float32]}, bf16 {TOL[torch.bfloat16]}); sweep max abs "
-          f"err {worst:.3g}")
-    return rows[cfgs[0].name, torch.float32]
+        out += [(f"replay prefill {arch} {bits}-bit", B, S, cfg.num_heads,
+                 cfg.num_kv_heads, cfg.resolved_head_dim, dt, kw)
+                for kw in kws]
+    return out
 
 
 def visible_pairs(S: int, T: int, window: int) -> int:
@@ -245,14 +254,35 @@ def visible_pairs(S: int, T: int, window: int) -> int:
 
 def flash_row(ops, ref, g, what, B, S, H, KV, D, dt, kw, iters=50,
               plain_iters=50) -> dict:
-    """One prefill call held to the plain version and timed: the kernel's
-    event and device time, the plain version's, SDPA's device time (causal,
-    no softcap or window), and the bound (bytes of q, k, v and out; 4 D
-    operations a visible (query, key) pair at the peak of dt)."""
+    """One prefill call held to the plain version (element-wise and by
+    relative l2 error) and timed: the kernel's event and device time, the
+    plain version's, SDPA's device time (causal, no softcap or window),
+    and the bound (bytes of q, k, v and out; 4 D operations a visible
+    (query, key) pair at the peak of dt)."""
     q, k, v = (rand(g, B, S, n_, D, dtype=dt) for n_ in (H, KV, KV))
-    err = compare(f"flash_attention {what} {dt} {kw}",
-                  ops.flash_attention(q, k, v, **kw),
-                  ref.flash_attention(q, k, v, **kw), TOL[dt], TOL[dt])
+    got = ops.flash_attention(q, k, v, **kw).float()
+    want = ref.flash_attention(q, k, v, **kw).float()
+    err = compare(f"flash_attention {what} {dt} {kw}", got, want, TOL[dt],
+                  TOL[dt])
+    rel = past = rel_l2(got, want)
+    w = kw.get("window", 0)
+    windowed = bool(w) and S > w
+    if windowed:
+        # Only the rows past the window see it: the check there must fail
+        # the plain version without the window, as it would a kernel that
+        # ignored it.
+        past = rel_l2(got[:, w:], want[:, w:])
+        blind = ref.flash_attention(q, k, v, **{a: b for a, b in kw.items()
+                                                if a != "window"}).float()
+        if rel_l2(blind[:, w:], want[:, w:]) <= FLASH_REL_TOL:
+            raise AssertionError(f"flash_attention {what} {dt} {kw}: the "
+                                 "rows past the window cannot tell it")
+        del blind
+    if max(rel, past) > FLASH_REL_TOL:
+        raise AssertionError(f"flash_attention {what} {dt} {kw}: relative "
+                             f"l2 err {rel:.3g}, past the window {past:.3g}"
+                             f" (tol {FLASH_REL_TOL})")
+    del got, want
     esz = q.element_size()
     nbytes = (q.numel() * 2 + k.numel() + v.numel()) * esz
     ops_ = 4 * B * H * D * visible_pairs(S, S, kw.get("window", 0))
@@ -277,7 +307,9 @@ def flash_row(ops, ref, g, what, B, S, H, KV, D, dt, kw, iters=50,
           f"({row['bound_ms'] / row['device_ms']:.1%} of the bound), plain "
           f"{row['plain_ms']:.4f} ms, sdpa device {row['library_ms']:.4f} "
           f"ms, bound {row['bound_ms']:.6f} ms ({row['bound_by']}), max abs "
-          f"err {err:.3g}; plan: {p.bq} positions x {p.heads} head(s) a "
+          f"err {err:.3g}, relative l2 err {rel:.3g}"
+          f"{f' ({past:.3g} past the window)' if windowed else ''}"
+          f"; plan: {p.bq} positions x {p.heads} head(s) a "
           f"block, tiles of {p.bk} keys, {p.stages} stage(s), {p.blocks} "
           f"blocks, {p.smem} B shared, {p.sm_blocks} an SM")
     return row
@@ -437,16 +469,14 @@ def ssd_inputs(g, B, S, H, P, G, N, dtype):
 
 def ssd_work(B, S, H, P, G, N, esz, with_init):
     """(bytes, operations) of one scan: x, dt, B, C read and y written
-    once, the state written (and read, with an initial state); the chunked
-    form's 2q^2 N per (sequence, group, chunk) plus 2q^2 P + 4qPN per
-    (sequence, head, chunk), over chunks of SSD_BOUND_CHUNK tokens."""
+    once, the state written (and read, with an initial state); and the
+    least arithmetic any form of the scan needs, whatever its chunk: per
+    (token, head) the state's update by x B^T and its read-out by C, P N
+    multiply-adds each, and the skip term D x, P of them (2 operations a
+    multiply-add).  A chunked form adds its q^2 terms to this."""
     nbytes = (2 * B * S * H * P + B * S * H + 2 * B * S * G * N) * esz \
         + 4 * B * H * P * N * (2 if with_init else 1)
-    ops_ = 0
-    for c0 in range(0, S, SSD_BOUND_CHUNK):
-        q = min(SSD_BOUND_CHUNK, S - c0)
-        ops_ += B * (2 * q * q * N * G + (2 * q * q * P + 4 * q * P * N) * H)
-    return nbytes, ops_
+    return nbytes, B * S * H * (4 * P * N + 2 * P)
 
 
 def check_ssd(ops, ref, g, cfg) -> dict:
@@ -481,46 +511,51 @@ def check_ssd(ops, ref, g, cfg) -> dict:
                 ey, es, _ = one("sweep", shape, dt, with_init)
                 worst_y, worst_s = max(worst_y, ey), max(worst_s, es)
                 n += 1
-    H, P, G, N = (cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_ngroups,
-                  cfg.ssm_state)
     rows = {}
-    for label, B, S, dts in (("serving prefill", MAX_BATCH, MAX_PROMPT,
-                              (torch.float32, torch.bfloat16)),
-                             ("long prefill", 1, LONG_PROMPT,
-                              (torch.float32,))):
-        for dt in dts:
-            shape = (B, S, H, P, G, N)
-            ey, es, args = one("main", shape, dt, False)
-            n += 1
-            nbytes, ops_ = ssd_work(*shape, args[0].element_size(), False)
-            rows[label, dt] = r = dict(
-                max_abs_err=ey, state_err=es,
-                ms=time_ms(lambda: ops.ssd_scan(*args, return_state=True),
-                           iters=20),
-                plain_ms=time_ms(lambda: ref.ssd_scan_chunked(
-                    *args, chunk=cfg.ssm_chunk, return_state=True), iters=5),
-                library_ms=None,
-                **bound(nbytes, ops_, torch.float32))  # f32 arithmetic
-            r["device_ms"] = kernel_ms(
-                lambda: ops.ssd_scan(*args, return_state=True))
-            plan = ops.ssd_plan(*shape, dt)
-            print(f"  main {label} {shape} {dt}: kernel {r['ms']:.4f} ms "
-                  f"(event), device {r['device_ms']:.4f} ms "
-                  f"({r['bound_ms'] / r['device_ms']:.1%} of the bound), "
-                  f"plain (chunked, chunk {cfg.ssm_chunk}) "
-                  f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
-                  f"({r['bound_by']}; {nbytes / 1e6:.2f} MB, "
-                  f"{ops_ / 1e9:.3f} GFLOP over {SSD_BOUND_CHUNK}-token "
-                  f"chunks), max abs err y {ey:.3g} state {es:.3g}; plan: "
-                  f"chunk {plan.kq}, clusters of {plan.cluster}, "
-                  f"{plan.stages} stage(s), {plan.blocks} blocks, "
-                  f"{plan.smem} B shared, {plan.sm_blocks} an SM")
+    for label, shape, dt in ssd_main_rows(cfg):
+        ey, es, args = one("main", shape, dt, False)
+        n += 1
+        nbytes, ops_ = ssd_work(*shape, args[0].element_size(), False)
+        rows[label, dt] = r = dict(
+            max_abs_err=ey, state_err=es,
+            ms=time_ms(lambda: ops.ssd_scan(*args, return_state=True),
+                       iters=20),
+            plain_ms=time_ms(lambda: ref.ssd_scan_chunked(
+                *args, chunk=cfg.ssm_chunk, return_state=True), iters=5),
+            library_ms=None,
+            **bound(nbytes, ops_, torch.float32))  # f32 arithmetic
+        r["device_ms"] = kernel_ms(
+            lambda: ops.ssd_scan(*args, return_state=True))
+        plan = ops.ssd_plan(*shape, dt)
+        print(f"  main {label} {shape} {dt}: kernel {r['ms']:.4f} ms "
+              f"(event), device {r['device_ms']:.4f} ms "
+              f"({r['bound_ms'] / r['device_ms']:.1%} of the bound), "
+              f"plain (chunked, chunk {cfg.ssm_chunk}) "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
+              f"({r['bound_by']}; {nbytes / 1e6:.2f} MB, "
+              f"{ops_ / 1e9:.3f} GFLOP, the recurrence's), max abs err y "
+              f"{ey:.3g} state {es:.3g}; plan: "
+              f"chunk {plan.kq}, clusters of {plan.cluster}, "
+              f"{plan.stages} stage(s), {plan.blocks} blocks, "
+              f"{plan.smem} B shared, {plan.sm_blocks} an SM")
     print(f"ssd_scan: {n} cases within tolerance (y: f32 {SSD_TOL}, bf16 "
           f"{TOL[torch.bfloat16]}; state {SSD_TOL}); sweep max abs err y "
           f"{worst_y:.3g}, state {worst_s:.3g}")
     row = dict(rows["serving prefill", torch.float32])
     del row["state_err"]
     return row
+
+
+def ssd_main_rows(cfg) -> list:
+    """(label, (B, S, H, P, G, N), dtype) of the main path's scans, for
+    the SSM model ``cfg``: a serving prefill in f32 and bf16, and a
+    LONG_PROMPT-token prompt in f32."""
+    def shape(B, S):
+        return (B, S, cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_ngroups,
+                cfg.ssm_state)
+    return [("serving prefill", shape(MAX_BATCH, MAX_PROMPT), torch.float32),
+            ("serving prefill", shape(MAX_BATCH, MAX_PROMPT), torch.bfloat16),
+            ("long prefill", shape(1, LONG_PROMPT), torch.float32)]
 
 
 def layer_shapes(cfg):

@@ -1,61 +1,31 @@
 #!/usr/bin/env python3
 """Device time of the two prefill kernels, ``ssd_scan`` and
 ``flash_attention``, for any tree's ``repro_torch``, at the main path's
-shapes: mamba2-780m's scan at the serving prefill (4 x 12, f32 and bf16)
-and at a 2048-token prompt; tinyllama-1.1b's and gemma2-2b's attention at
-the serving prefill (4 x 12, f32), and at the replay's prompts (tinyllama
-4 x 1024 f32; gemma2 2 x 4200 bf16, a local layer with its 4096-token
-window and a global one, both soft-capped at 50).
+shapes as ``chip_smoke.py`` lists them (``ssd_main_rows``,
+``flash_main_rows``): mamba2-780m's scan at the serving prefill (f32 and
+bf16) and at a long prompt; tinyllama-1.1b's and gemma2-2b's attention at
+the serving prefill and at the replay's prompts.
 
     python3 tools/torch_prefill_ab.py --src <dir holding repro_torch>
 
 Needs a CUDA card.  Builds the tree's two kernels, then prints, for each
-shape, the median device time of one call (CUDA events around the call,
-queued behind a spin kernel so that the card never waits for the host),
-and last one JSON line with the card and every row.  To compare two trees
-on one card, unpack one with ``git archive`` and run parent, change,
-change, parent in turns: only numbers from one card compare.
+shape, the device time of one call by ``chip_smoke.kernel_ms`` (this
+checkout's smoke, whatever the tree), and last one JSON line with the
+card and every row.  To compare two trees on one card, unpack one with
+``git archive`` and run parent, change, change, parent in turns: only
+numbers from one card compare.
 """
 from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 from pathlib import Path
 
-import numpy as np
 import torch
 
-SSD_ROWS = (("ssd serving f32", (4, 12, 48, 64, 1, 128), torch.float32),
-            ("ssd serving bf16", (4, 12, 48, 64, 1, 128), torch.bfloat16),
-            ("ssd 2048 f32", (1, 2048, 48, 64, 1, 128), torch.float32))
-GEMMA2 = dict(window=4096, softcap=50.0)
-FLASH_ROWS = (
-    ("flash tinyllama serving f32", (4, 12, 32, 4, 64), torch.float32, {}),
-    ("flash gemma2 serving f32", (4, 12, 8, 4, 256), torch.float32, GEMMA2),
-    ("flash tinyllama replay f32", (4, 1024, 32, 4, 64), torch.float32, {}),
-    ("flash gemma2 replay local bf16", (2, 4200, 8, 4, 256), torch.bfloat16,
-     GEMMA2),
-    ("flash gemma2 replay global bf16", (2, 4200, 8, 4, 256),
-     torch.bfloat16, dict(softcap=50.0)))
-
-
-def kernel_ms(fn, reps: int = 9) -> float:
-    """Median device time of one call of ``fn`` (one kernel launch)."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(2_000_000)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke as smoke  # noqa: E402
 
 
 def main() -> None:
@@ -66,31 +36,24 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("torch_prefill_ab: no CUDA device")
     sys.path.insert(0, str(Path(args.src).resolve()))
+    from repro_torch.configs import get_config
     from repro_torch.kernels import build, ops
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    card = smoke.card()
     built = build.build_all(("ssd_scan", "flash_attention"))
     g = torch.Generator(device="cuda").manual_seed(0)
-
-    def rand(*shape, scale=1.0):
-        return torch.randn(shape, generator=g, device="cuda") * scale
+    cfgs = [get_config(a) for a in smoke.ARCHS]
 
     rows = {}
-    for label, (B, S, H, P, G, N), dt in SSD_ROWS:
-        x = rand(B, S, H, P, scale=0.5).to(dt)
-        dt_ = torch.nn.functional.softplus(rand(B, S, H)).to(dt)
-        A = -torch.exp(rand(H, scale=0.5))
-        Bm = rand(B, S, G, N, scale=0.3).to(dt)
-        Cm = rand(B, S, G, N, scale=0.3).to(dt)
-        D = rand(H)
-        rows[label] = kernel_ms(lambda: ops.ssd_scan(
-            x, dt_, A, Bm, Cm, D, return_state=True))
-    for label, (B, S, H, KV, D), dt, kw in FLASH_ROWS:
-        q, k, v = (rand(B, S, n, D).to(dt) for n in (H, KV, KV))
-        rows[label] = kernel_ms(lambda: ops.flash_attention(q, k, v, **kw))
+    for label, shape, dt in smoke.ssd_main_rows(
+            next(c for c in cfgs if c.uses_ssm)):
+        x, dt_, A, Bm, Cm, D, _ = smoke.ssd_inputs(g, *shape, dt)
+        rows[f"ssd {label} {shape} {dt}"] = smoke.kernel_ms(
+            lambda: ops.ssd_scan(x, dt_, A, Bm, Cm, D, return_state=True))
+    for what, B, S, H, KV, D, dt, kw in smoke.flash_main_rows(cfgs):
+        q, k, v = (smoke.rand(g, B, S, n, D, dtype=dt) for n in (H, KV, KV))
+        rows[f"flash {what} {(B, S, H, KV, D)} {dt} {kw}"] = smoke.kernel_ms(
+            lambda: ops.flash_attention(q, k, v, **kw))
         del q, k, v
     for label, ms in rows.items():
         print(f"{label}: {ms:.4f} ms")
