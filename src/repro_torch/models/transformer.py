@@ -1,4 +1,5 @@
-"""Unified LM-family model: parameters, caches, prefill and decode.
+"""Unified LM-family model: parameters, caches, prefill, decode and the
+full-sequence forward.
 
 Port of :mod:`repro.models.transformer`.  Parameters and caches are plain
 dicts of tensors keyed like the reference's pytrees, per-layer leaves
@@ -7,7 +8,8 @@ the port runs a Python loop over the slices.  Cache shapes are ported for
 every family (admission charges them); the blocks themselves are ported
 for the attention families (dense, vlm, audio) and the pure SSM family
 (mamba2).  The hybrid and MoE blocks raise ``NotImplementedError`` until
-their slices land.
+their slices land; so do rematerialization and the loss, which wait for
+the training slice.
 """
 from __future__ import annotations
 
@@ -23,8 +25,8 @@ PyTree = Any
 
 # ROADMAP items that port the families this module does not run yet.
 _UNPORTED = {
-    "hybrid": "ROADMAP A12 (hymba-1.5b: fused attention + SSM block)",
-    "moe": "ROADMAP A12 (olmoe / llama4-scout: moe_ffn)",
+    "hybrid": "ROADMAP A8 (hymba-1.5b: fused attention + SSM block)",
+    "moe": "ROADMAP A8 (olmoe / llama4-scout: moe_ffn)",
 }
 
 
@@ -225,20 +227,23 @@ def _ffn(cfg: ModelConfig, h, lp):
     return h
 
 
-def _block_prefill(cfg: ModelConfig, h, lp, window: int, positions):
+def _block_prefill(cfg: ModelConfig, h, lp, window: int, positions, *,
+                   collect_cache: bool = True):
     """Returns (h, the layer's cache leaves: k/v, or the SSM state and
-    conv tail)."""
+    conv tail; none without ``collect_cache``)."""
     x = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
     if cfg.uses_ssm:  # pure SSM (mamba2); hybrid is refused upstream
-        y, state, conv = L.ssm_prefill(cfg, lp, x, return_state=True)
+        out = L.ssm_prefill(cfg, lp, x, return_state=collect_cache)
+        y, *leaves = out if collect_cache else (out,)
         return (_ffn(cfg, h + L.mm(y, lp["ssm_out"]), lp),
-                {"state": state, "conv": conv})
+                dict(zip(("state", "conv"), leaves)))
     attn_raw, k, v = L.attention_prefill(
         cfg, lp, x, positions, window, prefix=cfg.num_meta_tokens)
     attn = L.mm(attn_raw, lp["wo"])
     if cfg.post_norm:
         attn = L.rms_norm(attn, lp["post_ln1"], cfg.norm_eps)
-    return _ffn(cfg, h + attn, lp), {"k": k, "v": v}
+    return _ffn(cfg, h + attn, lp), ({"k": k, "v": v} if collect_cache
+                                     else {})
 
 
 def _block_decode(cfg: ModelConfig, h, lp, window: int, cache, i: int,
@@ -286,8 +291,9 @@ def embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor
         h = sum(emb[i][tokens[..., i].long()]
                 for i in range(cfg.num_codebooks))
     if cfg.emb_scale:
-        h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype,
-                             device=h.device)
+        # The scale rounded to h's type, as the reference rounds it; a CPU
+        # scalar, so no copy to the card (a CUDA graph can capture this).
+        h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype)
     return h
 
 
@@ -315,6 +321,45 @@ def _frontend(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
         meta = params["meta"][None].expand(B, -1, -1).to(h.dtype)
         h = torch.cat([meta, h], dim=1)
     return h
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence forward
+# ---------------------------------------------------------------------------
+def _hidden(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
+            moe_impl: str, remat: bool) -> torch.Tensor:
+    """Hidden states after the last block, before the final norm: every
+    block over the whole sequence, no cache built."""
+    _check_family(cfg)
+    if moe_impl != "dense":
+        raise NotImplementedError(
+            f"moe_impl={moe_impl!r}: the port runs only 'dense' (the MoE "
+            f"block is not ported yet; see {_UNPORTED['moe']})")
+    if remat:
+        raise NotImplementedError(
+            "remat=True: rematerialization belongs to training, not ported "
+            "yet; see ROADMAP A9")
+    h = _frontend(cfg, params, batch)
+    positions = torch.arange(h.shape[1], device=h.device)
+    for i, window in enumerate(_layer_windows(cfg)):
+        h, _ = _block_prefill(cfg, h, _layer(params["layers"], i), window,
+                              positions, collect_cache=False)
+    return h
+
+
+def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
+            moe_impl: str = "dense", remat: bool = False) -> torch.Tensor:
+    """Full-sequence logits: (B, S_total, Kcb, Vp) float32."""
+    return lm_logits(cfg, params, _hidden(cfg, params, batch, moe_impl,
+                                          remat))
+
+
+def forward_hidden(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
+                   *, moe_impl: str = "dense",
+                   remat: bool = False) -> torch.Tensor:
+    """Final-normed hidden states (B, S_total, D): no logits projection."""
+    return L.rms_norm(_hidden(cfg, params, batch, moe_impl, remat),
+                      params["final_norm"], cfg.norm_eps)
 
 
 # ---------------------------------------------------------------------------

@@ -8,11 +8,12 @@ quantized.  A quantized weight is ``{"q": int8 (..., K, N), "s": f32
 kernel (``ops.quant_matmul``) at serve time.
 
 1-D parameters (norms, biases, ...) and embedding tables stay in the base
-dtype, as in the reference.
+dtype, as in the reference.  :func:`fidelity` is the zoo's accuracy proxy:
+a variant's top-1 agreement and logit MSE against the reference weights.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List
+from typing import Any, Callable, Dict, List
 
 import torch
 
@@ -95,3 +96,17 @@ def dequantize_params(qparams: PyTree) -> PyTree:
 def params_nbytes(params: PyTree) -> int:
     return sum(leaf.numel() * leaf.element_size()
                for leaf in tree_leaves(params))
+
+
+# ---------------------------------------------------------------------------
+# Fidelity: the accuracy proxy for LM-arch zoos (the paper's accuracy axis).
+# ---------------------------------------------------------------------------
+def fidelity(cfg, params_ref: PyTree, qparams: PyTree, batch: dict,
+             forward_fn) -> Dict[str, float]:
+    """Top-1 agreement (in %) and logit MSE of ``forward_fn`` on the
+    dequantized ``qparams`` against ``params_ref``, on the same batch."""
+    ref_logits = forward_fn(cfg, params_ref, batch)
+    q_logits = forward_fn(cfg, dequantize_params(qparams), batch)
+    agree = (ref_logits.argmax(-1) == q_logits.argmax(-1)).float().mean()
+    mse = ((ref_logits - q_logits) ** 2).mean()
+    return {"top1_agreement": float(agree) * 100.0, "logit_mse": float(mse)}

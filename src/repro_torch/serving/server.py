@@ -7,10 +7,20 @@ device budget tracked in MB of true buffer bytes, and load/evict callbacks
 copy weights host→device.  The manager decides *which variant is resident
 when*; serving runs true prefill/decode steps with whatever is loaded
 (quantized variants run through the fused dequant matmul kernel).
+
+On the card a batch without extra inputs runs as one CUDA graph, the
+counterpart of the reference's one jitted program per batch shape: the
+first call of a (variant, batch, prompt length, new tokens) key captures
+prefill and the whole greedy decode, every later call copies its prompts
+in and replays.  A tenant's graphs share one private memory pool, and
+they and the pool go with the variant they read; it keeps the
+``MAX_GRAPHS`` last replayed.
 """
 from __future__ import annotations
 
+import threading
 import time
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -57,6 +67,58 @@ def _generate_tokens(cfg: ModelConfig, params, prompts: torch.Tensor, *,
         logits, cache = T.decode_step(cfg, params, cache, toks[-1])
         toks.append(T.greedy_token(cfg, logits))
     return torch.stack(toks, dim=1)
+
+
+# One capture at a time in the process (PyTorch's rule for graph capture),
+# and no pool freed or graph destroyed while one runs: the caching
+# allocator frees no memory during a capture.
+_CAPTURE_LOCK = threading.Lock()
+_capture_streams: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+# Graphs a tenant keeps, the least recently replayed dropped first: each
+# holds 12-26 k nodes at full width, and a trace whose prompt lengths vary
+# makes a key per length.
+MAX_GRAPHS = 16
+
+
+def capture(fn, device: torch.device, pool, warm_up: bool = True):
+    """Capture ``fn()`` into one CUDA graph whose allocations come from
+    ``pool``; returns (graph, ``fn``'s output, which every replay
+    rewrites in place).
+
+    With ``warm_up``, ``fn`` runs once eagerly on the capture stream
+    first, as PyTorch's graph notes ask: the kernels' one-time set-up
+    (shared-memory limits, cuBLAS's workspace for that stream) happens
+    outside the graph.  Captures in ``thread_local`` mode, so that the
+    loader's thread may allocate and copy meanwhile, and without
+    ``torch.cuda.graph``'s ``empty_cache`` before each capture.  A launch
+    that fails raises, and no graph is returned."""
+    with _CAPTURE_LOCK:
+        stream = _capture_streams.get(device)
+        if stream is None:
+            stream = _capture_streams[device] = torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream):
+            if warm_up:
+                fn()
+            graph.capture_begin(pool, capture_error_mode="thread_local")
+            try:
+                out = fn()
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream(device).wait_stream(stream)
+    return graph, out
+
+
+@dataclass
+class _Graph:
+    """One captured ``generate``: its static prompt buffer and tokens, and
+    the params tree the graph reads (kept alive as long as the graph)."""
+    graph: Any
+    prompts: torch.Tensor
+    tokens: torch.Tensor
+    params: Any
 
 
 @dataclass
@@ -112,6 +174,17 @@ class TenantRuntime:
         self.predictor = predictor or RequestPredictor(context=8, hidden=16)
         self._copy_stream = (torch.cuda.Stream(self.device) if pin
                              else None)
+        # CUDA graphs of the loaded variant, keyed as the reference's jit
+        # is: (bits, batch, prompt length, new tokens, cache length), the
+        # least recently replayed first; the private pool they share; how
+        # many were captured and replayed.  The lock is held across a
+        # capture or a replay and its readback, and across a variant swap,
+        # so neither frees what the other uses.
+        self._graphs: "OrderedDict[tuple, _Graph]" = OrderedDict()
+        self.pool = None
+        self.captures = 0
+        self.replays = 0
+        self._lock = threading.Lock()
 
     # -- loader callback target -------------------------------------------
     def set_variant(self, variant: Optional[ModelVariant]) -> None:
@@ -121,44 +194,86 @@ class TenantRuntime:
         queued on the device's default stream, and the stream is
         synchronized before the new params are published: ``generate``
         on the serving thread never reads a tensor whose copy is still in
-        flight."""
-        if variant is None:
-            self.device_params = None
-            self.loaded_bits = None
+        flight.  Publishing drops the graphs of the old variant, and their
+        pool's memory goes back to the card."""
+        if variant is not None and variant.bits == self.loaded_bits:
             return
-        if variant.bits == self.loaded_bits:
-            return
-        host_tree = self.host[variant.bits]
-        stream = self._copy_stream
-        if stream is None:
-            params = tree_map(lambda _, t: t.to(self.device), host_tree)
-        else:
-            stream.wait_stream(torch.cuda.default_stream(self.device))
-            with torch.cuda.stream(stream):
-                params = tree_map(
-                    lambda _, t: t.to(self.device, non_blocking=True),
-                    host_tree)
-            stream.synchronize()
-        self.device_params = params
-        self.loaded_bits = variant.bits
+        params = None
+        if variant is not None:
+            host_tree = self.host[variant.bits]
+            stream = self._copy_stream
+            if stream is None:
+                params = tree_map(lambda _, t: t.to(self.device), host_tree)
+            else:
+                stream.wait_stream(torch.cuda.default_stream(self.device))
+                with torch.cuda.stream(stream):
+                    params = tree_map(
+                        lambda _, t: t.to(self.device, non_blocking=True),
+                        host_tree)
+                stream.synchronize()
+        with self._lock:
+            self.device_params = params
+            self.loaded_bits = None if variant is None else variant.bits
+            pool, self.pool = self.pool, None
+            graphs, self._graphs = self._graphs, OrderedDict()
+        if pool is not None:  # the old params go with their graphs
+            with _CAPTURE_LOCK:
+                del graphs
+                torch.cuda.empty_cache()
 
     def generate(self, prompts: np.ndarray, max_new: int,
                  extra: Optional[dict] = None) -> np.ndarray:
         """Greedy-decode ``max_new`` tokens for a batch of prompts.
 
+        On the card a batch without extras replays its key's CUDA graph,
+        captured at the key's first call; the CPU, and a batch with extra
+        modality inputs (as in the reference), run the eager loop.
         Returns host numpy, which waits for the device: the engine's
         wall-clock service time covers the whole computation."""
-        assert self.device_params is not None, f"{self.name}: not loaded"
-        params = self.device_params  # held until the device is done
-        dev = self.device
-        S = prompts.shape[1]
-        with torch.inference_mode():
+        with self._lock, torch.inference_mode():
+            assert self.device_params is not None, f"{self.name}: not loaded"
+            params = self.device_params
+            dev = self.device
+            S = prompts.shape[1]
+            if dev.type == "cuda" and not extra:
+                key = (self.loaded_bits, prompts.shape[0], S, max_new,
+                       S + max_new)
+                g = self._graphs.get(key)
+                if g is None:
+                    g = self._capture(key, params, prompts)
+                else:
+                    self._graphs.move_to_end(key)
+                    g.prompts.copy_(torch.as_tensor(prompts))
+                g.graph.replay()
+                self.replays += 1
+                return g.tokens.cpu().numpy()
             extra_t = ({k: torch.as_tensor(v, device=dev)
                         for k, v in extra.items()} if extra else None)
             toks = _generate_tokens(
                 self.cfg, params, torch.as_tensor(prompts, device=dev),
                 max_new=max_new, max_len=S + max_new, extra=extra_t)
             return toks.cpu().numpy()
+
+    def _capture(self, key: tuple, params, prompts: np.ndarray) -> _Graph:
+        """Capture ``_generate_tokens`` for ``key`` over a static prompt
+        buffer holding ``prompts``, in the runtime's pool; the variant's
+        first capture runs the loop eagerly before it, once.  Drops the
+        least recently replayed graph past ``MAX_GRAPHS``."""
+        *_, max_new, max_len = key
+        static = torch.as_tensor(prompts, dtype=torch.int32).to(self.device)
+        first = self.pool is None
+        pool = torch.cuda.graph_pool_handle() if first else self.pool
+        if len(self._graphs) >= MAX_GRAPHS:
+            with _CAPTURE_LOCK:
+                self._graphs.popitem(last=False)
+        graph, tokens = capture(
+            lambda: _generate_tokens(self.cfg, params, static,
+                                     max_new=max_new, max_len=max_len),
+            self.device, pool, warm_up=first)
+        self.pool = pool
+        self._graphs[key] = g = _Graph(graph, static, tokens, params)
+        self.captures += 1
+        return g
 
     # -- TenantExecutor protocol ------------------------------------------
     def execute(self, batch, extra: Optional[dict] = None

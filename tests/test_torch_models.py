@@ -4,7 +4,10 @@ Reduced tinyllama and mamba2 with the reference's weights carried over
 as numpy: prefill logits (and mamba2's SSM cache) of the 32-, 16- and
 8-bit variants against ``repro.models.transformer.prefill``, and 8-token
 greedy decodes against ``repro.serving.server._generate_tokens``; reduced
-gemma2's prefill and greedy decodes.  For all ten configs: the
+gemma2's prefill and greedy decodes.  ``forward`` and ``forward_hidden``
+against the reference's (reduced tinyllama, gemma2 and mamba2 at 32 and 8
+bits, the vision and audio families at 32), and against the port's own
+prefill and decode.  For all ten configs: the
 configs, ``params_nbytes`` per zoo variant, ``zoo_from_config`` and
 ``kv_cache_mb`` equal to the reference's, at reduced size and (by shape
 math, no weights) at full size.
@@ -456,6 +459,121 @@ def test_unported_families_raise_naming_the_roadmap_item(name):
         TT.prefill(cfg, params,
                    {"tokens": torch.zeros((1, 4), dtype=torch.int32)},
                    max_len=8)
+
+
+# ---------------------------------------------------------------------------
+# The full-sequence forward: against the reference, and against the port's
+# own prefill and decode (the reference's test_decode_matches_forward).
+# ---------------------------------------------------------------------------
+FORWARD = {"tinyllama-1.1b": 3, "gemma2-2b": 5, "mamba2-780m": 3,
+           "internvl2-1b": 7, "musicgen-large": 7}  # arch -> init key
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_model(name):
+    cfg = jget(name, reduced=True)
+    return cfg, JT.init_params(cfg, jax.random.key(FORWARD[name]),
+                               jnp.float32)
+
+
+def _forward_batch(cfg, B, S, seed=0):
+    """numpy tokens (B, S) or (B, S, Kcb), and patch embeddings for the
+    vision stub."""
+    rng = np.random.default_rng(seed)
+    shape = (B, S) if cfg.num_codebooks == 1 else (B, S, cfg.num_codebooks)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, shape).astype(
+        np.int32)}
+    if cfg.frontend == "vision_stub":
+        batch["patch_embeds"] = rng.standard_normal(
+            (B, cfg.num_vision_tokens, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def _both(batch):
+    return ({k: jnp.asarray(v) for k, v in batch.items()},
+            {k: torch.from_numpy(v) for k, v in batch.items()})
+
+
+# 20 tokens: past reduced gemma2's 8-token window and across mamba2's
+# 16-token chunk.  The vision and audio families at f32.
+@pytest.mark.parametrize("name,bits", [
+    (n, b) for n in ("tinyllama-1.1b", "gemma2-2b", "mamba2-780m")
+    for b in (32, 8)] + [("internvl2-1b", 32), ("musicgen-large", 32)])
+@pytest.mark.parametrize("fn", ["forward", "forward_hidden"])
+def test_forward_matches_reference(name, bits, fn):
+    cfg, params = _ref_model(name)
+    if bits == 32:
+        jvar, tvar = params, TT.params_from_numpy(_np_tree(params))
+    else:
+        jvar, tvar = _variants(params, bits)
+    jbatch, tbatch = _both(_forward_batch(cfg, 2, 20))
+    want = getattr(JT, fn)(cfg, jvar, jbatch)
+    got = getattr(TT, fn)(tget(name, reduced=True), tvar, tbatch)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               **LOGIT_TOL[bits])
+
+
+@pytest.mark.parametrize("name", ["tinyllama-1.1b", "mamba2-780m",
+                                  "gemma2-2b", "musicgen-large"])
+def test_decode_matches_forward(name):
+    """Greedy decode logits == teacher-forced full forward logits (the
+    reference's test on the port, with the reference's weights and its
+    tolerance)."""
+    cfg = tget(name, reduced=True)
+    params = TT.params_from_numpy(_np_tree(_ref_model(name)[1]))
+    B, S, S0 = 2, 12, 8
+    batch = {k: torch.from_numpy(v)
+             for k, v in _forward_batch(cfg, B, S, seed=1).items()}
+    tokens = batch["tokens"]
+    full = TT.forward(cfg, params, batch)  # (B, S_total, Kcb, Vp)
+    off = full.shape[1] - S
+    lp, cache = TT.prefill(cfg, params, dict(batch, tokens=tokens[:, :S0]),
+                           max_len=S + 2, cache_dtype=torch.float32)
+    np.testing.assert_allclose(lp.numpy(), full[:, off + S0 - 1].numpy(),
+                               rtol=3e-2, atol=3e-2)
+    for i in range(S0, S):
+        lp, cache = TT.decode_step(cfg, params, cache, tokens[:, i])
+        np.testing.assert_allclose(lp.numpy(), full[:, off + i].numpy(),
+                                   rtol=3e-2, atol=3e-2)
+
+
+def test_hybrid_forward_raises_naming_the_roadmap_item():
+    cfg = tget("hymba-1.5b", reduced=True)
+    params = TT.init_params(cfg, 0, torch.float32, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        TT.forward(cfg, params,
+                   {"tokens": torch.zeros((2, 12), dtype=torch.int32)})
+
+
+@pytest.mark.parametrize("kw,item", [(dict(remat=True), "A9"),
+                                     (dict(moe_impl="ragged"), "A8")])
+@pytest.mark.parametrize("fn", ["forward", "forward_hidden"])
+def test_forward_modes_not_ported_raise(kw, item, fn):
+    cfg = tget("tinyllama-1.1b", reduced=True)
+    params = TT.init_params(cfg, 0, torch.float32, device="cpu")
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        getattr(TT, fn)(cfg, params,
+                        {"tokens": torch.zeros((1, 4), dtype=torch.int32)},
+                        **kw)
+
+
+def test_sliding_window_restricts_context():
+    """Causality through the windowed layers: changing the last token must
+    not move any earlier position's logits (the reference's test on the
+    port, reduced gemma2 with its 8-token window)."""
+    cfg = tget("gemma2-2b", reduced=True)
+    jcfg = jget("gemma2-2b", reduced=True)
+    params = TT.params_from_numpy(_np_tree(
+        JT.init_params(jcfg, jax.random.key(0), jnp.float32)))
+    t1 = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 24))
+    t3 = t1.copy()
+    t3[0, -1] = (t1[0, -1] + 1) % cfg.vocab_size
+    f1 = TT.forward(cfg, params, {"tokens": torch.from_numpy(t1)})
+    f3 = TT.forward(cfg, params, {"tokens": torch.from_numpy(t3)})
+    np.testing.assert_allclose(f1[:, :-1].numpy(), f3[:, :-1].numpy(),
+                               rtol=1e-5, atol=1e-5)
+    assert not torch.equal(f1[:, -1], f3[:, -1])
 
 
 # ---------------------------------------------------------------------------

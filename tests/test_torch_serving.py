@@ -171,3 +171,54 @@ def test_unported_serving_modes_raise(kw):
         TServer.build(tapi.ServingConfig(
             tenants=(tapi.TenantSpec("tinyllama-1.1b"),), executor="sim",
             **kw))
+
+
+@pytest.mark.parametrize("arch", TENANTS)
+def test_cpu_runtime_generate_builds_no_graph(arch):
+    """On the CPU ``generate`` is the eager loop: equal ids, no capture, no
+    replay, no pool, at each variant and two batch shapes."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TT
+    from repro_torch.serving.server import TenantRuntime, _generate_tokens
+
+    cfg = get_config(arch, reduced=True)
+    rt = TenantRuntime(arch, cfg, TT.init_params(cfg, 0, torch.float32,
+                                                 device="cpu"), device="cpu")
+    rng = np.random.default_rng(7)
+    for bits in (16, 8):
+        rt.set_variant(rt.zoo.by_bits(bits))
+        for B, S, max_new in ((2, 5, 4), (3, 9, 2)):
+            prompts = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+            got = rt.generate(prompts, max_new)
+            with torch.inference_mode():
+                want = _generate_tokens(cfg, rt.device_params,
+                                        torch.from_numpy(prompts),
+                                        max_new=max_new, max_len=S + max_new)
+            np.testing.assert_array_equal(got, want.numpy())
+    assert rt.captures == rt.replays == 0
+    assert rt.pool is None and not rt._graphs
+
+
+def test_cpu_runtime_batches_with_extras_stay_eager():
+    """A batch with extra modality inputs (a vision stub's patch embeddings)
+    runs the eager loop with them, as in the reference."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TT
+    from repro_torch.serving.server import TenantRuntime, _generate_tokens
+
+    cfg = get_config("internvl2-1b", reduced=True)
+    rt = TenantRuntime("vlm", cfg, TT.init_params(cfg, 0, torch.float32,
+                                                  device="cpu"), device="cpu")
+    rt.set_variant(rt.zoo.by_bits(8))
+    rng = np.random.default_rng(8)
+    prompts = rng.integers(0, cfg.vocab_size, (2, 6)).astype(np.int32)
+    vis = rng.standard_normal((2, cfg.num_vision_tokens,
+                               cfg.d_model)).astype(np.float32)
+    got = rt.generate(prompts, 4, extra={"patch_embeds": vis})
+    with torch.inference_mode():
+        want = _generate_tokens(
+            cfg, rt.device_params, torch.from_numpy(prompts), max_new=4,
+            max_len=10, extra={"patch_embeds": torch.from_numpy(vis)})
+    np.testing.assert_array_equal(got, want.numpy())
+    assert got.shape == (2, 4)
+    assert rt.captures == rt.replays == 0 and rt.pool is None

@@ -18,7 +18,8 @@ and power limit, then one JSON line:
   call, the tensor maps and the launch;
 - ``generate_ms``: the wall time of ``--runs`` 8-bit ``generate`` calls
   (4 prompts of 12 tokens, 8 new), full width, weights random from a
-  seed, after two warm-up calls.
+  seed, after two warm-up calls (where ``generate`` runs CUDA graphs,
+  the first of them captures and the timed calls replay).
 """
 from __future__ import annotations
 
