@@ -33,21 +33,24 @@
    through ``EdgeServer.build(ServingConfig(executor="real"))``:
    eighteen requests alternating across the tenants through the Batcher,
    prompts of 4-12 tokens, 8 new tokens each.  Contention forces an 8-bit
-   variant onto the card.  Every batch runs as a CUDA graph, captured at
-   its key's first call and replayed after (each batch's latency is
-   marked so).  The wrappers' counts (zeroed just before, read just
-   after) count eager warm-ups and captures, each above zero; the
-   kernels' launches, replays included, are counted by ``torch.profiler``
-   over the whole run.  Then prints each tenant's graph pool, evicts
-   every tenant and requires each pool back at 0 bytes.
+   variant onto the card.  A batch's key runs eagerly at its first call,
+   as a CUDA graph captured at its second and replayed after (each
+   batch's latency is marked so); each capture's graph pool is charged
+   to its tenant, and the budget must hold at every event with the pools
+   counted.  The wrappers' counts (zeroed just before, read just after)
+   count eager calls and captures, each above zero; the kernels'
+   launches, replays included, are counted by ``torch.profiler`` over
+   the whole run.  Then every tenant is evicted through the loader: each
+   pool's charge must have equalled the pool, and every pool, charge and
+   ``used_mb`` must be back at 0.
 4. Checks each served model: the card's prefill logits (and, for the
    8-bit variants, greedy tokens) against the plain versions on the host;
    then per variant one ``generate`` of a full batch eagerly
-   (``_generate_tokens``) and as a graph: equal greedy ids, the first
-   call's ms (the variant's first capture, with its eager warm-up, and a
-   second key's), and for each a profiled run (its idle share; the
-   replay's kernels on the card with no wrapper call, so all from the
-   graph) and five unprofiled walls.
+   (``_generate_tokens``) and as a graph: equal greedy ids, the ms of the
+   first call of two keys (eager) and of their second (capture, replay),
+   and for each a profiled run (its idle share; the replay's kernels on
+   the card with no wrapper call, so all from the graph) and five
+   unprofiled walls.
 5. The paged decode's path, over real decode caches: tinyllama-1.1b
    (8-bit, 4 prompts of 1024 tokens) and gemma2-2b (16-bit, 2 prompts of
    4200, past its 4096-token window) prefill on the card and take
@@ -68,8 +71,25 @@
    last position against the card's ``prefill`` logits (relative l2
    within 2e-4 at 8 bits, 3e-2 at 16); and ``fidelity`` of the 8-bit variant against the
    16-bit one (top-1 agreement, logit MSE), recorded, not gated.
-8. Prints the kernels as one JSON line, the card, and last
-   ``{"ok": true, "device": {...}}``.
+8. The hybrid and MoE families: hymba-1.5b and olmoe-1b-7b at full width
+   and depth (zoo (16, 8) at group 32) served together under their
+   contended budget, each tenant's batches in turn with prompt lengths
+   that repeat (eager first calls, captures, replays), the kernels'
+   launches counted by the profiler; the pools charged and given back as
+   in step 3; each tenant's prefill and decode-step logits held to the
+   host's by step 4's rules, and step 4's ``generate`` check; hymba's
+   2048-token prompt (2176 rows with its meta tokens) through
+   ``forward``, every row and the rows past the window held to the host
+   within 2e-4 at 8 bits, where a forward blind to the meta tokens'
+   prefix must miss.  Then, at full width and cut in depth: llama4-scout
+   (2 of 48 layers; top-1 routing and the shared expert) at 8 bits,
+   prefill and three greedy steps held to the host's run from the card's
+   caches; yi-6b, granite-3-2b, musicgen-large and internvl2-1b (2
+   layers each; internvl2 with its patch embeddings) at 8 and 16 bits,
+   prefill and ``forward`` logits held to the host's.
+9. Prints the kernels as one JSON line (launches summed over the main
+   path's and the families' serving runs, and by path), the card, and
+   last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a CUDA device, or without
 the repository's ``src/repro_torch`` beside this file, it exits non-zero
@@ -77,6 +97,7 @@ before printing any result.  Imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -140,6 +161,19 @@ PAGE_SIZES = (16, 128)
 CACHE_LAYOUTS = (("tinyllama-1.1b", 8), ("gemma2-2b", 16))
 FORWARD_BATCH = (2, 64)  # the full-sequence forward and fidelity's prompts
 MB = 1024 * 1024
+# Phase 8: the hybrid and MoE families at full width and depth, served
+# together; each tenant's batches (batch size, prompt length) in turn, so
+# that a key's first call runs eagerly, its second captures, its third
+# replays.
+FAMILY_ARCHS = ("hymba-1.5b", "olmoe-1b-7b")
+FAMILY_BATCHES = ((2, 8), (2, 8), (2, 6), (2, 8))
+HYMBA_LONG = 2048  # hymba's long prompt: its 1024-token window bites
+# Depth cuts at full width: llama4-scout (2 of 48 layers: 107.8 B
+# parameters hold no zoo variant in 80 GB) and the dense families.
+LLAMA4 = ("llama4-scout-17b-a16e", 2)
+LLAMA4_STEPS = 3
+DENSE_CUTS = (("yi-6b", 2), ("granite-3-2b", 2), ("musicgen-large", 2),
+              ("internvl2-1b", 2))
 
 # The main path's kernels by the profiler's names: the substrings of each
 # wrapper's kernel (the decode kernels' split pass, dense or paged).
@@ -951,9 +985,8 @@ def serve(kernels) -> tuple:
     for b, r, caps, reps in results:
         print(f"  batch {b.app} x{len(b.requests)} prompt {b.prompts.shape[1]}"
               f": bits={r.bits} {'warm' if r.warm else 'cold'}"
-              f"{' FAILED' if r.failed else ''}, "
-              f"{'captured' if caps else 'replayed'}, latency "
-              f"{r.latency_s * 1e3:.1f} ms")
+              f"{' FAILED' if r.failed else ''}, {how_served(caps, reps)}, "
+              f"latency {r.latency_s * 1e3:.1f} ms")
     stats = srv.stats()
     tokens = sum(len(b.requests) * b.max_new for b, *_ in results)
     busy = sum(r.latency_s for _, r, *_ in results)
@@ -961,15 +994,17 @@ def serve(kernels) -> tuple:
           f"{stats.warm_ratio:.3f}, fail ratio {stats.fail_ratio:.3f}, "
           f"{tokens} tokens in {busy:.3f} s of service = "
           f"{tokens / busy:.1f} tokens/s; {len(results)} batches, "
-          f"{sum(c for *_, c, _ in results)} captured; kernel launches "
+          f"{sum(c for *_, c, _ in results)} captured, "
+          f"{sum(not r for *_, r in results)} eager; kernel launches "
           f"(profiler, replays included) {launches}; wrapper calls (eager "
-          f"warm-ups and captures) {calls}; profile read in {t_prof:.1f} s;"
+          f"calls and captures) {calls}; profile read in {t_prof:.1f} s;"
           f" device {sum(ms.values()):.1f} ms in all, by kernel family "
           f"{families(ms, counts)}")
     if stats.requests != REQUESTS or any(r.failed for _, r, *_ in results):
         raise AssertionError("not every request was served")
-    if any(reps != 1 or caps > 1 for *_, caps, reps in results):
-        raise AssertionError("a batch was not served by one graph replay")
+    if any(caps > reps or reps > 1 for *_, caps, reps in results):
+        raise AssertionError("a batch was neither eager nor one graph "
+                             "replay")
     if {b.app for b, *_ in results} != set(names):
         raise AssertionError("a tenant served no batch")
     if not any(r.bits == 8 for _, r, *_ in results):
@@ -977,26 +1012,56 @@ def serve(kernels) -> tuple:
     for name in kernels:
         if launches[name] <= 0 or calls[name] <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
-    # Drain the loader before touching the tenants from this thread; then
-    # every tenant's graphs go with its variant.
-    srv.close()
-    pools = {n: tr.pool for n, tr in srv.tenants.items()
-             if tr.pool is not None}
-    held = {n: pool_bytes(pool) for n, pool in pools.items()}
-    for tr in srv.tenants.values():
-        tr.set_variant(None)
-    left = {n: pool_bytes(pool) for n, pool in pools.items()}
-    print("graph pools after the serving run: " + ", ".join(
-        f"{n} {b / MB:.1f} MB ({srv.tenants[n].captures} captures in all)"
-        for n, b in held.items()) + "; after eviction: "
-        + ", ".join(f"{n} {b} B" for n, b in left.items()))
-    if not pools or any(left.values()):
-        raise AssertionError("a graph pool outlived its variant")
+    if not any(caps for *_, caps, _ in results):
+        raise AssertionError("no batch of the serving run captured")
+    evict_all(srv)
     for name in names:
         t0 = time.perf_counter()
         check_outputs(srv.tenants[name])
         print(f"checked {name} in {time.perf_counter() - t0:.1f} s")
     return launches, srv
+
+
+def how_served(caps: int, reps: int) -> str:
+    return "captured" if caps else "replayed" if reps else "eager"
+
+
+def evict_all(srv) -> None:
+    """Evict every tenant through the loader, so that the accounting and
+    the card change together; require each tenant's charged graph pool to
+    have equalled the pool the allocator held, and after eviction every
+    charge, ``used_mb`` and every pool at 0.  Then detach the runtimes from
+    the engine: the later checks drive them directly."""
+    from repro_torch.core import actions as RA
+    from repro_torch.serving.server import pool_bytes
+
+    st = srv.manager.state
+    pools = {n: tr.pool for n, tr in srv.tenants.items()
+             if tr.pool is not None}
+    held = {n: (pool_bytes(pool) / MB, st.tenants[n].pool_mb)
+            for n, pool in pools.items()}
+    used, weights = st.used_mb, st.weights_mb
+    for name, t in st.tenants.items():
+        if t.loaded is not None:
+            srv.loader.execute(RA.ResidencyPlan((RA.Unload(name),)),
+                               srv.engine._now)
+    srv.close()  # the staging worker drops the graphs with the variants
+    left = {n: pool_bytes(pool) for n, pool in pools.items()}
+    print("graph pools after the serving run (held / charged): " + ", ".join(
+        f"{n} {b:.1f} / {c:.1f} MB ({srv.tenants[n].captures} captures)"
+        for n, (b, c) in held.items())
+        + f"; used_mb {used:.1f} = weights {weights:.1f} + pools "
+        f"{sum(c for _, c in held.values()):.1f}; after eviction: used_mb "
+        f"{st.used_mb:.1f}, pools " + ", ".join(f"{n} {b} B"
+                                               for n, b in left.items()))
+    if any(abs(b - c) > 1e-6 for b, c in held.values()):
+        raise AssertionError("a charged graph pool differs from the pool "
+                             "the allocator holds")
+    if any(left.values()) or st.pool_mb or st.used_mb:
+        raise AssertionError("a graph pool or its charge outlived its "
+                             "variant")
+    for tr in srv.tenants.values():
+        tr.pool_ledger = None
 
 
 def hold_to_host(what: str, got, plain, host_params, bits: int) -> str:
@@ -1094,24 +1159,19 @@ def profile_text(wall, kern, counts, walls) -> str:
             + "; ".join(f"{k[:50]} {t:.2f} ms" for k, t in top))
 
 
-def pool_bytes(pool) -> int:
-    """Device bytes the caching allocator holds for graph pool ``pool``."""
-    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-               if tuple(seg["segment_pool_id"]) == tuple(pool))
-
-
 def check_graph(tr, bits: int) -> None:
     """One ``generate`` of a full batch (MAX_BATCH x MAX_PROMPT prompts,
     MAX_NEW new tokens) of the just loaded variant, eagerly through
     ``_generate_tokens`` and as the runtime's graph: equal greedy ids; the
-    walls of the variant's first graph call (an eager run on the capture
-    stream, the capture, a replay) and of a second key's first call (a
-    prompt a token shorter: the capture and a replay); each a profiled run
-    and GENERATE_RUNS unprofiled walls.  The profiled replay calls no
-    kernel wrapper, so every kernel the profiler sees on the card came
-    from the graph; those of the path must be there."""
+    walls of the first and second calls of two keys (the full batch and a
+    prompt a token shorter): the first runs eagerly on the capture stream
+    and captures nothing, the second captures and replays; then a
+    profiled replay and GENERATE_RUNS unprofiled walls each way.  The
+    profiled replay calls no kernel wrapper, so every kernel the profiler
+    sees on the card came from the graph; those of the path must be
+    there."""
     from repro_torch.kernels import ops
-    from repro_torch.serving.server import _generate_tokens
+    from repro_torch.serving.server import _generate_tokens, pool_bytes
 
     cfg = tr.cfg
     batch = np.random.default_rng(2).integers(
@@ -1126,20 +1186,22 @@ def check_graph(tr, bits: int) -> None:
     eager_prof = device_kernels(lambda: eager(batch))
     eager_walls = unprofiled_walls(lambda: eager(batch))
     caps = tr.captures
-    first_ms = []
+    call_ms = []
     for prompts in (batch, np.ascontiguousarray(batch[:, 1:])):
         want = eager(prompts).cpu().numpy()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        got = tr.generate(prompts, MAX_NEW)
-        first_ms.append((time.perf_counter() - t0) * 1e3)
-        if tr.captures != caps + len(first_ms):
-            raise AssertionError(f"{cfg.name} {bits}-bit: the first call "
-                                 "of a key did not capture")
-        if not np.array_equal(got, want):
-            raise AssertionError(f"{cfg.name} {bits}-bit: graph ids "
-                                 f"{got.tolist()} differ from eager "
-                                 f"{want.tolist()}")
+        for n in (0, 1):  # the key's first call, then its second
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = tr.generate(prompts, MAX_NEW)
+            call_ms.append((time.perf_counter() - t0) * 1e3)
+            if tr.captures != caps + len(call_ms) // 2:
+                raise AssertionError(
+                    f"{cfg.name} {bits}-bit: call {n + 1} of a key "
+                    f"{'captured' if n == 0 else 'did not capture'}")
+            if not np.array_equal(got, want):
+                raise AssertionError(f"{cfg.name} {bits}-bit: ids "
+                                     f"{got.tolist()} of call {n + 1} "
+                                     f"differ from eager {want.tolist()}")
     caps = tr.captures
     wrappers = {k: getattr(ops, k) for k in KERNEL_NAMES}
     for fn in wrappers.values():
@@ -1157,9 +1219,10 @@ def check_graph(tr, bits: int) -> None:
     print(f"  generate {cfg.name} {bits}-bit ({MAX_BATCH}x{MAX_PROMPT} "
           f"prompt, {MAX_NEW} new), greedy ids equal eager and graph:\n"
           f"    eager: {profile_text(*eager_prof, eager_walls)}\n"
-          f"    graph: first call of the variant (warm-up, capture, replay)"
-          f" {first_ms[0]:.1f} ms, of a second key ({MAX_BATCH}x"
-          f"{MAX_PROMPT - 1}: capture, replay) {first_ms[1]:.1f} ms; replay "
+          f"    graph: the variant's first key, first call (eager, capture "
+          f"stream) {call_ms[0]:.1f} ms, second (capture, replay) "
+          f"{call_ms[1]:.1f} ms; a second key ({MAX_BATCH}x{MAX_PROMPT - 1})"
+          f" {call_ms[2]:.1f} / {call_ms[3]:.1f} ms; replay "
           f"{profile_text(wall, kern, counts, graph_walls)}; a replay by "
           f"kernel family (device ms / launches): {families(kern, counts)};"
           f" pool {pool_bytes(tr.pool) / MB:.1f} MB")
@@ -1642,6 +1705,320 @@ def check_forward(srv, kernels) -> None:
               f"{time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the hybrid and MoE families; the dense families at full width
+# ---------------------------------------------------------------------------
+def build_family_server():
+    """hymba-1.5b and olmoe-1b-7b at full width and depth on the card,
+    the contended budget derived as the main path's is."""
+    from repro_torch.serving.api import (BatchingSpec, EdgeServer,
+                                         ServingConfig, TenantSpec)
+
+    t0 = time.perf_counter()
+    srv = EdgeServer.build(ServingConfig(
+        executor="real",
+        tenants=tuple(TenantSpec(a, reduced=False) for a in FAMILY_ARCHS),
+        kv_headroom_shape=(MAX_BATCH, 32),
+        batching=BatchingSpec(max_batch=MAX_BATCH)), device="cuda")
+    print(f"families: built {', '.join(FAMILY_ARCHS)} at full width and "
+          f"depth in {time.perf_counter() - t0:.1f} s; contended budget "
+          f"{srv.budget_mb:.1f} MB; variants (params_nbytes) "
+          + "; ".join(f"{n}: " + ", ".join(
+              f"{v.bits}-bit {v.size_mb * MB / 1e9:.2f} GB"
+              for v in t.zoo.variants) for n, t in srv.tenants.items()))
+    return srv
+
+
+def serve_families(kernels) -> dict:
+    """Phase 8's serving run: FAMILY_BATCHES for each tenant in turn, the
+    kernels' counts zeroed just before and the profiler over the run.
+    Every request served, the budget held at every event with the pools
+    counted, each tenant's charge equal to its pool after every batch and
+    above its level before a capture; then eviction (pools back to 0),
+    and per tenant and variant the host checks and ``check_graph``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving.server import pool_bytes
+
+    srv = build_family_server()
+    st = srv.manager.state
+    rng = np.random.default_rng(8)
+    rows = []
+    for fn in kernels.values():
+        fn.launches = 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        now = 0.0
+        for B, S in FAMILY_BATCHES:
+            for name in FAMILY_ARCHS:
+                tr = srv.tenants[name]
+                prompts = rng.integers(0, tr.cfg.vocab_size,
+                                       (B, S)).astype(np.int32)
+                srv.predict_and_preload(now)
+                caps, reps = tr.captures, tr.replays
+                before = st.tenants[name].pool_mb
+                r = srv.serve(name, prompts, MAX_NEW, now_ms=now)
+                torch.cuda.synchronize()
+                after = st.tenants[name].pool_mb
+                held = (pool_bytes(tr.pool) / MB if tr.pool is not None
+                        else 0.0)
+                rows.append((name, B, S, r, tr.captures - caps,
+                             tr.replays - reps, before, after, st.used_mb))
+                if abs(after - held) > 1e-6 or (
+                        tr.captures > caps and tr.pool is not None
+                        and not after > 0):
+                    raise AssertionError(
+                        f"{name}: pool charged {after:.1f} MB (was "
+                        f"{before:.1f}) against {held:.1f} MB held")
+                now += 500.0
+    calls = {k: fn.launches for k, fn in kernels.items()}
+    ms, counts = card_activity(prof)
+    launches = kernel_launches(counts)
+    srv.engine.check_event_invariant()
+    for name, B, S, r, caps, reps, before, after, used in rows:
+        print(f"  batch {name} x{B} prompt {S}: bits={r.bits} "
+              f"{'warm' if r.warm else 'cold'}"
+              f"{' FAILED' if r.failed else ''}, {how_served(caps, reps)}, "
+              f"latency {r.latency_s * 1e3:.1f} ms; pool charged "
+              f"{before:.1f} -> {after:.1f} MB, used_mb {used:.1f}")
+    pools = [e for e in srv.engine.events if e.kind == "pool"]
+    print(f"families: {len(rows)} batches, "
+          f"{sum(c for *_, c, _, _, _, _ in rows)} captured; pool events "
+          f"{len(pools)} (MB: " + ", ".join(f"{e.app} {e.kv_mb:+.1f}"
+                                           for e in pools)
+          + f"); max used_mb {max(e.used_mb for e in srv.engine.events):.1f}"
+          f" of {srv.budget_mb:.1f}; kernel launches (profiler) "
+          f"{ {k: launches[k] for k in kernels} }; wrapper calls {calls}; "
+          f"device {sum(ms.values()):.1f} ms, by kernel family "
+          f"{families(ms, counts)}")
+    if any(r.failed for _, _, _, r, *_ in rows):
+        raise AssertionError("families: a request was not served")
+    if not any(row[4] for row in rows) or not any(
+            row[5] and not row[4] for row in rows):
+        raise AssertionError("families: no batch captured, or none "
+                             "replayed")
+    for name in kernels:
+        if launches[name] <= 0 or calls[name] <= 0:
+            raise AssertionError(f"{name} was not launched by the families")
+    evict_all(srv)
+    for name in FAMILY_ARCHS:
+        t0 = time.perf_counter()
+        check_family_outputs(srv.tenants[name])
+        print(f"checked {name} in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    check_hymba_long(srv.tenants["hymba-1.5b"])
+    print(f"hymba long prefill checked in {time.perf_counter() - t0:.1f} s")
+    return {k: launches[k] for k in kernels}
+
+
+def check_family_outputs(tr) -> None:
+    """Per variant: the card's prefill logits and one decode step's logits
+    (from the card's cache) held to the host's plain versions by
+    ``hold_to_host``; then ``check_graph``.  (No host run of the whole
+    greedy loop: at olmoe's size each host pass takes seconds.)"""
+    from repro_torch.models import transformer as T
+
+    cfg = tr.cfg
+    prompts = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 8)).astype(np.int32)
+    host_tok = torch.from_numpy(prompts)
+    for bits in (8, 16):
+        tr.set_variant(tr.zoo.by_bits(bits))
+        with torch.inference_mode():
+            logits, cache = T.prefill(cfg, tr.device_params,
+                                      {"tokens": host_tok.cuda()},
+                                      max_len=12)
+            tok = T.greedy_token(cfg, logits)
+            before = {n: t.to("cpu", copy=True) for n, t in cache.items()}
+            step, _ = T.decode_step(cfg, tr.device_params, cache, tok)
+            lines = [hold_to_host(
+                f"check {cfg.name} {bits}-bit: prefill logits", logits.cpu(),
+                lambda p: T.prefill(cfg, p, {"tokens": host_tok},
+                                    max_len=12)[0], tr.host[bits], bits),
+                hold_to_host(
+                    "decode-step logits from the card's cache", step.cpu(),
+                    lambda p: T.decode_step(
+                        cfg, p, {n: t.clone() for n, t in before.items()},
+                        tok.cpu())[0], tr.host[bits], bits)]
+        print("; ".join(lines))
+        del cache, before
+        check_graph(tr, bits)
+    tr.set_variant(None)
+    torch.cuda.empty_cache()
+
+
+def check_hymba_long(tr) -> None:
+    """hymba-1.5b at 8 bits over one HYMBA_LONG-token prompt (the meta
+    tokens make it HYMBA_LONG + 128 rows): the card's ``forward`` logits
+    against the host's, over all rows and over the rows past the window
+    (where the meta tokens are visible only through ``prefix``), relative
+    l2 within 2e-4; the same forward on the card with the prefix dropped
+    from the attention must miss there by more than that, so the check
+    cannot pass a kernel that ignores the prefix.  The card's prefill
+    logits equal its forward's last position."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+
+    cfg = tr.cfg
+    tr.set_variant(tr.zoo.by_bits(8))
+    tokens = torch.from_numpy(np.random.default_rng(10).integers(
+        0, cfg.vocab_size, (1, HYMBA_LONG)).astype(np.int32))
+    flash = ops.flash_attention
+    with torch.inference_mode():
+        card = T.forward(cfg, tr.device_params, {"tokens": tokens.cuda()})
+        last, _ = T.prefill(cfg, tr.device_params, {"tokens": tokens.cuda()},
+                            max_len=HYMBA_LONG)
+        ops.flash_attention = lambda *a, prefix=0, **kw: flash(*a, **kw)
+        try:
+            blind = T.forward(cfg, tr.device_params,
+                              {"tokens": tokens.cuda()})[0].cpu()
+        finally:
+            ops.flash_attention = flash
+        t0 = time.perf_counter()
+        host = T.forward(cfg, tr.host[8], {"tokens": tokens})[0]
+        t_host = time.perf_counter() - t0
+    past = slice(cfg.sliding_window + cfg.num_meta_tokens, None)
+    rel_last = rel_l2(card[:, -1].cpu(), last.cpu())
+    card = card[0].cpu()
+    rel_all, rel_past = rel_l2(card, host), rel_l2(card[past], host[past])
+    rel_blind = rel_l2(blind[past], host[past])
+    line = (f"hymba long prefill, 1 x {HYMBA_LONG} tokens ({card.shape[0]} "
+            f"rows), 8-bit, card forward against the host's ({t_host:.1f} "
+            f"s): rel L2 err {rel_all:.3g}, past the window {rel_past:.3g} "
+            f"(tol {QMM_TOL}); without the prefix {rel_blind:.3g} there; "
+            f"prefill vs forward's last row {rel_last:.3g}")
+    print(line)
+    if max(rel_all, rel_past, rel_last) > QMM_TOL or rel_blind <= QMM_TOL:
+        raise AssertionError(line)
+    tr.set_variant(None)
+    torch.cuda.empty_cache()
+
+
+def cut_variants(arch: str, layers: int, precisions):
+    """A full-width config cut to ``layers`` layers, its random f32
+    weights made on the card, and its zoo variants: on the card and on the
+    host."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.quant.quantize import quantize_params, tree_map
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    params = T.init_params(cfg, 0, torch.float32, device="cuda")
+    out = {}
+    for bits in precisions:
+        card_params = quantize_params(params, bits=bits, group=32)
+        out[bits] = (card_params,
+                     tree_map(lambda _, t: t.cpu(), card_params))
+    del params
+    torch.cuda.empty_cache()
+    return cfg, out
+
+
+def check_llama4(kernels) -> None:
+    """llama4-scout at full width cut to LLAMA4[1] layers, 8 bits: prefill
+    and LLAMA4_STEPS greedy decode steps on the card (top-1 routing and
+    the shared expert, dense MoE), every step's logits held to the host's
+    plain run from the card's cache before that step, greedy ids equal."""
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    cfg, variants = cut_variants(*LLAMA4, (8,))
+    params, host_params = variants[8]
+    B, S = 2, 8
+    prompts = torch.from_numpy(np.random.default_rng(11).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32))
+    for fn in kernels.values():
+        fn.launches = 0
+    with torch.inference_mode():
+        logits, cache = T.prefill(cfg, params, {"tokens": prompts.cuda()},
+                                  max_len=S + LLAMA4_STEPS)
+        out, ids, states = [logits], [T.greedy_token(cfg, logits)], []
+        for _ in range(LLAMA4_STEPS):
+            states.append({n: t.to("cpu", copy=True)
+                           for n, t in cache.items()})
+            logits, cache = T.decode_step(cfg, params, cache, ids[-1])
+            out.append(logits)
+            ids.append(T.greedy_token(cfg, logits))
+    calls = {k: fn.launches for k, fn in kernels.items()}
+    t_card = time.perf_counter() - t0
+    got = torch.stack(out).cpu()
+    ids = torch.stack(ids).cpu()
+
+    # The host's prefill, then every step from the card's cache before it
+    # and the card's token, the steps as one batch (they are independent).
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        first, _ = T.prefill(cfg, host_params, {"tokens": prompts},
+                             max_len=S + LLAMA4_STEPS)
+        stacked = {n: torch.cat([st[n] for st in states],
+                                dim=0 if n == "lengths" else 1)
+                   for n in states[0]}
+        steps, _ = T.decode_step(cfg, host_params, stacked,
+                                 ids[:LLAMA4_STEPS].reshape(-1))
+    want = torch.cat([first[None], steps.reshape(LLAMA4_STEPS, B,
+                                                 *steps.shape[1:])])
+    line = hold_to_host(
+        f"llama4-scout full width, {cfg.num_layers} of 48 layers, 8-bit: "
+        f"prefill and {LLAMA4_STEPS} steps' logits", got, lambda _: want,
+        host_params, 8)
+    host_ids = torch.stack([T.greedy_token(cfg, t) for t in want])
+    need = ("quant_matmul", "flash_attention", "decode_attention")
+    print(f"{line}; card {t_card:.1f} s, host {time.perf_counter() - t0:.1f}"
+          f" s; greedy ids {ids.tolist()}; calls {calls}")
+    if not torch.equal(ids, host_ids) or not all(calls[k] for k in need):
+        raise AssertionError(f"llama4: ids {ids.tolist()} against "
+                             f"{host_ids.tolist()}, calls {calls}")
+    del variants, params, cache
+    torch.cuda.empty_cache()
+
+
+def check_dense_cuts(kernels) -> None:
+    """The dense families at full width cut to two layers each: prefill
+    logits and ``forward`` logits on the card at 8 and 16 bits held to the
+    host's by ``hold_to_host``; internvl2-1b's prompt carries its patch
+    embeddings through the batch's extra inputs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    for arch, layers in DENSE_CUTS:
+        t0 = time.perf_counter()
+        cfg, variants = cut_variants(arch, layers, (8, 16))
+        rng = np.random.default_rng(12)
+        shape = (2, 16) if cfg.num_codebooks == 1 else (2, 16,
+                                                        cfg.num_codebooks)
+        host = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, shape).astype(np.int32))}
+        if cfg.frontend == "vision_stub":
+            host["patch_embeds"] = torch.from_numpy(rng.standard_normal(
+                (2, cfg.num_vision_tokens, cfg.d_model)).astype(np.float32))
+        batch = {k: v.cuda() for k, v in host.items()}
+        lines = []
+        for bits, (params, host_params) in sorted(variants.items()):
+            for fn in kernels.values():
+                fn.launches = 0
+            with torch.inference_mode():
+                logits, _ = T.prefill(cfg, params, batch, max_len=20)
+                full = T.forward(cfg, params, batch)
+                calls = {k: fn.launches for k, fn in kernels.items()}
+                lines.append(hold_to_host(
+                    f"{bits}-bit prefill logits", logits.cpu(),
+                    lambda p: T.prefill(cfg, p, host, max_len=20)[0],
+                    host_params, bits))
+                lines.append(hold_to_host(
+                    "forward logits", full.cpu(),
+                    lambda p: T.forward(cfg, p, host), host_params, bits))
+            need = ["flash_attention"] + ["quant_matmul"] * (bits == 8)
+            if not all(calls[k] for k in need):
+                raise AssertionError(f"{arch} {bits}-bit: calls {calls}")
+        print(f"{arch} full width, {layers} of "
+              f"{get_config(arch).num_layers} layers: " + "; ".join(lines)
+              + f"; {time.perf_counter() - t0:.1f} s")
+        del variants
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -1687,6 +2064,17 @@ def main() -> None:
     t0 = time.perf_counter()
     check_forward(srv, kernels)
     print(f"forward and fidelity checks took {time.perf_counter() - t0:.1f} s")
+    del srv  # phase 8 runs on a card and host the main path has left
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    paths = {"main": launches,
+             "families": serve_families(kernels)}
+    print(f"families served and checked in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    check_llama4(kernels)
+    check_dense_cuts(kernels)
+    print(f"depth-cut models checked in {time.perf_counter() - t0:.1f} s")
 
     replaces = {
         "quant_matmul": "src/repro/kernels/quant_matmul.py:102",
@@ -1696,13 +2084,18 @@ def main() -> None:
         "paged_decode_attention": "src/repro/kernels/decode_attention.py:191"}
     # The serving kernels run inside CUDA graphs, where their wrappers
     # are not called: their launches are the profiler's count over the
-    # serving run.  The paged kernel runs eagerly in the replay.
-    counted_by = {k: "torch.profiler kernels over the serving run, graph "
-                  "replays and eager warm-ups" for k in kernels}
+    # main path's serving run and phase 8's, graph replays and eager calls
+    # alike.  The paged kernel runs eagerly in the replay.
+    counted_by = {k: "torch.profiler kernels over the serving runs of the "
+                  "main path and the families, graph replays and eager "
+                  "calls" for k in kernels}
     counted_by["paged_decode_attention"] = "wrapper calls over the replay"
+    launches_by = {k: {p: n[k] for p, n in paths.items() if k in n}
+                   for k in replaces}
     out = [dict(name=k, route="cuda", source="src/repro_torch/csrc/"
                 f"{'decode_attention' if k.startswith('paged') else k}.cu",
-                replaces=replaces[k], launches=launches[k], **rows[k],
+                replaces=replaces[k], launches=sum(launches_by[k].values()),
+                **rows[k], launches_by_path=launches_by[k],
                 launches_counted_by=counted_by[k])
            for k in replaces]
     print(json.dumps({"kernels": out}))

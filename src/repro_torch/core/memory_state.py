@@ -1,9 +1,13 @@
 """Memory tier state (§III-A "Memory Tier"): tracks loaded variants, live
 KV-cache charges, free space, and per-tenant request/prediction bookkeeping.
 
-``used_mb`` counts weights *and* per-tenant KV caches: admission and
-eviction decisions see runtime memory, not just model residency, so a
-tenant mid-decode cannot be silently overcommitted by a procurement.
+``used_mb`` counts weights, per-tenant KV caches *and* each tenant's
+CUDA-graph pool (the memory its captured ``generate`` graphs keep on the
+card while its variant stays): admission and eviction decisions see
+runtime memory, not just model residency, so a tenant mid-decode cannot
+be silently overcommitted by a procurement.  A pool goes with the variant
+its graphs read, so any change of a tenant's loaded variant clears its
+pool charge.
 
 This is deliberately a plain-Python, side-effect-free data layer so the
 eviction policies are pure functions over it — which is what lets the
@@ -426,6 +430,7 @@ class TenantState:
     loaded: Optional[ModelVariant] = None
     kv_mb: float = 0.0  # live KV/decode-cache MB charged to this tenant
     inflight_mb: float = 0.0  # MB claimed by a background load mid-staging
+    pool_mb: float = 0.0  # the loaded variant's CUDA-graph pool on the card
     last_request: float = -INF  # time of most recent actual request
     predicted_next: float = INF  # next predicted request time (INF = none)
     requests: int = 0
@@ -480,6 +485,10 @@ class MemoryState:
         return sum(t.kv_mb for t in self.tenants.values())
 
     @property
+    def pool_mb(self) -> float:
+        return sum(t.pool_mb for t in self.tenants.values())
+
+    @property
     def inflight_mb(self) -> float:
         """MB claimed by background loads that have not yet committed —
         prefetched weights mid-staging.  Committed memory the instant the
@@ -489,8 +498,9 @@ class MemoryState:
 
     @property
     def used_mb(self) -> float:
-        """Weights + live KV caches: *runtime* memory, not just weights."""
-        return self.weights_mb + self.kv_mb
+        """Weights + live KV caches + graph pools: *runtime* memory, not
+        just weights."""
+        return self.weights_mb + self.kv_mb + self.pool_mb
 
     @property
     def free_mb(self) -> float:
@@ -515,9 +525,26 @@ class MemoryState:
 
     # -- mutations (the manager calls these after a policy decision) -------
     def load(self, app: str, variant: Optional[ModelVariant]) -> None:
-        self.tenants[app].loaded = variant
+        self._set_loaded(self.tenants[app], variant)
         if self.devices is not None:
             self.devices.on_load(app, variant)
+        self.check_invariant()
+
+    @staticmethod
+    def _set_loaded(t: TenantState, variant: Optional[ModelVariant]) -> None:
+        """A change of variant drops the graphs of the old one, and the
+        pool they kept with them."""
+        if variant != t.loaded:
+            t.pool_mb = 0.0
+        t.loaded = variant
+
+    def charge_pool(self, app: str, mb: float) -> None:
+        """Set ``app``'s graph-pool charge to ``mb`` (the pool measured
+        after a capture, or an estimate reserved before one).  Callers
+        must verify that a rise fits ``free_mb`` first."""
+        if mb < 0:
+            raise ValueError(f"negative graph-pool charge: {mb}")
+        self.tenants[app].pool_mb = mb
         self.check_invariant()
 
     def reserve_kv(self, app: str, mb: float) -> None:
@@ -608,7 +635,7 @@ class MemoryState:
             self.pending_mb -= mb
 
     def _snapshot(self) -> Tuple[Any, ...]:
-        tenants = {a: (t.loaded, t.kv_mb, t.inflight_mb)
+        tenants = {a: (t.loaded, t.kv_mb, t.inflight_mb, t.pool_mb)
                    for a, t in self.tenants.items()}
         dev = None
         if self.devices is not None:
@@ -622,9 +649,10 @@ class MemoryState:
 
     def _restore(self, snap: Tuple[Any, ...]) -> None:
         tenants, pending, dev, pool, overrelease = snap
-        for a, (loaded, kv, inflight) in tenants.items():
+        for a, (loaded, kv, inflight, graphs) in tenants.items():
             t = self.tenants[a]
             t.loaded, t.kv_mb, t.inflight_mb = loaded, kv, inflight
+            t.pool_mb = graphs
         self.pending_mb = pending
         if dev is not None:
             weights, inflight, migrated, budgets, offline = dev
@@ -696,7 +724,7 @@ class MemoryState:
                 if act.shard_claims is not None and self.devices is not None:
                     for d, mb in enumerate(act.shard_claims):
                         self.devices.release_inflight_shard(act.app, d, mb)
-                t.loaded = act.variant
+                self._set_loaded(t, act.variant)
                 if self.devices is not None:
                     self.devices.on_load(act.app, act.variant)
                 # Global budget only: an admission load may transiently
@@ -726,11 +754,11 @@ class MemoryState:
                         f"in-place downgrade {act.app}: {act.variant.bits}"
                         f"-bit target not below resident "
                         f"{t.loaded.bits}-bit")
-            t.loaded = act.variant
+            self._set_loaded(t, act.variant)
             if self.devices is not None:
                 self.devices.on_load(act.app, act.variant)
         elif isinstance(act, A.Unload):
-            t.loaded = None
+            self._set_loaded(t, None)
             if self.devices is not None:
                 self.devices.on_load(act.app, None)
         elif isinstance(act, A.Shrink):

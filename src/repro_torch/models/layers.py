@@ -1,4 +1,4 @@
-"""Building-block layers of the attention families (dense subset).
+"""Building-block layers of every family.
 
 Port of :mod:`repro.models.layers`: pure functions over explicit parameter
 dicts.  Per-layer parameters arrive as one slice of the stacked ``(L, ...)``
@@ -8,8 +8,9 @@ leaves.  Attention runs through the port's kernels: prefill through
 ``ops.ssd_scan``.  The reference's two other decode paths, the deferred
 write (``uniform_pos``) and the int8 KV cache (``quantize_kv``,
 ``attention_decode_q``), are written inline in ``jnp`` there, outside any
-Pallas kernel, and are plain PyTorch here on every device.  The MoE
-branch is not ported yet.
+Pallas kernel, and are plain PyTorch here on every device; so are the
+MoE FFN's expert products (einsums over the dequantized expert stacks in
+the reference too), its router going through ``mm``.
 """
 from __future__ import annotations
 
@@ -273,6 +274,110 @@ def attention_decode_q(cfg: ModelConfig, lp: dict, x: torch.Tensor, kq, ks,
 # ---------------------------------------------------------------------------
 def mlp(cfg: ModelConfig, x: torch.Tensor, wg, wu, wd) -> torch.Tensor:
     return mm(act_fn(mm(x, wg), cfg.act) * mm(x, wu), wd)
+
+
+# ---------------------------------------------------------------------------
+# Mixture-of-Experts FFN
+# ---------------------------------------------------------------------------
+def moe_ffn(cfg: ModelConfig, lp: dict, x: torch.Tensor,
+            impl: str = "dense") -> torch.Tensor:
+    """x: (B, S, D) -> (B, S, D): top-K routing over ``cfg.num_experts``
+    experts, plus the shared expert where the config has one.
+
+    ``impl="dense"`` (the reference's serving default) runs every expert on
+    every token and zeroes the unrouted ones through one-hot gates: fixed
+    shapes, no host sync, so a CUDA graph captures it.  ``"ragged"`` sorts
+    the routed slots by expert and runs each expert on its contiguous
+    group; the group sizes are read on the host, so it raises under a
+    CUDA graph capture.  ``"local"`` is the reference's expert-local
+    ``shard_map`` on one device: each expert takes at most ``cap`` of its
+    slots, the last ones in slot order, and the shared expert joins its
+    f32 sum."""
+    B, S, D = x.shape
+    E, K = cfg.num_experts, cfg.num_experts_per_tok
+    xt = x.reshape(B * S, D)
+    probs = torch.softmax(mm(xt, lp["router"]).float(), dim=-1)
+    topv, topi = torch.topk(probs, K, dim=-1)
+    topv = topv / torch.clamp_min(topv.sum(-1, keepdim=True), 1e-9)
+    if impl == "local":
+        return _moe_local(cfg, lp, xt, topi, topv).reshape(B, S, D)
+    if impl == "ragged":
+        y = _moe_ragged(cfg, lp, xt, topi, topv)
+    elif impl == "dense":
+        gates = torch.zeros((xt.shape[0], E), dtype=torch.float32,
+                            device=x.device).scatter_(1, topi, topv)
+        y = _moe_dense(cfg, lp, xt, gates)
+    else:
+        raise ValueError(f"moe_impl must be 'dense', 'ragged' or 'local', "
+                         f"got {impl!r}")
+    if cfg.num_shared_experts:
+        y = y + mlp(cfg, xt, lp["ws_g"], lp["ws_u"], lp["ws_d"])
+    return y.reshape(B, S, D)
+
+
+def _moe_dense(cfg, lp, xt, gates):
+    hg = torch.einsum("td,edf->tef", xt, dense_w(lp["we_g"]))
+    hu = torch.einsum("td,edf->tef", xt, dense_w(lp["we_u"]))
+    hh = act_fn(hg, cfg.act) * hu
+    hh = hh * gates.to(hh.dtype)[:, :, None]
+    return torch.einsum("tef,efd->td", hh, dense_w(lp["we_d"]))
+
+
+def _expert(cfg, xe, wg, wu, wd):
+    return (act_fn(xe @ wg, cfg.act) * (xe @ wu)) @ wd
+
+
+def _moe_ragged(cfg, lp, xt, topi, topv):
+    """Routed slots sorted by expert (stably, as ``jnp.argsort``), one
+    product per expert over its contiguous group, the gated rows summed
+    back onto their tokens."""
+    if xt.is_cuda and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "moe_impl='ragged' reads its group sizes on the host and cannot "
+            "run inside a CUDA graph capture; serve with 'dense'")
+    T = xt.shape[0]
+    K = cfg.num_experts_per_tok
+    flat_e = topi.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    tok_of = order // K
+    xs = xt[tok_of]
+    sizes = torch.bincount(flat_e, minlength=cfg.num_experts).tolist()
+    wg, wu, wd = (dense_w(lp[n]) for n in ("we_g", "we_u", "we_d"))
+    ys = torch.cat([_expert(cfg, seg, wg[e], wu[e], wd[e])
+                    for e, seg in enumerate(torch.split(xs, sizes))
+                    if seg.shape[0]])
+    ys = ys * topv.reshape(-1)[order][:, None].to(ys.dtype)
+    return torch.zeros((T, xt.shape[1]), dtype=ys.dtype,
+                       device=xt.device).index_add_(0, tok_of, ys)
+
+
+def _moe_local(cfg, lp, xt, topi, topv):
+    """The reference's ``_moe_local`` on one device (one data shard, every
+    expert local): per expert, the ``cap`` highest matching slot ids
+    (``topk`` over the slot ids, -1 where the slot went elsewhere), its
+    product over their tokens, gated and added in f32; the shared expert
+    on every token; the sum cast back to the activations' type."""
+    T, D = xt.shape
+    E, K = cfg.num_experts, cfg.num_experts_per_tok
+    cap = min(max(32, int(2.0 * T * K / E)), T * K)
+    slots_e, slots_v = topi.reshape(-1), topv.reshape(-1)
+    slot = torch.arange(T * K, device=xt.device)
+    slot_tok = slot // K
+    wg, wu, wd = (dense_w(lp[n]) for n in ("we_g", "we_u", "we_d"))
+    out = torch.zeros((T, D), dtype=torch.float32, device=xt.device)
+    for j in range(E):
+        sel = torch.topk(torch.where(slots_e == j, slot, -1), cap).values
+        valid = sel >= 0
+        idx = sel.clamp_min(0)
+        tok = torch.where(valid, slot_tok[idx], 0)
+        gate = torch.where(valid, slots_v[idx], 0.0)
+        ye = _expert(cfg, xt[tok], wg[j], wu[j], wd[j]).float()
+        out.index_add_(0, tok, torch.where(valid[:, None],
+                                           ye * gate[:, None], 0.0))
+    if cfg.num_shared_experts:
+        out = out + _expert(cfg, xt, *(dense_w(lp[n]) for n in
+                                       ("ws_g", "ws_u", "ws_d"))).float()
+    return out.to(xt.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -4,12 +4,11 @@ full-sequence forward.
 Port of :mod:`repro.models.transformer`.  Parameters and caches are plain
 dicts of tensors keyed like the reference's pytrees, per-layer leaves
 stacked along a leading ``L`` axis; where the reference scans over layers,
-the port runs a Python loop over the slices.  Cache shapes are ported for
-every family (admission charges them); the blocks themselves are ported
-for the attention families (dense, vlm, audio) and the pure SSM family
-(mamba2).  The hybrid and MoE blocks raise ``NotImplementedError`` until
-their slices land; so do rematerialization and the loss, which wait for
-the training slice.
+the port runs a Python loop over the slices.  Every family's block is
+ported: attention (dense, vlm, audio), the pure SSM (mamba2), the hybrid
+block whose attention and SSM branches share one norm and are fused
+(hymba), and the MoE FFN (olmoe, llama4).  Rematerialization and the
+loss raise ``NotImplementedError``: they wait for the training slice.
 """
 from __future__ import annotations
 
@@ -22,22 +21,6 @@ from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
 PyTree = Any
-
-# ROADMAP items that port the families this module does not run yet.
-_UNPORTED = {
-    "hybrid": "ROADMAP A8 (hymba-1.5b: fused attention + SSM block)",
-    "moe": "ROADMAP A8 (olmoe / llama4-scout: moe_ffn)",
-}
-
-
-def _check_family(cfg: ModelConfig) -> None:
-    kind = ("hybrid" if cfg.family == "hybrid" else "moe" if cfg.is_moe
-            else None)
-    if kind is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the {kind} block is not ported yet; see "
-            f"{_UNPORTED[kind]}")
-
 
 # ---------------------------------------------------------------------------
 # Initialization
@@ -215,9 +198,14 @@ def _layer(layers: dict, i: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# One block (attention families and pure SSM)
+# One block (every family)
 # ---------------------------------------------------------------------------
-def _ffn(cfg: ModelConfig, h, lp):
+def _ffn(cfg: ModelConfig, h, lp, moe_impl: str):
+    """The block's FFN and its residual: the MoE FFN, or the dense MLP
+    where the config has one."""
+    if cfg.is_moe:
+        x2 = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
+        return h + L.moe_ffn(cfg, lp, x2, impl=moe_impl)
     if cfg.d_ff:
         x2 = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
         ff = L.mlp(cfg, x2, lp["wg"], lp["wu"], lp["wd"])
@@ -227,40 +215,63 @@ def _ffn(cfg: ModelConfig, h, lp):
     return h
 
 
+def _fuse(cfg: ModelConfig, lp, attn_raw, ssm_raw):
+    """The hybrid block's mix: each branch normed, averaged, projected."""
+    fused = 0.5 * (L.rms_norm(attn_raw, lp["fuse_na"], cfg.norm_eps)
+                   + L.rms_norm(ssm_raw, lp["fuse_ns"], cfg.norm_eps))
+    return L.mm(fused, lp["wo"])
+
+
 def _block_prefill(cfg: ModelConfig, h, lp, window: int, positions, *,
-                   collect_cache: bool = True):
-    """Returns (h, the layer's cache leaves: k/v, or the SSM state and
+                   moe_impl: str = "dense", collect_cache: bool = True):
+    """Returns (h, the layer's cache leaves: k/v and/or the SSM state and
     conv tail; none without ``collect_cache``)."""
     x = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
-    if cfg.uses_ssm:  # pure SSM (mamba2); hybrid is refused upstream
-        out = L.ssm_prefill(cfg, lp, x, return_state=collect_cache)
+    cache = {}
+    if cfg.uses_ssm:
+        hybrid = cfg.family == "hybrid"
+        out = L.ssm_prefill(cfg, lp, x, hybrid=hybrid,
+                            return_state=collect_cache)
         y, *leaves = out if collect_cache else (out,)
-        return (_ffn(cfg, h + L.mm(y, lp["ssm_out"]), lp),
-                dict(zip(("state", "conv"), leaves)))
+        cache.update(zip(("state", "conv"), leaves))
+        if not hybrid:  # pure SSM (mamba2)
+            return (_ffn(cfg, h + L.mm(y, lp["ssm_out"]), lp, moe_impl),
+                    cache)
     attn_raw, k, v = L.attention_prefill(
         cfg, lp, x, positions, window, prefix=cfg.num_meta_tokens)
+    if collect_cache:
+        cache.update(k=k, v=v)
+    if cfg.family == "hybrid":
+        return _ffn(cfg, h + _fuse(cfg, lp, attn_raw, y), lp,
+                    moe_impl), cache
     attn = L.mm(attn_raw, lp["wo"])
     if cfg.post_norm:
         attn = L.rms_norm(attn, lp["post_ln1"], cfg.norm_eps)
-    return _ffn(cfg, h + attn, lp), ({"k": k, "v": v} if collect_cache
-                                     else {})
+    return _ffn(cfg, h + attn, lp, moe_impl), cache
 
 
 def _block_decode(cfg: ModelConfig, h, lp, window: int, cache, i: int,
-                  lengths, uniform_pos: bool = False):
+                  lengths, uniform_pos: bool = False,
+                  moe_impl: str = "dense"):
     """One decode step of layer ``i``; writes the new k/v (with their
-    scales, in an int8 cache), or the new SSM state and conv buffer, into
-    the layer's cache slices in place (in the cache's types, as the
+    scales, in an int8 cache) and/or the new SSM state and conv buffer
+    into the layer's cache slices in place (in the cache's types, as the
     reference's serving loop casts its carry).  With ``uniform_pos`` or an
     int8 cache the fresh token is written at ``lengths[0]`` after its
     attention, the reference's deferred write."""
     x = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
     if cfg.uses_ssm:
+        hybrid = cfg.family == "hybrid"
         y, state, conv = L.ssm_decode(cfg, lp, x, cache["state"][i],
-                                      cache["conv"][i])
+                                      cache["conv"][i], hybrid=hybrid)
         cache["state"][i].copy_(state)
         cache["conv"][i].copy_(conv)
-        return _ffn(cfg, h + L.mm(y, lp["ssm_out"]), lp)
+        if not hybrid:
+            return _ffn(cfg, h + L.mm(y, lp["ssm_out"]), lp, moe_impl)
+        attn_raw = L.attention_decode(
+            cfg, lp, x, cache["k"][i], cache["v"][i], lengths, window,
+            prefix=cfg.num_meta_tokens, uniform_pos=uniform_pos)
+        return _ffn(cfg, h + _fuse(cfg, lp, attn_raw, y), lp, moe_impl)
     if "k_scale" in cache:  # int8 KV cache
         names = ("k", "k_scale", "v", "v_scale")
         attn_raw, *fresh = L.attention_decode_q(
@@ -275,7 +286,7 @@ def _block_decode(cfg: ModelConfig, h, lp, window: int, cache, i: int,
     attn = L.mm(attn_raw, lp["wo"])
     if cfg.post_norm:
         attn = L.rms_norm(attn, lp["post_ln1"], cfg.norm_eps)
-    return _ffn(cfg, h + attn, lp)
+    return _ffn(cfg, h + attn, lp, moe_impl)
 
 
 # ---------------------------------------------------------------------------
@@ -330,11 +341,6 @@ def _hidden(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
             moe_impl: str, remat: bool) -> torch.Tensor:
     """Hidden states after the last block, before the final norm: every
     block over the whole sequence, no cache built."""
-    _check_family(cfg)
-    if moe_impl != "dense":
-        raise NotImplementedError(
-            f"moe_impl={moe_impl!r}: the port runs only 'dense' (the MoE "
-            f"block is not ported yet; see {_UNPORTED['moe']})")
     if remat:
         raise NotImplementedError(
             "remat=True: rematerialization belongs to training, not ported "
@@ -343,7 +349,8 @@ def _hidden(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
     positions = torch.arange(h.shape[1], device=h.device)
     for i, window in enumerate(_layer_windows(cfg)):
         h, _ = _block_prefill(cfg, h, _layer(params["layers"], i), window,
-                              positions, collect_cache=False)
+                              positions, moe_impl=moe_impl,
+                              collect_cache=False)
     return h
 
 
@@ -366,12 +373,16 @@ def forward_hidden(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
 # Prefill: run the full prompt, build the decode cache
 # ---------------------------------------------------------------------------
 def prefill(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
-            max_len: int, *, cache_dtype=torch.bfloat16,
-            quantize_cache: bool = False):
+            max_len: int, *, moe_impl: str = "dense",
+            cache_dtype=torch.bfloat16, quantize_cache: bool = False):
     """Returns (last-token logits (B, Kcb, Vp), populated cache).
     ``quantize_cache=True`` stores k/v as int8 with per-(token, kv-head)
-    f32 scales (:func:`~repro_torch.models.layers.quantize_kv`)."""
-    _check_family(cfg)
+    f32 scales (:func:`~repro_torch.models.layers.quantize_kv`); a hybrid
+    model's cache has no int8 layout (the reference's ``init_cache``
+    builds none), so it refuses it."""
+    if quantize_cache and cfg.family == "hybrid":
+        raise ValueError(f"{cfg.name}: a hybrid model's cache stays in "
+                         "cache_dtype; it has no int8 layout")
     h = _frontend(cfg, params, batch)
     B, S = h.shape[0], h.shape[1]
     positions = torch.arange(S, device=h.device)
@@ -379,7 +390,7 @@ def prefill(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
                        device=h.device)
     for i, window in enumerate(_layer_windows(cfg)):
         h, leaves = _block_prefill(cfg, h, _layer(params["layers"], i),
-                                   window, positions)
+                                   window, positions, moe_impl=moe_impl)
         if quantize_cache and "k" in leaves:
             for name in ("k", "v"):
                 leaves[name], leaves[name + "_scale"] = L.quantize_kv(
@@ -398,7 +409,8 @@ def prefill(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
 # Decode: one token for every sequence in the batch
 # ---------------------------------------------------------------------------
 def decode_step(cfg: ModelConfig, params, cache: PyTree,
-                tokens: torch.Tensor, *, uniform_pos: bool = False):
+                tokens: torch.Tensor, *, moe_impl: str = "dense",
+                uniform_pos: bool = False):
     """tokens: (B,) or (B, Kcb).  Returns (logits (B, Kcb, Vp), cache).
 
     The returned cache holds the same k/v (or state/conv) tensors, updated
@@ -406,13 +418,12 @@ def decode_step(cfg: ModelConfig, params, cache: PyTree,
     the same position, as in the reference's lowered serve step) reads
     the cache through the deferred path and writes the fresh token at
     ``lengths[0]``; an int8 cache always does."""
-    _check_family(cfg)
     tok = tokens[:, None] if cfg.num_codebooks == 1 else tokens[:, None, :]
     h = embed_tokens(cfg, params, tok)  # (B, 1, D)
     lengths = cache["lengths"]
     for i, window in enumerate(_layer_windows(cfg)):
         h = _block_decode(cfg, h, _layer(params["layers"], i), window,
-                          cache, i, lengths, uniform_pos)
+                          cache, i, lengths, uniform_pos, moe_impl)
     new_cache = dict(cache, lengths=lengths + 1)
     logits = lm_logits(cfg, params, h)[:, 0]
     return logits, new_cache

@@ -172,6 +172,8 @@ class EngineEvent:
     used_mb: float
     free_mb: float
     inflight_mb: float = 0.0  # background-load claims at event time
+    # The tenants' CUDA-graph pools at event time (part of used_mb).
+    pool_mb: float = 0.0
     # Per-device weights + in-flight claims when a DeviceLedger is
     # installed (sharded mesh); None on single-device runs.
     device_mb: Optional[Tuple[float, ...]] = None
@@ -303,6 +305,11 @@ class ServingEngine:
         # Cluster-tier local clock: where cluster_advance left this
         # server's loop (a batch may have run past the last horizon).
         self._cluster_now = 0.0
+        # Runtimes that capture CUDA graphs charge their pools through
+        # the engine (sim tenants and CPU runtimes never call it).
+        for app, tr in host.tenants.items():
+            if hasattr(tr, "pool_ledger"):
+                tr.pool_ledger = functools.partial(self._charge_pool, app)
 
     @property
     def audit_trail(self) -> List[AuditEvent]:
@@ -329,11 +336,25 @@ class ServingEngine:
         st = self.host.manager.state
         self.events.append(EngineEvent(
             t_ms, EventKind(kind), app, kv_mb, st.used_mb, st.free_mb,
-            st.inflight_mb,
+            st.inflight_mb, st.pool_mb,
             device_mb=(st.devices.device_used()
                        if st.devices is not None else None),
             device_budget_mb=(st.devices.budgets_mb
                               if st.devices is not None else None)))
+
+    def _charge_pool(self, app: str, mb: float) -> bool:
+        """Set ``app``'s graph-pool charge to ``mb``: the runtime's call
+        before a capture (the estimate it reserves) and after it (the
+        pool it measured).  A rise that ``free_mb`` cannot take changes
+        nothing and returns False, so no event ever reads over budget;
+        the runtime then serves the batch eagerly."""
+        st = self.host.manager.state
+        delta = mb - st.tenants[app].pool_mb
+        if delta > st.free_mb:
+            return False
+        st.charge_pool(app, mb)
+        self._event(self._now, "pool", app, delta)
+        return True
 
     def _loader_event(self, t_ms: float, kind: str, app: str,
                       mb: float) -> None:

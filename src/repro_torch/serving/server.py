@@ -10,11 +10,15 @@ when*; serving runs true prefill/decode steps with whatever is loaded
 
 On the card a batch without extra inputs runs as one CUDA graph, the
 counterpart of the reference's one jitted program per batch shape: the
-first call of a (variant, batch, prompt length, new tokens) key captures
-prefill and the whole greedy decode, every later call copies its prompts
-in and replays.  A tenant's graphs share one private memory pool, and
-they and the pool go with the variant they read; it keeps the
-``MAX_GRAPHS`` last replayed.
+first call of a (variant, batch, prompt length, new tokens) key runs the
+loop eagerly (a key seen once is never worth a capture), the second
+captures prefill and the whole greedy decode, every later call copies its
+prompts in and replays.  A tenant's graphs share one private memory pool,
+and they and the pool go with the variant they read; it keeps the
+``MAX_GRAPHS`` last replayed.  The pool is memory on the card, so a
+runtime served by the engine charges it to the tenant: before a capture
+it reserves the key's eager peak, after it the measured pool; when the
+budget has no room for the growth the batch runs eagerly instead.
 """
 from __future__ import annotations
 
@@ -79,6 +83,37 @@ _capture_streams: Dict[torch.device, "torch.cuda.Stream"] = {}
 # holds 12-26 k nodes at full width, and a trace whose prompt lengths vary
 # makes a key per length.
 MAX_GRAPHS = 16
+# Keys a tenant remembers having run once (with their eager peak), the
+# oldest forgotten first.
+MAX_SEEN = 64
+
+
+def pool_bytes(pool) -> int:
+    """Device bytes the caching allocator holds for graph pool ``pool``."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg["segment_pool_id"]) == tuple(pool))
+
+
+def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
+    stream = _capture_streams.get(device)
+    if stream is None:
+        stream = _capture_streams[device] = torch.cuda.Stream(device)
+    return stream
+
+
+def on_capture_stream(fn, device: torch.device):
+    """``fn()`` run eagerly on the shared capture stream, after the work
+    queued on the current stream and before any queued after it: a key's
+    first call, whose one-time set-up (shared-memory limits, cuBLAS's
+    workspace for that stream) a later capture of the key then finds
+    done."""
+    with _CAPTURE_LOCK:
+        stream = _capture_stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            out = fn()
+        torch.cuda.current_stream(device).wait_stream(stream)
+    return out
 
 
 def capture(fn, device: torch.device, pool, warm_up: bool = True):
@@ -94,9 +129,7 @@ def capture(fn, device: torch.device, pool, warm_up: bool = True):
     ``torch.cuda.graph``'s ``empty_cache`` before each capture.  A launch
     that fails raises, and no graph is returned."""
     with _CAPTURE_LOCK:
-        stream = _capture_streams.get(device)
-        if stream is None:
-            stream = _capture_streams[device] = torch.cuda.Stream(device)
+        stream = _capture_stream(device)
         stream.wait_stream(torch.cuda.current_stream(device))
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.stream(stream):
@@ -176,15 +209,25 @@ class TenantRuntime:
                              else None)
         # CUDA graphs of the loaded variant, keyed as the reference's jit
         # is: (bits, batch, prompt length, new tokens, cache length), the
-        # least recently replayed first; the private pool they share; how
-        # many were captured and replayed.  The lock is held across a
-        # capture or a replay and its readback, and across a variant swap,
-        # so neither frees what the other uses.
+        # least recently replayed first; the keys run so far, with their
+        # eager peak (MB), kept across variant swaps (a key names its
+        # variant's bits); whether the loaded variant has run eagerly on
+        # the capture stream; the private pool the graphs share, and the
+        # MB of it charged; how many were captured and replayed.  The
+        # lock is held across a capture or a replay and its readback, and
+        # across a variant swap, so neither frees what the other uses.
         self._graphs: "OrderedDict[tuple, _Graph]" = OrderedDict()
+        self._seen: "OrderedDict[tuple, float]" = OrderedDict()
+        self._warm = False
         self.pool = None
+        self.pool_mb = 0.0
         self.captures = 0
         self.replays = 0
         self._lock = threading.Lock()
+        # Set by the serving engine: ``pool_ledger(mb)`` sets the tenant's
+        # charged pool to ``mb`` MB, or returns False when a rise does not
+        # fit the budget.  None (a runtime used on its own): no charge.
+        self.pool_ledger = None
 
     # -- loader callback target -------------------------------------------
     def set_variant(self, variant: Optional[ModelVariant]) -> None:
@@ -214,9 +257,17 @@ class TenantRuntime:
         with self._lock:
             self.device_params = params
             self.loaded_bits = None if variant is None else variant.bits
-            pool, self.pool = self.pool, None
-            graphs, self._graphs = self._graphs, OrderedDict()
-        if pool is not None:  # the old params go with their graphs
+            self._warm = False
+            # The engine's ledger clears the charge with the variant.
+            self.pool_mb = 0.0
+            self._drop_graphs()
+
+    def _drop_graphs(self) -> None:
+        """Drop every graph and give the pool back to the card (the old
+        params go with their graphs).  Under the runtime's lock."""
+        pool, self.pool = self.pool, None
+        graphs, self._graphs = self._graphs, OrderedDict()
+        if pool is not None:
             with _CAPTURE_LOCK:
                 del graphs
                 torch.cuda.empty_cache()
@@ -226,54 +277,111 @@ class TenantRuntime:
         """Greedy-decode ``max_new`` tokens for a batch of prompts.
 
         On the card a batch without extras replays its key's CUDA graph,
-        captured at the key's first call; the CPU, and a batch with extra
-        modality inputs (as in the reference), run the eager loop.
-        Returns host numpy, which waits for the device: the engine's
-        wall-clock service time covers the whole computation."""
+        captured at the key's second call (the first runs eagerly on the
+        capture stream; a call whose pool growth the budget cannot take
+        also runs eagerly); the CPU, and a batch with extra modality
+        inputs (as in the reference), run the eager loop.  Returns host
+        numpy, which waits for the device: the engine's wall-clock
+        service time covers the whole computation."""
         with self._lock, torch.inference_mode():
             assert self.device_params is not None, f"{self.name}: not loaded"
             params = self.device_params
             dev = self.device
             S = prompts.shape[1]
-            if dev.type == "cuda" and not extra:
-                key = (self.loaded_bits, prompts.shape[0], S, max_new,
-                       S + max_new)
-                g = self._graphs.get(key)
-                if g is None:
-                    g = self._capture(key, params, prompts)
-                else:
-                    self._graphs.move_to_end(key)
-                    g.prompts.copy_(torch.as_tensor(prompts))
+
+            def run() -> np.ndarray:  # the eager loop
+                extra_t = ({k: torch.as_tensor(v, device=dev)
+                            for k, v in extra.items()} if extra else None)
+                return _generate_tokens(
+                    self.cfg, params, torch.as_tensor(prompts, device=dev),
+                    max_new=max_new, max_len=S + max_new,
+                    extra=extra_t).cpu().numpy()
+
+            if dev.type != "cuda" or extra:
+                return run()
+            key = (self.loaded_bits, prompts.shape[0], S, max_new,
+                   S + max_new)
+            g = self._graphs.get(key)
+            if g is None and key in self._seen:
+                g = self._capture(key, params, prompts)
+            if g is not None:
+                self._graphs.move_to_end(key)
+                g.prompts.copy_(torch.as_tensor(prompts))
                 g.graph.replay()
                 self.replays += 1
                 return g.tokens.cpu().numpy()
-            extra_t = ({k: torch.as_tensor(v, device=dev)
-                        for k, v in extra.items()} if extra else None)
-            toks = _generate_tokens(
-                self.cfg, params, torch.as_tensor(prompts, device=dev),
-                max_new=max_new, max_len=S + max_new, extra=extra_t)
-            return toks.cpu().numpy()
+            if key in self._seen:  # no room for the pool's growth
+                return run()
+            # The key's first call: eager, on the capture stream, its peak
+            # allocation above the level before it kept as the estimate a
+            # capture of the key reserves (the graph allocates what the
+            # eager run did, up to the allocator's rounding, which the
+            # true-up after the capture settles).
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            toks = on_capture_stream(run, dev)
+            self._warm = True
+            self._seen[key] = (torch.cuda.max_memory_allocated(dev)
+                               - base) / MB
+            if len(self._seen) > MAX_SEEN:
+                self._seen.popitem(last=False)
+            return toks
 
-    def _capture(self, key: tuple, params, prompts: np.ndarray) -> _Graph:
+    def _charge(self, mb: float) -> bool:
+        """Set the pool's charge to ``mb`` MB through the engine's ledger
+        (always, for a runtime used on its own); False when a rise does
+        not fit."""
+        if self.pool_ledger is not None and not self.pool_ledger(mb):
+            return False
+        self.pool_mb = mb
+        return True
+
+    def _capture(self, key: tuple, params,
+                 prompts: np.ndarray) -> Optional[_Graph]:
         """Capture ``_generate_tokens`` for ``key`` over a static prompt
-        buffer holding ``prompts``, in the runtime's pool; the variant's
-        first capture runs the loop eagerly before it, once.  Drops the
-        least recently replayed graph past ``MAX_GRAPHS``."""
+        buffer holding ``prompts``, in the runtime's pool, with the key's
+        eager peak reserved for the pool's growth beforehand and the
+        charge trued up to the measured pool afterwards.  Returns None,
+        having captured nothing, when the reservation does not fit; drops
+        every graph and returns None when the measured pool does not fit.
+        Drops the least recently replayed graph past ``MAX_GRAPHS``.  A
+        variant that has not run on the capture stream since it was
+        loaded (the key's first call was made with an earlier load) runs
+        the loop there once eagerly first, so that the kernels' set-up
+        for its weights happens outside the graph."""
+        if not self._charge(self.pool_mb + self._seen[key]):
+            return None
         *_, max_new, max_len = key
         static = torch.as_tensor(prompts, dtype=torch.int32).to(self.device)
-        first = self.pool is None
-        pool = torch.cuda.graph_pool_handle() if first else self.pool
+        pool = (torch.cuda.graph_pool_handle() if self.pool is None
+                else self.pool)
         if len(self._graphs) >= MAX_GRAPHS:
             with _CAPTURE_LOCK:
                 self._graphs.popitem(last=False)
-        graph, tokens = capture(
-            lambda: _generate_tokens(self.cfg, params, static,
-                                     max_new=max_new, max_len=max_len),
-            self.device, pool, warm_up=first)
+        try:
+            graph, tokens = capture(
+                lambda: _generate_tokens(self.cfg, params, static,
+                                         max_new=max_new, max_len=max_len),
+                self.device, pool, warm_up=not self._warm)
+            self._warm = True
+        except BaseException:
+            self._true_up()
+            raise
         self.pool = pool
         self._graphs[key] = g = _Graph(graph, static, tokens, params)
         self.captures += 1
-        return g
+        return g if self._true_up() else None
+
+    def _true_up(self) -> bool:
+        """Charge the pool as measured; where its growth past the
+        reservation does not fit, drop every graph (the pool goes back to
+        the card) and charge nothing.  False in that case."""
+        held = pool_bytes(self.pool) / MB if self.pool is not None else 0.0
+        if self._charge(held):
+            return True
+        self._drop_graphs()
+        self._charge(0.0)
+        return False
 
     # -- TenantExecutor protocol ------------------------------------------
     def execute(self, batch, extra: Optional[dict] = None

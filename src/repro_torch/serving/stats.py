@@ -39,6 +39,8 @@ class EventKind(str, enum.Enum):
     RETIRE = "retire"
     FREE_KV = "free_kv"
     PREEMPT = "preempt"
+    # A tenant's CUDA-graph pool charged or trued up around a capture.
+    POOL = "pool"
     # Loader pipeline.
     PREFETCH = "prefetch"
     DEMAND = "demand"

@@ -1,15 +1,19 @@
 """``TenantRuntime.generate`` on the card as one CUDA graph per batch shape,
 against the eager loop (marked ``cuda``; skipped without an sm_90 device).
 
-Reduced tinyllama, gemma2 and mamba2 at 16 and 8 bits: the graph's greedy
-ids equal to the eager ``_generate_tokens`` on the card; a captured
-``decode_step`` gives the eager step's logits bit for bit; a key's second
-call captures nothing; past ``MAX_GRAPHS`` the least recently replayed
-graph goes; a variant swap drops the old variant's graphs (no stale ids
-after 16 → 8 → 16) and eviction gives back their memory; a
+Reduced tinyllama, gemma2, mamba2, hymba and olmoe at 16 and 8 bits: a
+key's first call runs eagerly and captures nothing, its second captures,
+its third replays, the graph's greedy ids equal to the eager
+``_generate_tokens`` on the card; a captured ``decode_step`` gives the
+eager step's logits bit for bit; past ``MAX_GRAPHS`` the least recently
+replayed graph goes; a variant swap drops the old variant's graphs (no
+stale ids after 16 → 8 → 16) and eviction gives back their memory; a
 capture while another thread stages a variant succeeds; a launch that
 fails during a capture makes ``generate`` raise; batches with extra
-inputs stay eager.  Imports no JAX: it runs on the machine with the card.
+inputs stay eager; the MoE FFN's ``ragged`` form refuses a capture.
+Served through the engine, a capture raises ``used_mb`` by the measured
+pool and an eviction returns it.  Imports no JAX: it runs on the
+machine with the card.
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_graphs_cuda.py
 """
@@ -29,10 +33,11 @@ from repro_torch.kernels import quant_matmul as qmm_mod
 from repro_torch.kernels import ssd_scan as ssd_mod
 from repro_torch.models import transformer as T
 from repro_torch.serving import server as server_mod
-from repro_torch.serving.server import (TenantRuntime, _generate_tokens,
-                                        capture)
+from repro_torch.serving.server import (MB, TenantRuntime, _generate_tokens,
+                                        capture, pool_bytes)
 
-ARCHS = ("tinyllama-1.1b", "gemma2-2b", "mamba2-780m")
+ARCHS = ("tinyllama-1.1b", "gemma2-2b", "mamba2-780m", "hymba-1.5b",
+         "olmoe-1b-7b")
 BITS = (16, 8)
 
 
@@ -74,10 +79,11 @@ def load(rt: TenantRuntime, bits: int) -> None:
     rt.set_variant(rt.zoo.by_bits(bits))
 
 
-def pool_bytes(pool) -> int:
-    """Device bytes the caching allocator holds for graph pool ``pool``."""
-    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-               if tuple(seg["segment_pool_id"]) == tuple(pool))
+def captured(rt: TenantRuntime, prompts: np.ndarray, max_new: int):
+    """A key's first call (eager) and its second (the capture); the
+    second's ids."""
+    rt.generate(prompts, max_new)
+    return rt.generate(prompts, max_new)
 
 
 @pytest.mark.cuda
@@ -88,17 +94,19 @@ def test_graph_ids_equal_eager_and_replay_captures_nothing(sm90, arch, bits):
     load(rt, bits)
     for i, (B, S, max_new) in enumerate(((3, 7, 5), (1, 12, 8), (4, 4, 1))):
         prompts = prompts_for(rt.cfg, B, S, seed=i)
-        before = rt.captures
-        got = rt.generate(prompts, max_new)
-        assert rt.captures == before + 1
+        before, replays = rt.captures, rt.replays
+        want = eager(rt, prompts, max_new)
+        got = rt.generate(prompts, max_new)  # the key's first call: eager
+        assert rt.captures == before and rt.replays == replays
         assert got.dtype == np.int32 and got.shape == (B, max_new)
-        np.testing.assert_array_equal(got, eager(rt, prompts, max_new))
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(rt.generate(prompts, max_new), want)
+        assert rt.captures == before + 1 and rt.replays == replays + 1
         # The same key again, with other prompts: a replay, no capture.
         other = prompts_for(rt.cfg, B, S, seed=i + 10)
-        replays = rt.replays
         np.testing.assert_array_equal(rt.generate(other, max_new),
                                       eager(rt, other, max_new))
-        assert rt.captures == before + 1 and rt.replays == replays + 1
+        assert rt.captures == before + 1 and rt.replays == replays + 2
 
 
 @pytest.mark.cuda
@@ -169,7 +177,7 @@ def test_variant_swaps_drop_stale_graphs(sm90, arch):
     for bits in (16, 8, 16):
         load(rt, bits)
         assert rt.pool is None and not rt._graphs
-        got = rt.generate(prompts, 6)
+        got = captured(rt, prompts, 6)
         np.testing.assert_array_equal(got, eager(rt, prompts, 6))
         seen.setdefault(bits, got)
         np.testing.assert_array_equal(got, seen[bits])
@@ -184,10 +192,10 @@ def test_least_recently_replayed_graph_is_dropped(sm90, arch, monkeypatch):
     rt = runtime(arch, seed=6)
     load(rt, 8)
     keys = [prompts_for(rt.cfg, 2, S, seed=S) for S in (5, 6, 7)]
-    rt.generate(keys[0], 3)
-    rt.generate(keys[1], 3)
+    captured(rt, keys[0], 3)
+    captured(rt, keys[1], 3)
     rt.generate(keys[0], 3)  # a replay: now keys[1] is the oldest
-    rt.generate(keys[2], 3)
+    captured(rt, keys[2], 3)
     assert rt.captures == 3 and len(rt._graphs) == 2
     assert [k[2] for k in rt._graphs] == [5, 7]
     # The dropped key captures anew, into the same pool, and is right.
@@ -209,7 +217,7 @@ def test_eviction_gives_back_the_graphs_memory(sm90, arch):
     # A first load, capture and eviction: the capture stream's one-time
     # set-up (cuBLAS's workspace) is allocated there, outside any pool.
     load(rt, 16)
-    rt.generate(prompts, 4)
+    captured(rt, prompts, 4)
     rt.set_variant(None)
     gc.collect()
     torch.cuda.synchronize()
@@ -217,8 +225,8 @@ def test_eviction_gives_back_the_graphs_memory(sm90, arch):
     for bits in (8, 16):
         load(rt, bits)
         assert torch.cuda.memory_allocated() > level  # the params
-        rt.generate(prompts, 4)
-        rt.generate(prompts[:1, :5], 3)
+        captured(rt, prompts, 4)
+        captured(rt, prompts[:1, :5], 3)
         pool = rt.pool
         assert rt.captures and pool_bytes(pool) > 0
         rt.set_variant(None)
@@ -251,7 +259,7 @@ def test_capture_while_another_thread_stages_a_variant(sm90):
         results = []
         for S in range(4, 12):
             prompts = prompts_for(rt.cfg, 2, S, seed=S)
-            results.append((prompts, rt.generate(prompts, 5)))
+            results.append((prompts, captured(rt, prompts, 5)))
     finally:
         stop.set()
         worker.join(timeout=120)
@@ -290,10 +298,12 @@ def test_failed_capture_raises(sm90, kernel, monkeypatch):
     else:
         real = mod._launcher()
         monkeypatch.setattr(mod, "_launcher", lambda: _failing(real))
+    want = rt.generate(prompts, 4)  # the first call: eager, launches fine
     with pytest.raises(RuntimeError, match="kernel launch failed"):
         rt.generate(prompts, 4)
-    assert rt.captures == 0 and not rt._graphs
+    assert rt.captures == 0 and not rt._graphs and rt.pool_mb == 0.0
     monkeypatch.undo()
+    np.testing.assert_array_equal(want, eager(rt, prompts, 4))
     np.testing.assert_array_equal(rt.generate(prompts, 4),
                                   eager(rt, prompts, 4))
     assert rt.captures == 1
@@ -311,3 +321,57 @@ def test_batches_with_extras_stay_eager(sm90):
     assert rt.captures == 0 and rt.replays == 0 and rt.pool is None
     np.testing.assert_array_equal(got, eager(
         rt, prompts, 4, extra={"patch_embeds": torch.from_numpy(vis).cuda()}))
+
+
+@pytest.mark.cuda
+def test_ragged_moe_refuses_a_capture(sm90):
+    from repro_torch.models import layers as L
+
+    rt = shared("olmoe-1b-7b")
+    load(rt, 16)
+    cfg = rt.cfg
+    lp = T._layer(rt.device_params["layers"], 0)
+    x = torch.randn((2, 5, cfg.d_model), device="cuda").to(torch.bfloat16)
+    with torch.inference_mode():
+        L.moe_ffn(cfg, lp, x, impl="ragged")  # eager: runs
+        with pytest.raises(RuntimeError, match="ragged"):
+            capture(lambda: L.moe_ffn(cfg, lp, x, impl="ragged"), sm90,
+                    torch.cuda.graph_pool_handle())
+
+
+@pytest.mark.cuda
+def test_engine_charges_the_pool_from_capture_to_eviction(sm90):
+    """Reduced tinyllama and olmoe served through the engine on the card:
+    a key's first batch charges no pool, its second charges the pool the
+    allocator holds for the tenant's graphs, its third replays; every
+    event within budget; an eviction through the loader returns the
+    charge and the pool's memory."""
+    from repro_torch.core import actions as RA
+    from repro_torch.serving import EdgeServer
+    from repro_torch.serving.api import ServingConfig, TenantSpec
+
+    srv = EdgeServer.build(ServingConfig(
+        tenants=(TenantSpec("tinyllama-1.1b"), TenantSpec("olmoe-1b-7b")),
+        executor="real", budget_mb=4096.0), device="cuda")
+    st = srv.manager.state
+    for app in srv.tenants:
+        prompts = prompts_for(srv.tenants[app].cfg, 3, 6)
+        for i in range(3):
+            r = srv.serve(app, prompts, max_new=4, now_ms=1000.0 * i)
+            assert not r.failed
+            rt = srv.tenants[app]
+            assert rt.captures == (i > 0) and rt.replays == (i > 0) * i
+            if i == 0:
+                assert st.tenants[app].pool_mb == 0.0
+        held = pool_bytes(rt.pool) / MB
+        assert held > 0 and st.tenants[app].pool_mb == held == rt.pool_mb
+        assert st.used_mb == pytest.approx(st.weights_mb + st.pool_mb)
+    srv.engine.check_event_invariant()
+    assert any(e.kind == "pool" and e.pool_mb > 0
+               for e in srv.engine.events)
+    pools = {app: rt.pool for app, rt in srv.tenants.items()}
+    for app in srv.tenants:
+        srv.loader.execute(RA.ResidencyPlan((RA.Unload(app),)), 5000.0)
+    srv.close()
+    assert st.pool_mb == 0.0 and st.used_mb == 0.0
+    assert all(pool_bytes(p) == 0 for p in pools.values())

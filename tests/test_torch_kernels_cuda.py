@@ -10,9 +10,14 @@ decode at the replay's shapes, two calls bit-identical, and at masks
 that cut its splits; ``quant_matmul`` at every main-path projection
 (decode and prefill), the replay's prefill, hymba-1.5b's N = 3257 and
 each cluster size, one launch a call, two calls bit-identical; the
-prefill attention and the scan two calls bit-identical; and the
-int8-cache decode step on the card against the CPU.  Imports no JAX: it
-runs on the machine with the card.
+prefill attention and the scan two calls bit-identical; the
+int8-cache decode step on the card against the CPU; and the hybrid and
+MoE families' full widths: every projection (olmoe's 64-wide and
+llama4's 16-wide routers among them), hymba's prefill and decode
+attention with 128 meta tokens under a 1024-token window at 5 query
+heads a KV head (held past the window, where a version blind to the
+prefix misses), and its SSM branch's scan.  Imports no JAX: it runs on
+the machine with the card.
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 """
@@ -584,3 +589,99 @@ def test_int8_cache_decode_step_on_card(sm90, name):
         deq = lambda c: c[n].float() * c[n + "_scale"][..., None]  # noqa: E731
         assert ((deq(gc) - deq(wc)).abs()
                 <= wc[n + "_scale"][..., None] * 1.001 + 1e-12).all()
+
+
+# ---------------------------------------------------------------------------
+# The hybrid and MoE families at full width
+# ---------------------------------------------------------------------------
+# Per-layer (K, N) projections through quant_matmul: hymba-1.5b (q/o, k/v,
+# ssm_in, the FFN), olmoe-1b-7b's 64-wide router, llama4-scout (q/o, k/v,
+# the 16-wide router, the shared expert).
+QMM_FAMILY_SHAPES = [(1600, 1600), (1600, 320), (1600, 3257), (1600, 5504),
+                     (5504, 1600), (2048, 64), (5120, 5120), (5120, 1024),
+                     (5120, 16), (5120, 8192), (8192, 5120)]
+# hymba-1.5b: 25 query heads over 5 KV heads of 64, 128 meta tokens always
+# visible, the local layers' window of 1024.
+HYBRID_MODE = dict(window=1024, prefix=128)
+
+
+def _rel(got, want):
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N", QMM_FAMILY_SHAPES)
+@pytest.mark.parametrize("M", [4, 560])  # decode at max_batch; 4 x 140
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quant_matmul_family_shapes(sm90, M, K, N, dtype):
+    _qmm_check(*_qmm_case(sm90, M, K, N, dtype), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_hybrid_prefix_past_the_window(sm90, dtype):
+    """hymba's long prefill: 2048 tokens after the meta tokens, every row
+    against the plain version, the rows past the window also by relative
+    l2 error; there a plain version blind to the prefix is far off, so a
+    kernel that dropped the prefix could not pass."""
+    B, S, H, KV, D = 1, 2176, 25, 5, 64
+    rng = np.random.default_rng(21)
+    q, k, v = _on(sm90, rand(rng, B, S, H, D), rand(rng, B, S, KV, D),
+                  rand(rng, B, S, KV, D), dtype=dtype)
+    got = ops.flash_attention(q, k, v, **HYBRID_MODE)
+    want = tref.flash_attention(q, k, v, **HYBRID_MODE)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **TOL[dtype])
+    past = slice(HYBRID_MODE["window"] + HYBRID_MODE["prefix"], None)
+    assert _rel(got[:, past], want[:, past]) < 1e-2
+    blind = tref.flash_attention(q, k, v, window=HYBRID_MODE["window"])
+    assert _rel(blind[:, past], want[:, past]) > 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,kv_dtype", [("float32", "bfloat16"),
+                                            ("bfloat16", "bfloat16")])
+def test_decode_attention_hybrid_prefix_past_the_window(sm90, dtype,
+                                                        kv_dtype):
+    """hymba's decode against caches past the window: splits that fall
+    wholly in the gap between the meta tokens and the window add nothing,
+    the prefix's split is weighted in the combine, at 5 query heads a KV
+    head.  A plain version blind to the prefix is far off."""
+    B, T, H, KV, D = 4, 2304, 25, 5, 64
+    lens = np.array([2200, 1500, 1153, 300], np.int32)
+    rng = np.random.default_rng(22)
+    (q,) = _on(sm90, rand(rng, B, H, D), dtype=dtype)
+    k, v = _on(sm90, rand(rng, B, T, KV, D), rand(rng, B, T, KV, D),
+               dtype=kv_dtype)
+    plan = ops.split_plan(B, H, KV, D, k.dtype, T)
+    gap = (HYBRID_MODE["prefix"], lens[0] - HYBRID_MODE["window"])
+    assert any(gap[0] <= s * plan.split and (s + 1) * plan.split <= gap[1]
+               for s in range(plan.splits))
+    lens_t = torch.from_numpy(lens).to(sm90)
+    got = ops.decode_attention(q, k, v, lens_t, **HYBRID_MODE)
+    want = tref.decode_attention(q, k, v, lens_t, **HYBRID_MODE)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **TOL["bfloat16"]
+                               if "bfloat16" in (dtype, kv_dtype)
+                               else TOL["float32"])
+    assert _rel(got[:2], want[:2]) < 1e-2
+    blind = tref.decode_attention(q, k, v, lens_t,
+                                  window=HYBRID_MODE["window"])
+    assert _rel(blind[:2], want[:2]) > 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S", [(4, 140), (1, 2176)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_hybrid_branch(sm90, B, S, dtype):
+    """hymba's SSM branch: 25 heads of P = 64, one group, N = 16, at the
+    serving prefill (12 tokens after the meta tokens) and the long one."""
+    x, dt, A, Bm, Cm, D, _ = _ssd_inputs(sm90, B, S, 25, 64, 1, 16, dtype)
+    y, state = ops.ssd_scan(x, dt, A, Bm, Cm, D, return_state=True)
+    want_y, want_s = tref.ssd_scan(x, dt, A, Bm, Cm, D, return_state=True)
+    tol = dict(rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(
+        y.float().cpu().numpy(), want_y.float().cpu().numpy(),
+        **(tol if dtype == "float32" else TOL["bfloat16"]))
+    np.testing.assert_allclose(state.cpu().numpy(), want_s.cpu().numpy(),
+                               **tol)

@@ -451,16 +451,6 @@ def test_paged_decode_replay_matches_dense(name, monkeypatch):
         np.testing.assert_allclose(g.numpy(), w.numpy(), **LOGIT_TOL[32])
 
 
-@pytest.mark.parametrize("name", ["hymba-1.5b", "olmoe-1b-7b"])
-def test_unported_families_raise_naming_the_roadmap_item(name):
-    cfg = tget(name, reduced=True)
-    params = TT.init_params(cfg, 0, torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.prefill(cfg, params,
-                   {"tokens": torch.zeros((1, 4), dtype=torch.int32)},
-                   max_len=8)
-
-
 # ---------------------------------------------------------------------------
 # The full-sequence forward: against the reference, and against the port's
 # own prefill and decode (the reference's test_decode_matches_forward).
@@ -538,16 +528,7 @@ def test_decode_matches_forward(name):
                                    rtol=3e-2, atol=3e-2)
 
 
-def test_hybrid_forward_raises_naming_the_roadmap_item():
-    cfg = tget("hymba-1.5b", reduced=True)
-    params = TT.init_params(cfg, 0, torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        TT.forward(cfg, params,
-                   {"tokens": torch.zeros((2, 12), dtype=torch.int32)})
-
-
-@pytest.mark.parametrize("kw,item", [(dict(remat=True), "A9"),
-                                     (dict(moe_impl="ragged"), "A8")])
+@pytest.mark.parametrize("kw,item", [(dict(remat=True), "A9")])
 @pytest.mark.parametrize("fn", ["forward", "forward_hidden"])
 def test_forward_modes_not_ported_raise(kw, item, fn):
     cfg = tget("tinyllama-1.1b", reduced=True)

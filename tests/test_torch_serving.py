@@ -222,3 +222,147 @@ def test_cpu_runtime_batches_with_extras_stay_eager():
     np.testing.assert_array_equal(got, want.numpy())
     assert got.shape == (2, 4)
     assert rt.captures == rt.replays == 0 and rt.pool is None
+
+
+# ---------------------------------------------------------------------------
+# CUDA-graph pools charged to the memory budget (a stub runtime on the CPU)
+# ---------------------------------------------------------------------------
+class _PoolStub(tapi.SimTenant):
+    """A sim tenant that keeps a graph pool by ``TenantRuntime``'s rules:
+    a batch shape's first call eager (``est_mb`` its peak), the second a
+    capture (reserve ``est_mb`` more, then true the charge up to the pool,
+    which grew by ``grow_mb``; drop every graph where that does not fit),
+    later calls replays; a variant change drops the pool."""
+
+    def __init__(self, name, est_mb, grow_mb):
+        from repro_torch.configs import get_config
+
+        super().__init__(name, get_config(name, reduced=True),
+                         service_ms=5.0)
+        self.est_mb, self.grow_mb = est_mb, grow_mb
+        self.pool_ledger = None
+        self.pool_mb = 0.0
+        self.seen, self.graphs = set(), set()
+        self.captures = self.replays = self.eager = 0
+
+    def set_variant(self, variant):
+        super().set_variant(variant)
+        self.seen.clear()
+        self.graphs.clear()
+        self.pool_mb = 0.0
+
+    def _charge(self, mb):
+        if not self.pool_ledger(mb):
+            return False
+        self.pool_mb = mb
+        return True
+
+    def execute(self, batch, extra=None):
+        key = (self.loaded_bits, batch.prompts.shape, batch.max_new)
+        if key in self.graphs:
+            self.replays += 1
+        elif key in self.seen and self._charge(self.pool_mb + self.est_mb):
+            self.captures += 1
+            if self._charge(self.pool_mb - self.est_mb + self.grow_mb):
+                self.graphs.add(key)
+            else:
+                self.graphs.clear()
+                self._charge(0.0)
+        else:
+            self.seen.add(key)
+            self.eager += 1
+        return super().execute(batch, extra)
+
+
+def _pool_server(budget_mb, est_mb, grow_mb):
+    srv = TServer(budget_mb=budget_mb, max_batch=4, device="cpu")
+    for name in ("tinyllama-1.1b", "mamba2-780m"):
+        srv.register_tenant(name, _PoolStub(name, est_mb, grow_mb))
+    srv.sync_predictor_fits = True
+    srv.start()
+    return srv
+
+
+def _state_mb(srv):
+    st = srv.manager.state
+    return st.weights_mb, st.kv_mb, st.pool_mb, st.used_mb
+
+
+def test_graph_pool_is_charged_from_capture_to_eviction():
+    """A batch shape's first call charges no pool, its second reserves
+    the estimate and trues it up to the pool, its third replays and
+    charges nothing; used_mb counts the pool, every event stays within
+    budget, and an eviction through the loader returns the charge."""
+    from repro_torch.core import actions as RA
+
+    srv = _pool_server(2.0, est_mb=0.05, grow_mb=0.04)
+    stub = srv.tenants["tinyllama-1.1b"]
+    prompts = np.zeros((2, 6), np.int32)
+    for i in range(3):
+        r = srv.serve("tinyllama-1.1b", prompts, max_new=4,
+                      now_ms=100.0 * i)
+        assert not r.failed
+        pools = [e for e in srv.engine.events if e.kind == "pool"]
+        if i == 0:
+            assert not pools and stub.eager == 1
+        elif i == 1:
+            assert stub.captures == 1
+            assert [round(e.kv_mb, 9) for e in pools] == [0.05, -0.01]
+            assert pools[0].pool_mb == pytest.approx(0.05)
+        else:
+            assert stub.replays == 1 and len(pools) == 2
+    weights, kv, pool, used = _state_mb(srv)
+    assert kv == 0.0 and pool == pytest.approx(0.04) == stub.pool_mb
+    assert used == pytest.approx(weights + 0.04)
+    assert srv.manager.state.tenants["tinyllama-1.1b"].pool_mb == \
+        pytest.approx(0.04)
+    srv.engine.check_event_invariant()
+    srv.loader.execute(RA.ResidencyPlan((RA.Unload("tinyllama-1.1b"),)),
+                       400.0)
+    srv.close()  # the staging worker drops the stub's graphs
+    weights_after, _, pool_after, used_after = _state_mb(srv)
+    assert pool_after == 0.0 and stub.pool_mb == 0.0 and not stub.graphs
+    assert used_after == pytest.approx(weights_after)
+    assert weights_after < weights
+
+
+def test_graph_pool_that_does_not_fit_leaves_the_batch_eager():
+    """An estimate the free budget cannot take captures nothing; a pool
+    that outgrows its reservation past the budget is dropped.  Neither
+    ever shows an event over budget."""
+    srv = _pool_server(2.0, est_mb=50.0, grow_mb=0.01)
+    stub = srv.tenants["tinyllama-1.1b"]
+    prompts = np.zeros((1, 5), np.int32)
+    for i in range(3):
+        srv.serve("tinyllama-1.1b", prompts, max_new=2, now_ms=50.0 * i)
+    assert stub.captures == 0 and stub.eager == 3
+    assert not [e for e in srv.engine.events if e.kind == "pool"]
+    srv.close()
+    srv = _pool_server(2.0, est_mb=0.01, grow_mb=50.0)
+    stub = srv.tenants["tinyllama-1.1b"]
+    for i in range(3):
+        srv.serve("tinyllama-1.1b", prompts, max_new=2, now_ms=50.0 * i)
+    assert stub.captures == 2 and not stub.graphs and stub.pool_mb == 0.0
+    assert srv.manager.state.pool_mb == 0.0
+    srv.engine.check_event_invariant()
+    srv.close()
+
+
+@pytest.mark.parametrize("budget_mb", [0.6, 1.0, 3.0])
+def test_graph_pools_keep_every_event_within_budget(budget_mb):
+    """A Poisson trace over two stub tenants whose captures grow their
+    pools: contention, evictions and upgrades around the charges, and
+    the budget holds at every event with the pools counted."""
+    srv = _pool_server(budget_mb, est_mb=0.03, grow_mb=0.035)
+    cfgs = {n: t.cfg for n, t in srv.tenants.items()}
+    trace, _ = ttrace(cfgs, requests_per_app=24, mean_iat_ms=150.0,
+                      seed=5, prompt_len=(4, 6), max_new=4)
+    stats = srv.engine.run_trace(trace)
+    srv.engine.check_event_invariant()
+    srv.close()
+    assert stats.requests == 48
+    events = srv.engine.events
+    assert any(e.kind == "pool" for e in events)
+    assert all(e.used_mb + e.inflight_mb <= budget_mb + 1e-6
+               for e in events)
+    assert any(e.pool_mb > 0 for e in events)
