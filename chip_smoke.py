@@ -87,9 +87,28 @@
    caches; yi-6b, granite-3-2b, musicgen-large and internvl2-1b (2
    layers each; internvl2 with its patch embeddings) at 8 and 16 bits,
    prefill and ``forward`` logits held to the host's.
-9. Prints the kernels as one JSON line (launches summed over the main
-   path's and the families' serving runs, and by path), the card, and
-   last ``{"ok": true, "device": {...}}``.
+9. The elastic mesh's chip faults at full width: the serving
+   benchmark's elastic A/B (``_run_elastic``: tinyllama-1.1b and
+   mamba2-780m at full width and depth, iws-bfe, batches of up to 4, a
+   (4,) logical mesh on the one card, 30 Poisson requests a tenant)
+   served through ``EdgeServer.build`` with the real executor, once with
+   chip 3 down at 3000 ms and up at 9000 ms on the engine clock, once
+   without the fault, at the same budget (the derived one, raised by 10%
+   at a time, at most twice, until the drain downgrades a tenant and the
+   repromotion restores it, and printed with the reason).  Every
+   request served in both runs; the budget held at every event with the
+   pools counted, and per logical chip; one chip lost and recovered;
+   ``chip_down``, ``drain`` and ``chip_up`` in the audit trail; at every
+   event each runtime holds on the card the variant the ledger says is
+   loaded; a tenant the drain downgrades drops its graphs and its pool
+   charge, its first batch after the drain equals an eager run at its new
+   variant, no batch of it overlaps its drain, and the repromotion after
+   ``chip_up`` restores its variant.  Prints both warm ratios and service
+   times, the drain's ``set_variant`` wall ms and the drain counters, and
+   counts the runs' kernel launches with the profiler.
+10. Prints the kernels as one JSON line (launches summed over the main
+   path's, the families' and the elastic A/B's serving runs, and by
+   path), the card, and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a CUDA device, or without
 the repository's ``src/repro_torch`` beside this file, it exits non-zero
@@ -174,6 +193,22 @@ LLAMA4 = ("llama4-scout-17b-a16e", 2)
 LLAMA4_STEPS = 3
 DENSE_CUTS = (("yi-6b", 2), ("granite-3-2b", 2), ("musicgen-large", 2),
               ("internvl2-1b", 2))
+# Phase 9: the serving benchmark's elastic A/B
+# (benchmarks/serving_throughput.py:238 ``_run_elastic``): its tenants
+# (:171), its fault schedule (:176), its trace's requests a tenant; at
+# most ELASTIC_TRIES budgets from the derived one, each ELASTIC_STEP times
+# the last, until the drain downgrades a tenant and the repromotion after
+# the chip's return restores it.  Past ELASTIC_CUT_AFTER_S
+# of the smoke the trace is cut to half its requests, so that the smoke
+# stays within its time.
+ELASTIC_ARCHS = ("tinyllama-1.1b", "mamba2-780m")
+ELASTIC_FAULT = ((3000.0, 3, "down"), (9000.0, 3, "up"))
+ELASTIC_REQUESTS = 30
+ELASTIC_TRIES = 3
+ELASTIC_STEP = 1.10
+ELASTIC_CUT_AFTER_S = 470.0
+ELASTIC_KERNELS = ("quant_matmul", "decode_attention", "flash_attention",
+                   "ssd_scan")
 
 # The main path's kernels by the profiler's names: the substrings of each
 # wrapper's kernel (the decode kernels' split pass, dense or paged).
@@ -2019,6 +2054,325 @@ def check_dense_cuts(kernels) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the elastic mesh's chip faults served at full width
+# ---------------------------------------------------------------------------
+def elastic_config(fault: bool, budget_mb=None):
+    """``benchmarks/serving_throughput.py`` ``_run_elastic``'s
+    configuration with the real executor: its two tenants at full width
+    and depth, a (4,) logical mesh on the one card, chip 3 down and up on
+    the engine clock (or no fault)."""
+    from repro_torch.serving.api import (BatchingSpec, FaultSpec, LoaderSpec,
+                                         ServingConfig, TenantSpec)
+
+    return ServingConfig(
+        tenants=tuple(TenantSpec(a, reduced=False) for a in ELASTIC_ARCHS),
+        executor="real", policy="iws-bfe", delta_ms=750.0,
+        batching=BatchingSpec(max_batch=4, window_ms=20.0),
+        loader=LoaderSpec(sharded=True, mesh_shape=(4,)),
+        kv_headroom_shape=(2, 12), budget_mb=budget_mb,
+        fault=FaultSpec(events=ELASTIC_FAULT) if fault else None)
+
+
+class ElasticWatch:
+    """Hooks on one server's engine and runtimes for phase 9: at every
+    audit event, each tenant's runtime must hold on the card the variant
+    the ledger says is loaded (after the staging channel's queued moves
+    land; a tenant with a load in flight may hold either side of it; a
+    ``pool`` or ``migrate`` event, its own tenant); at
+    the ``drain`` event a tenant the drain downgraded must have dropped
+    its graphs and its pool charge; after ``chip_up`` each such tenant's
+    original variant must come back.  Every ``generate`` and
+    ``set_variant`` is logged with its wall interval."""
+
+    def __init__(self, srv):
+        self.srv = srv
+        self.gens, self.sets = [], []
+        self.before, self.demoted, self.restored = {}, {}, set()
+        self.drain = None  # (start, end) of the drain, perf_counter s
+        self.at_up = None  # free MB and the tenants at chip_up
+        self.events = 0
+        self.up = False
+        engine, ctl = srv.engine, srv.elastic
+        event = engine._event
+
+        def on_event(t, kind, app, mb):
+            event(t, kind, app, mb)
+            self.check(kind, app)
+
+        engine._event = on_event
+        if ctl is not None:
+            chip_down = ctl._chip_down
+
+            def on_chip_down(chip, now):
+                st = srv.manager.state
+                self.before = {n: st.tenants[n].loaded
+                               for n in srv.tenants}
+                t0 = time.perf_counter()
+                chip_down(chip, now)
+                self.drain = (t0, time.perf_counter())
+
+            ctl._chip_down = on_chip_down
+        for name, tr in srv.tenants.items():
+            self._wrap(name, tr)
+
+    def _wrap(self, name, tr):
+        generate, set_variant = tr.generate, tr.set_variant
+
+        def gen(prompts, max_new, extra=None):
+            t0 = time.perf_counter()
+            out = generate(prompts, max_new, extra)
+            self.gens.append((name, t0, time.perf_counter(),
+                              tr.loaded_bits, prompts.copy(), max_new, out))
+            return out
+
+        def setv(variant):
+            was, t0 = tr.loaded_bits, time.perf_counter()
+            set_variant(variant)
+            self.sets.append((name, t0, time.perf_counter(), was,
+                              tr.loaded_bits))
+
+        tr.generate, tr.set_variant = gen, setv
+
+    def check(self, kind: str, app: str) -> None:
+        srv = self.srv
+        st = srv.manager.state
+        if kind != "pool":  # inside a batch: no wait on the channel
+            srv.loader._pool.submit(lambda: None).result()
+        self.events += 1
+        for name, tr in srv.tenants.items():
+            # A pool event comes from inside its tenant's batch, a
+            # migrate event from the middle of a plan's mirror to the
+            # card (the tenants of its later actions not mirrored yet):
+            # each vouches for its own tenant.
+            if kind in ("pool", "migrate") and name != app:
+                continue
+            want = st.tenants[name].loaded
+            bits = {None if want is None else want.bits}
+            ld = srv.loader.inflight.get(name)
+            if ld is not None:
+                bits.add(ld.variant.bits)
+            held = tr.loaded_bits
+            on_card = (tr.device_params is None if held is None else
+                       all(t.is_cuda for t in _leaves(tr.device_params)))
+            if held not in bits or not on_card:
+                raise AssertionError(
+                    f"elastic: at a {kind} event {name} holds {held}-bit "
+                    f"weights (on the card: {on_card}), the ledger "
+                    f"{sorted(map(str, bits))}")
+        if kind == "drain":
+            for name, was in self.before.items():
+                now = st.tenants[name].loaded
+                if was is not None and (now is None
+                                        or now.bits < was.bits):
+                    tr = srv.tenants[name]
+                    self.demoted[name] = (was, now)
+                    if (tr._graphs or tr.pool is not None or tr.pool_mb
+                            or st.tenants[name].pool_mb):
+                        raise AssertionError(
+                            f"elastic: {name} downgraded by the drain "
+                            "kept its graphs or its pool charge")
+        if kind == "chip_up":
+            self.up = True
+            self.at_up = (st.free_mb, {
+                n: (None if t.loaded is None else t.loaded.bits, t.pool_mb,
+                    n in srv.loader.inflight)
+                for n, t in st.tenants.items()})
+        if self.up:
+            for name, (was, _) in self.demoted.items():
+                if st.tenants[name].loaded == was \
+                        and srv.tenants[name].loaded_bits == was.bits:
+                    self.restored.add(name)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def serve_elastic(fault: bool, requests: int, budget_mb=None):
+    """One run of phase 9's trace on a newly built server; returns (server,
+    watch, stats, trace length, kernel launches, wrapper calls, build s,
+    serve s).  The profiler counts the kernels of the run (replays
+    included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving import poisson_trace
+    from repro_torch.serving.api import EdgeServer
+
+    t0 = time.perf_counter()
+    srv = EdgeServer.build(elastic_config(fault, budget_mb), device="cuda")
+    t_build = time.perf_counter() - t0
+    watch = ElasticWatch(srv)
+    cfgs = {n: t.cfg for n, t in srv.tenants.items()}
+    trace, _ = poisson_trace(cfgs, requests_per_app=requests,
+                             mean_iat_ms=400.0, seed=7)
+    kernels = {k: getattr(ops, k) for k in ELASTIC_KERNELS}
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        stats = srv.engine.run_trace(trace)
+        torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t0
+    calls = {k: fn.launches for k, fn in kernels.items()}
+    _, counts = card_activity(prof)
+    launches = {k: n for k, n in kernel_launches(counts).items()
+                if k in kernels}
+    srv.engine.check_event_invariant()
+    srv.close()
+    return (srv, watch, stats, len(trace), launches, calls, t_build,
+            t_serve)
+
+
+def check_elastic(requests: int) -> dict:
+    """Phase 9: the elastic A/B served on the card (faulted, then clean at
+    the same budget).  Fails unless every request is served in both runs,
+    the budget holds at every event (globally with the graph pools, and
+    per logical chip), one chip is lost and recovered, the audit trail
+    holds chip_down, drain and chip_up, the runtimes hold the ledger's
+    variants at every event, a drain downgrade is applied on the card
+    with its graphs and pool dropped, the downgraded tenant's first batch
+    equals an eager run at its new variant, the repromotion restores its
+    variant, and no replay of a tenant overlaps its own drain."""
+    from repro_torch.serving.server import _generate_tokens
+
+    budget = None
+    for attempt in range(ELASTIC_TRIES):
+        srv, watch, stats, n, launches, calls, t_build, t_serve = \
+            serve_elastic(True, requests, budget)
+        ctl = srv.elastic
+        unrestored = sorted(set(watch.demoted) - watch.restored)
+        if ctl.drain_downgrades and not unrestored:
+            break
+        if not ctl.drain_downgrades:
+            why = (f"the drain of chip 3 downgraded no tenant "
+                   f"({ctl.drain_migrations} migrations, "
+                   f"{ctl.drain_unloads} unloads), so it changed no "
+                   "variant on the card: a lower budget holds one tenant "
+                   "when the chip dies, whose share the survivors take "
+                   "whole, a higher one holds both, and the 16-bit one's "
+                   "share does not fit while its 8-bit share does")
+        elif watch.at_up is None:
+            why = "chip 3 did not come back within the trace"
+        else:
+            free, held = watch.at_up
+            why = (f"the drain downgraded {unrestored}, but at chip_up "
+                   f"the repromotion did not fit ({ctl.repromotions} "
+                   f"made): {free:.1f} MB free, the graph pools charged "
+                   + ", ".join(f"{a} {p:.1f} MB at {b} bits"
+                               for a, (b, p, _) in held.items())
+                   + " (a pool goes only when its variant does, at the "
+                   "load's commit)")
+        print(f"elastic: at budget {srv.budget_mb:.1f} MB {why}; the "
+              f"budget rises by {ELASTIC_STEP - 1:.0%}")
+        budget = srv.budget_mb * ELASTIC_STEP
+        del srv, watch
+        gc.collect()
+        torch.cuda.empty_cache()
+    else:
+        raise AssertionError("elastic: no budget gave a drain downgrade "
+                             "and its repromotion")
+    st = srv.manager.state
+    kinds = [e.kind.value for e in srv.engine.audit_trail]
+    if stats.requests != n or stats.fail_ratio or stats.weight_failures:
+        raise AssertionError(f"elastic: {stats.requests} of {n} requests "
+                             f"served, fail ratio {stats.fail_ratio}")
+    if not (stats.chips_lost == stats.chips_recovered == 1):
+        raise AssertionError(f"elastic: chips lost {stats.chips_lost}, "
+                             f"recovered {stats.chips_recovered}")
+    if not {"chip_down", "drain", "chip_up"} <= set(kinds):
+        raise AssertionError("elastic: the audit trail lacks chip_down, "
+                             "drain or chip_up")
+    d0, d1 = watch.drain
+    around = []
+    for name in watch.demoted:
+        if any(g[0] == name and g[1] < d1 and g[2] > d0
+               for g in watch.gens):
+            raise AssertionError(f"elastic: a generate of {name} overlaps "
+                                 "its drain")
+        before = sum(g[0] == name and g[2] <= d0 for g in watch.gens)
+        around.append(f"{name}: {before} batches ended before the drain "
+                      f"began, {sum(g[0] == name for g in watch.gens) - before}"
+                      " began after it ended")
+    # The drain's weight moves on the card (a restage of an unchanged
+    # variant, a migration's, is a no-op).
+    drain_sets = [(s[0], (s[2] - s[1]) * 1e3, s[3], s[4])
+                  for s in watch.sets if d0 <= s[1] <= d1 and s[3] != s[4]]
+    if not drain_sets:
+        raise AssertionError("elastic: the drain moved no weights on the "
+                             "card")
+    firsts = []
+    for name, (was, now) in watch.demoted.items():
+        if now is None:
+            continue
+        first = next((g for g in watch.gens
+                      if g[0] == name and g[1] > d1 and g[3] == now.bits),
+                     None)
+        if first is None:
+            raise AssertionError(f"elastic: {name} served no batch at "
+                                 f"{now.bits} bits after the drain")
+        tr = srv.tenants[name]
+        tr.pool_ledger = None
+        tr.set_variant(now)
+        _, _, _, _, prompts, max_new, out = first
+        S = prompts.shape[1]
+        with torch.inference_mode():
+            want = _generate_tokens(
+                tr.cfg, tr.device_params, torch.from_numpy(prompts).cuda(),
+                max_new=max_new, max_len=S + max_new).cpu().numpy()
+        if not np.array_equal(out, want):
+            raise AssertionError(f"elastic: {name}'s first batch at "
+                                 f"{now.bits} bits differs from eager")
+        firsts.append(f"{name} {was.bits} -> {now.bits} bits, first batch "
+                      f"{prompts.shape[0]}x{S} ids equal to eager")
+    faulted = (stats, t_serve, watch, launches, calls)
+    budget = srv.budget_mb
+    pools = sum(1 for e in srv.engine.events if e.kind == "pool")
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    srv, cwatch, cstats, cn, clean_launches, clean_calls, cb, cs = \
+        serve_elastic(False, requests, budget)
+    if cstats.requests != cn or cstats.fail_ratio or cstats.weight_failures:
+        raise AssertionError("elastic: the clean run lost a request")
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {k: faulted[3][k] + clean_launches[k] for k in launches}
+    calls = {k: faulted[4][k] + clean_calls[k] for k in calls}
+    for k in ELASTIC_KERNELS:
+        if launches[k] <= 0 or calls[k] <= 0:
+            raise AssertionError(f"elastic: {k} was not launched")
+
+    def service(w):
+        return sum(g[2] - g[1] for g in w.gens)
+
+    print(f"elastic ({card()}): {ELASTIC_ARCHS} full width and depth, "
+          f"mesh (4,) on one card, budget {budget:.1f} MB, "
+          f"{requests} requests a tenant; build {t_build:.1f} / {cb:.1f} s, "
+          f"serve (profiled) {t_serve:.1f} / {cs:.1f} s; faulted: warm "
+          f"ratio {stats.warm_ratio:.4f}, service {service(watch):.3f} s; "
+          f"clean: warm ratio {cstats.warm_ratio:.4f}, service "
+          f"{service(cwatch):.3f} s; chips lost {stats.chips_lost}, "
+          f"recovered {stats.chips_recovered}; drain_migrations "
+          f"{stats.drain_migrations}, drain_downgrades "
+          f"{stats.drain_downgrades}, repromotions {stats.repromotions}; "
+          f"drain set_variant wall ms "
+          + ", ".join(f"{a} {b} -> {c} bits {ms:.1f}"
+                      for a, ms, b, c in drain_sets)
+          + f"; {'; '.join(firsts)}; {'; '.join(around)}; ledger held "
+          f"at {watch.events} events "
+          f"({pools} pool events); kernel launches (profiler, both runs) "
+          f"{launches}; wrapper calls {calls}")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -2033,6 +2387,7 @@ def main() -> None:
     # bf16 products reduce in f32 (cuBLAS's split-K may otherwise reduce
     # in bf16), as the host's plain versions do.
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    t_start = time.perf_counter()
     name = card()
     print(f"card: {name}")
     print(f"kernels built in {build.build_all():.1f} s "
@@ -2075,6 +2430,16 @@ def main() -> None:
     check_llama4(kernels)
     check_dense_cuts(kernels)
     print(f"depth-cut models checked in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    requests = ELASTIC_REQUESTS
+    if t0 - t_start > ELASTIC_CUT_AFTER_S:
+        requests = ELASTIC_REQUESTS // 2
+        print(f"elastic: {t0 - t_start:.0f} s into the smoke (past "
+              f"{ELASTIC_CUT_AFTER_S:.0f} s): the trace cut to {requests} "
+              f"of {ELASTIC_REQUESTS} requests a tenant")
+    paths["elastic"] = check_elastic(requests)
+    print(f"elastic A/B served and checked in "
+          f"{time.perf_counter() - t0:.1f} s")
 
     replaces = {
         "quant_matmul": "src/repro/kernels/quant_matmul.py:102",
@@ -2084,11 +2449,11 @@ def main() -> None:
         "paged_decode_attention": "src/repro/kernels/decode_attention.py:191"}
     # The serving kernels run inside CUDA graphs, where their wrappers
     # are not called: their launches are the profiler's count over the
-    # main path's serving run and phase 8's, graph replays and eager calls
-    # alike.  The paged kernel runs eagerly in the replay.
+    # main path's serving run, phase 8's and phase 9's two, graph replays
+    # and eager calls alike.  The paged kernel runs eagerly in the replay.
     counted_by = {k: "torch.profiler kernels over the serving runs of the "
-                  "main path and the families, graph replays and eager "
-                  "calls" for k in kernels}
+                  "main path, the families and the elastic A/B, graph "
+                  "replays and eager calls" for k in kernels}
     counted_by["paged_decode_attention"] = "wrapper calls over the replay"
     launches_by = {k: {p: n[k] for p, n in paths.items() if k in n}
                    for k in replaces}

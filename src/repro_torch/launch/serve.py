@@ -5,10 +5,12 @@ onto a :class:`~repro_torch.serving.api.ServingConfig` field and
 ``EdgeServer.build`` does the wiring.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \
-        --tenants tinyllama-1.1b gemma2-2b --requests 30 --budget-mb 6
+        --tenants tinyllama-1.1b gemma2-2b mamba2-780m --requests 30 \
+        --budget-mb 6
 
 Real tenants run on ``--device`` (default ``cuda``; asking for it without
-a card raises).  Sharded serving is not ported yet.
+a card raises).  ``--sharded-mesh`` serves from a logical mesh: weights
+are accounted per chip under per-device budgets, on one card.
 """
 from __future__ import annotations
 
@@ -18,14 +20,14 @@ import numpy as np
 
 from repro_torch.core.policies import available_policies
 from repro_torch.serving import Batcher, Request
-from repro_torch.serving.api import (BatchingSpec, EdgeServer,
+from repro_torch.serving.api import (BatchingSpec, EdgeServer, LoaderSpec,
                                      ServingConfig, TenantSpec)
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tenants", nargs="+",
-                    default=["tinyllama-1.1b", "gemma2-2b"])
+                    default=["tinyllama-1.1b", "gemma2-2b", "mamba2-780m"])
     ap.add_argument("--requests", type=int, default=30)
     ap.add_argument("--budget-mb", type=float, default=6.0)
     ap.add_argument("--policy", default="iws-bfe",
@@ -34,6 +36,11 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sim", action="store_true",
                     help="sim-time executors (no model, deterministic)")
+    ap.add_argument("--sharded-mesh", type=int, nargs="+", default=None,
+                    metavar="N", help="serve from a device mesh, e.g. "
+                    "'--sharded-mesh 8' (8-way tensor parallel): weights "
+                    "shard per chip, loads stage per shard under "
+                    "per-device budgets")
     ap.add_argument("--device", default="cuda",
                     help="device real tenants run on ('cuda' or 'cpu')")
     args = ap.parse_args()
@@ -45,7 +52,14 @@ def main() -> None:
         policy=args.policy,
         delta_ms=2000.0,
         batching=BatchingSpec(max_batch=4),
+        loader=(LoaderSpec(sharded=True,
+                           mesh_shape=tuple(args.sharded_mesh))
+                if args.sharded_mesh else LoaderSpec()),
         executor="sim" if args.sim else "real"), device=args.device)
+    if server.manager.state.devices is not None:
+        led = server.manager.state.devices
+        print(f"mesh: {led.n_devices} chips x "
+              f"{led.budgets_mb[0]:.2f}MB device budget")
     cfgs = {}
     for name in args.tenants:
         cfgs[name] = server.tenants[name].cfg

@@ -1,4 +1,4 @@
-"""Serving stack of the port (the sharded loader is not ported yet)."""
+"""Serving stack of the port."""
 from repro_torch.serving.api import (BatchingSpec, FaultSpec, LoaderSpec,
                                PredictorSpec, ServingConfig, SimTenant,
                                TenantSpec, build_server)

@@ -262,6 +262,12 @@ class TenantRuntime:
             self.pool_mb = 0.0
             self._drop_graphs()
 
+    def reshard_device_params(self) -> None:
+        """Elastic recovery hook: re-place the resident variant's buffers
+        after the ledger's layout changed.  A no-op: the port serves a
+        logical mesh from one card and places no shards across cards
+        (``EdgeServer._attach_physical_mesh``)."""
+
     def _drop_graphs(self) -> None:
         """Drop every graph and give the pool back to the card (the old
         params go with their graphs).  Under the runtime's lock."""
@@ -432,9 +438,8 @@ class EdgeServer:
         self.fallback = fallback
         self.delta_ms = delta_ms
         self.history_ms = history_ms
-        # Sharded multi-device serving (a mesh shape) and chip-fault
-        # schedules are kept so the config maps field for field, but
-        # are not ported yet: start() refuses them.
+        # Sharded multi-device serving: a logical mesh shape, per-device
+        # budgets, and an optional chip-fault schedule (elastic mesh).
         self.sharded_mesh = (tuple(sharded_mesh)
                              if sharded_mesh is not None else None)
         self.device_budget_mb = (tuple(device_budget_mb)
@@ -454,7 +459,11 @@ class EdgeServer:
         # size from the largest tenant's 8-token decode cache.
         self.continuous = continuous
         self.kv_page_mb = kv_page_mb
+        # Chip fault schedule (a serving.elastic.FaultSpec): start()
+        # installs an ElasticController that fires chip-down drain plans
+        # and chip-up rebalances on the engine clock.
         self.fault = fault
+        self.elastic = None  # type: Optional["ElasticController"]
         # Engine fast-path knobs (see ServingEngine): audit level and
         # event-scheduling mode.  scheduler="indexed" also memoizes the
         # per-tenant prediction triggers here (the predictors' forward
@@ -521,15 +530,6 @@ class EdgeServer:
         from repro_torch.serving.engine import ServingEngine
         from repro_torch.serving.loader import BackgroundLoader
 
-        if self.sharded_mesh is not None:
-            raise NotImplementedError(
-                "sharded serving (LoaderSpec(sharded=True)) is not ported "
-                "yet; see ROADMAP A6 (sharded loader, device ledger)")
-        if self.fault is not None:
-            raise NotImplementedError(
-                "chip-fault schedules (fault=) are not ported yet; see "
-                "ROADMAP A6 (elastic mesh on the sharded loader)")
-
         zoos = {n: t.zoo for n, t in self.tenants.items()}
 
         def stage(app: str, variant: Optional[ModelVariant]) -> None:
@@ -549,9 +549,25 @@ class EdgeServer:
             delta_ms=self.delta_ms, history_ms=self.history_ms,
             loader=loader_cb, fallback=self.fallback,
             adaptive_delta=self.adaptive_delta, migrate=self.migrate)
-        self.loader = (BackgroundLoader(self.manager, stage_fn=stage,
-                                        compress=self.compress)
-                       if self.prefetch else None)
+        if self.sharded_mesh is not None:
+            if not self.prefetch:
+                raise ValueError(
+                    "sharded serving requires the background loader "
+                    "(prefetch=True): the reactive engine has no "
+                    "staging channel to decompose per shard")
+            self.manager.state.devices = self._device_ledger()
+            from repro_torch.serving.sharded_loader import (
+                ShardedLoaderChannel)
+            self.loader = ShardedLoaderChannel(
+                self.manager,
+                n_devices=self.manager.state.devices.n_devices,
+                stage_fn=stage, migrate=self.migrate,
+                compress=self.compress)
+            self._attach_physical_mesh()
+        else:
+            self.loader = (BackgroundLoader(self.manager, stage_fn=stage,
+                                            compress=self.compress)
+                           if self.prefetch else None)
         if self.loader is not None:
             # Admission-path migrations land in the same audit trail as
             # loader-path ones (the engine mirrors loader events).
@@ -565,6 +581,46 @@ class EdgeServer:
             batch_window_ms=self.batch_window_ms, loader=self.loader,
             continuous=self.continuous, audit=self.audit,
             scheduler=self.scheduler)
+        if self.fault is not None:
+            from repro_torch.serving.elastic import ElasticController
+            ctrl = ElasticController(self.fault, self.manager,
+                                     loader=self.loader)
+            # chip_down/chip_up/drain ride the loader's event hook into
+            # the engine's audit trail, like migrations do.
+            ctrl.on_event = (
+                lambda t, kind, app, mb: self.loader._emit(t, kind,
+                                                           app, mb))
+            ctrl.on_reshard = self._reshard_tenant
+            self.elastic = ctrl
+            self.engine.elastic = ctrl
+
+    def _attach_physical_mesh(self) -> None:
+        """Physical placement of the logical mesh, by the reference's rule:
+        skipped when the process has fewer cards than the mesh asks for
+        (sim builds, the CPU, one card), and the ledger stays the
+        accounting authority either way.  The port places no
+        tensor-parallel shards across cards, so real CUDA tenants on a
+        mesh that the process's cards could hold raise rather than
+        serve from one card."""
+        n = 1
+        for s in self.sharded_mesh:
+            n *= s
+        cuda = [name for name, tr in self.tenants.items()
+                if getattr(getattr(tr, "device", None), "type", None)
+                == "cuda"]
+        if n > 1 and cuda and torch.cuda.device_count() >= n:
+            raise NotImplementedError(
+                f"tensor-parallel placement of {', '.join(cuda)} across "
+                f"{n} cards (mesh {self.sharded_mesh}) is not ported; see "
+                "ROADMAP A13")
+
+    def _reshard_tenant(self, app: str) -> None:
+        """Elastic-plan hook: re-place a tenant's resident buffers after
+        a drain/rebalance changed its layout (a no-op without a physical
+        mesh, and for sim executors)."""
+        tr = self.tenants[app]
+        if hasattr(tr, "reshard_device_params"):
+            tr.reshard_device_params()
 
     def _install_kv_pool(self) -> None:
         """Size and attach the paged-KV pool for continuous batching.
@@ -595,6 +651,42 @@ class EdgeServer:
                 page_mb, device_pages=tuple(counts))
         else:
             self.manager.state.kv_pool = KVPagePool(page_mb, n_pages)
+
+    def _device_ledger(self):
+        """Per-device budgets + spec-derived shard splits for the mesh.
+
+        Each tenant's per-chip fraction comes from the real partition
+        rules (``weight_shard_fraction`` — replicated leaves included),
+        so the ledger budgets what a chip actually holds.  The default
+        per-device budget covers the worst tenant's replication overhead
+        over the even ``budget/n`` split: anything fundable globally is
+        then fundable per-chip, and tighter (explicit) budgets surface
+        as clean whole-load failures in the sharded loader."""
+        from repro_torch.core.memory_state import DeviceLedger
+        from repro_torch.distributed import sharding as SH
+
+        mesh = SH.serving_mesh(self.sharded_mesh)
+        n = mesh.size
+        fracs = {name: SH.weight_shard_fraction(t.cfg, mesh)
+                 for name, t in self.tenants.items()}
+        if isinstance(self.device_budget_mb, tuple):
+            # Per-chip (skewed) budgets: the migration regime — one
+            # tight chip while neighbors keep slack.
+            if len(self.device_budget_mb) != n:
+                raise ValueError(
+                    f"{len(self.device_budget_mb)} device budgets for "
+                    f"a {n}-chip mesh")
+            budgets = self.device_budget_mb
+        else:
+            per_dev = (self.device_budget_mb
+                       if self.device_budget_mb is not None
+                       else self.budget_mb / n * max(
+                           f * n for f in fracs.values()))
+            budgets = (per_dev,) * n
+        return DeviceLedger(
+            budgets,
+            split_fn=lambda app, v: SH.variant_shard_mb(
+                v.size_mb, n, fracs[app]))
 
     def close(self) -> None:
         """Drain and shut down the background staging worker."""

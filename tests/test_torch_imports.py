@@ -7,18 +7,31 @@ from pathlib import Path
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 
+# Every module file of the port, the directories without an __init__
+# (distributed, models, quant, launch, training) included.
 PROBE = """
-import importlib, pkgutil, sys
+import importlib, pathlib, sys
 import repro_torch
+root = pathlib.Path(repro_torch.__file__).parent
 names = []
-for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
-    importlib.import_module(info.name)
-    names.append(info.name)
+for path in sorted(root.rglob("*.py")):
+    parts = path.relative_to(root.parent).with_suffix("").parts
+    if parts[-1] == "__init__":
+        parts = parts[:-1]
+    importlib.import_module(".".join(parts))
+    names.append(".".join(parts))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
-print(len(names))
+print(" ".join(names))
 """
+
+# The modules of the sharded loader, the elastic mesh and the cluster tier.
+SLICE = ("repro_torch.distributed.sharding",
+         "repro_torch.distributed.fault_tolerance",
+         "repro_torch.serving.sharded_loader", "repro_torch.serving.elastic",
+         "repro_torch.cluster", "repro_torch.cluster.config",
+         "repro_torch.cluster.routers", "repro_torch.cluster.cluster")
 
 
 def test_port_imports_neither_jax_nor_repro():
@@ -26,5 +39,7 @@ def test_port_imports_neither_jax_nor_repro():
     out = subprocess.run([sys.executable, "-c", PROBE], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    # Every module of the slice was imported (kernels, models, serving...).
-    assert int(out.stdout.strip()) >= 35
+    names = out.stdout.split()
+    # Every module was imported (kernels, models, serving, cluster...).
+    assert len(names) >= 50
+    assert set(SLICE) <= set(names)

@@ -445,16 +445,35 @@ def test_own_pages_are_never_preempted():
 
 
 def test_continuous_on_sharded_mesh_waits_for_the_sharded_loader():
-    """The reference partitions the pool across the chips of a sharded
-    mesh; the port's sharded loader is not ported (ROADMAP A6), so the
-    same configuration is refused rather than served unsharded.  The
-    partitioned pool itself is held to the reference above."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        EdgeServer.build(ServingConfig(
-            tenants=tuple(TenantSpec(n) for n in TENANTS), executor="sim",
-            kv_headroom_shape=(4, 128),
-            loader=tapi.LoaderSpec(sharded=True, mesh_shape=(4,)),
-            batching=BatchingSpec(max_batch=4, continuous=True)))
+    """The continuous engine on a (4,) sharded mesh, once refused while
+    the sharded loader was not ported, now served: the page pool is
+    partitioned across the chips in proportion to their ledger budgets,
+    as the reference's is, and the same trace gives equal stats, audit
+    trail, results, per-device partitions and free lists."""
+    def run(server_cls, api, trace_fn):
+        srv = server_cls.build(api.ServingConfig(
+            tenants=tuple(api.TenantSpec(n) for n in TENANTS),
+            executor="sim", kv_headroom_shape=(4, 128),
+            loader=api.LoaderSpec(sharded=True, mesh_shape=(4,)),
+            batching=api.BatchingSpec(max_batch=4, continuous=True)))
+        tcfgs = {t.name: t.cfg for t in srv.tenants.values()}
+        trace, _ = trace_fn(tcfgs, requests_per_app=20, mean_iat_ms=300.0,
+                            seed=3, max_new=8)
+        stats = srv.engine.run_trace(trace)
+        srv.engine.check_event_invariant()
+        srv.close()
+        pool = srv.manager.state.kv_pool
+        pool.check_invariant()
+        return (stats.to_dict(), _trail(srv), _results(srv),
+                pool.device_pages, [list(f) for f in pool.free],
+                srv.manager.state.devices.budgets_mb)
+
+    got = run(EdgeServer, tapi, poisson_trace)
+    assert got == run(JServer, japi, jtrace)
+    stats, _, _, device_pages, _, budgets = got
+    assert len(device_pages) == 4 and len(set(budgets)) == 1
+    assert max(device_pages) - min(device_pages) <= sum(device_pages) % 4
+    assert stats["requests"] == 40 and stats["kv_pages_used"] == 0
 
 
 def test_preempted_request_requeues_in_engine(cfgs):

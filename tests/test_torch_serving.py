@@ -163,14 +163,75 @@ def test_cuda_requested_without_a_card_raises():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(loader=tapi.LoaderSpec(sharded=True, mesh_shape=(4,))),
-    dict(loader=tapi.LoaderSpec(sharded=True, mesh_shape=(4,)),
-         fault=tapi.FaultSpec(events=((10.0, 1, "down"),)))])
+    dict(loader=dict(sharded=True, mesh_shape=(4,))),
+    dict(loader=dict(sharded=True, mesh_shape=(4,)),
+         fault=dict(events=((10.0, 1, "down"),)))])
 def test_unported_serving_modes_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        TServer.build(tapi.ServingConfig(
-            tenants=(tapi.TenantSpec("tinyllama-1.1b"),), executor="sim",
-            **kw))
+    """The two serving modes the port once refused, the sharded loader
+    and a chip-fault schedule on it, now serve: the same configuration
+    and trace through both packages give equal stats, audit trails and
+    per-device ledgers (the predictors kept pre-fit, as above)."""
+    def run(server_cls, api, trace_fn):
+        srv = server_cls.build(api.ServingConfig(
+            tenants=(api.TenantSpec("tinyllama-1.1b"),), executor="sim",
+            loader=api.LoaderSpec(**kw["loader"]),
+            fault=api.FaultSpec(**kw["fault"]) if "fault" in kw else None,
+            predictor=api.PredictorSpec(min_fit_samples=10**6)))
+        cfgs = {t.name: t.cfg for t in srv.tenants.values()}
+        trace, _ = trace_fn(cfgs, requests_per_app=12, mean_iat_ms=100.0,
+                            seed=2, prompt_len=(8, 9), max_new=4)
+        stats = srv.engine.run_trace(trace)
+        srv.engine.check_event_invariant()
+        srv.close()
+        led = srv.manager.state.devices
+        return (stats.to_dict(),
+                [(e.kind.value, e.t, e.app, e.detail)
+                 for e in srv.engine.audit_trail],
+                led.budgets_mb, {a: tuple(w) for a, w in led.weights.items()})
+
+    got = run(TServer, tapi, ttrace)
+    assert got == run(JServer, japi, jtrace)
+    assert got[0]["requests"] == 12
+    assert got[0].get("chips_lost", 0) == ("fault" in kw)
+
+
+class _CardTenant(tapi.SimTenant):
+    """A sim tenant that says it serves from a card."""
+    device = torch.device("cuda")
+
+
+@pytest.mark.parametrize("cards,mesh,raises", [
+    (4, (4,), True), (8, (2, 4), True), (1, (4,), False), (3, (4,), False),
+    (4, (1,), False)])
+def test_multi_card_mesh_raises_rather_than_serving_from_one_card(
+        monkeypatch, cards, mesh, raises):
+    """A sharded mesh that the process's cards could hold, with tenants on
+    the card, needs tensor-parallel placement across the cards, which the
+    port lacks: ``start`` raises naming the ROADMAP item.  With fewer
+    cards than the mesh (one H100 and a (4,) mesh) placement is skipped,
+    as the reference skips it, and the ledger keeps the accounts."""
+    from repro_torch.configs import get_config
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    srv = TServer(budget_mb=1.0, sharded_mesh=mesh, device="cpu")
+    srv.register_tenant("tinyllama-1.1b", _CardTenant(
+        "tinyllama-1.1b", get_config("tinyllama-1.1b", reduced=True)))
+    if raises:
+        with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+            srv.start()
+        return
+    srv.start()
+    assert srv.manager.state.devices.n_devices == int(np.prod(mesh))
+    srv.close()
+
+
+def test_sim_tenants_skip_placement_on_any_card_count(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
+    srv = TServer.build(tapi.ServingConfig(
+        tenants=(tapi.TenantSpec("tinyllama-1.1b"),), executor="sim",
+        loader=tapi.LoaderSpec(sharded=True, mesh_shape=(8,))))
+    assert srv.manager.state.devices.n_devices == 8
+    srv.close()
 
 
 @pytest.mark.parametrize("arch", TENANTS)
