@@ -93,7 +93,7 @@
    (4,) logical mesh on the one card, 30 Poisson requests a tenant)
    served through ``EdgeServer.build`` with the real executor, once with
    chip 3 down at 3000 ms and up at 9000 ms on the engine clock, once
-   without the fault, at the same budget (the derived one, raised by 10%
+   without the fault, at the same budget (the derived one, raised by 5%
    at a time, at most twice, until the drain downgrades a tenant and the
    repromotion restores it, and printed with the reason).  Every
    request served in both runs; the budget held at every event with the
@@ -106,9 +106,30 @@
    ``chip_up`` restores its variant.  Prints both warm ratios and service
    times, the drain's ``set_variant`` wall ms and the drain counters, and
    counts the runs' kernel launches with the profiler.
-10. Prints the kernels as one JSON line (launches summed over the main
-   path's, the families' and the elastic A/B's serving runs, and by
-   path), the card, and last ``{"ok": true, "device": {...}}``.
+10. Training on the card: the backward kernel of ``flash_attention``
+   (``csrc/flash_attention_bwd.cu``) held to autograd through the plain
+   version at the sweep (every mask mode, f32 and bf16) and at the
+   training shapes (tinyllama 4 x 1024; gemma2's local and global layers
+   at 1 x 4200 with both softcaps), and timed there (forward with its
+   log-sum-exp, backward, the plain backward, SDPA's backward, the
+   bound).  Then tinyllama-1.1b at full width and depth trains 8 AdamW
+   steps (f32 master, bf16 compute, remat, z-loss; the last two with
+   grad_accum=2) on the synthetic stream at 4 x 1024 tokens: losses
+   finite and falling, every parameter moved; step ms, tokens/s, the
+   share of 989 TFLOP/s, one profiled step's idle share and kernels,
+   peak memory, and both attention kernels' launches (zeroed just
+   before, read just after).  Depth cuts at full width (tinyllama 2
+   layers; gemma2 2 layers, 1 x 4200) take one step on the card and on
+   the host from the same weights: loss, gradient norm, gradients and
+   params held to PERF.md section 2's bf16 rule (the host's steps run in
+   a child process started before phase 2, beside the card's phases).  A child process runs
+   the cut tinyllama through ``run_supervised`` with a failure at step 3
+   under deterministic algorithms: its final state bit-equal to an
+   unbroken run's.  A grad through mamba2's ``ssd_scan`` must raise.
+11. Prints the kernels as one JSON line (launches summed over the main
+   path's, the families' and the elastic A/B's serving runs and the
+   training run, and by path), the card, and last
+   ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a CUDA device, or without
 the repository's ``src/repro_torch`` beside this file, it exits non-zero
@@ -119,6 +140,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -198,21 +220,35 @@ DENSE_CUTS = (("yi-6b", 2), ("granite-3-2b", 2), ("musicgen-large", 2),
 # (:171), its fault schedule (:176), its trace's requests a tenant; at
 # most ELASTIC_TRIES budgets from the derived one, each ELASTIC_STEP times
 # the last, until the drain downgrades a tenant and the repromotion after
-# the chip's return restores it.  Past ELASTIC_CUT_AFTER_S
-# of the smoke the trace is cut to half its requests, so that the smoke
-# stays within its time.
+# the chip's return restores it.  The trace is never cut: half its
+# requests end before the chip returns at 9000 ms.
 ELASTIC_ARCHS = ("tinyllama-1.1b", "mamba2-780m")
 ELASTIC_FAULT = ((3000.0, 3, "down"), (9000.0, 3, "up"))
 ELASTIC_REQUESTS = 30
 ELASTIC_TRIES = 3
-ELASTIC_STEP = 1.10
-ELASTIC_CUT_AFTER_S = 470.0
+ELASTIC_STEP = 1.05
 ELASTIC_KERNELS = ("quant_matmul", "decode_attention", "flash_attention",
                    "ssd_scan")
+# Phase 10: training on the card.  The main training path: TRAIN_ARCH at
+# full width and depth, TRAIN_STEPS AdamW steps (the last two with
+# grad_accum=2) at TRAIN_BATCH x TRAIN_SEQ tokens, lr warmup_cosine(peak,
+# warmup, total).  Depth cuts at full width held to the host: TRAIN_ARCH
+# at CUT_LAYERS layers on the same batch, and gemma2-2b at 2 layers (one
+# local, one global) over (B, S) = (1, 4200), past its 4096-token window.
+TRAIN_ARCH = "tinyllama-1.1b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 8
+TRAIN_LR = (3e-4, 2, 8)
+TRAIN_Z = 1e-4
+CUT_LAYERS = 2
+GEMMA_CUT = ("gemma2-2b", 2, 1, 4200)
+RECOVERY_STEPS = 4  # the supervised runs of the recovery check
+HOST_CUTS = ((TRAIN_ARCH, CUT_LAYERS, TRAIN_BATCH, TRAIN_SEQ), GEMMA_CUT)
+HOST_THREADS = 4  # of the card machine's 8 cores: the host's cut steps
 
 # The main path's kernels by the profiler's names: the substrings of each
 # wrapper's kernel (the decode kernels' split pass, dense or paged).
 KERNEL_NAMES = {"quant_matmul": ("qmm_cluster",),
+                "flash_attention_bwd": ("flash_bwd",),
                 "decode_attention": ("decode_split", "Dense"),
                 "flash_attention": ("flash_tiles",),
                 "ssd_scan": ("ssd_cluster",),
@@ -2267,8 +2303,8 @@ def check_elastic(requests: int) -> dict:
                    f"made): {free:.1f} MB free, the graph pools charged "
                    + ", ".join(f"{a} {p:.1f} MB at {b} bits"
                                for a, (b, p, _) in held.items())
-                   + " (a pool goes only when its variant does, at the "
-                   "load's commit)")
+                   + " (a staged load of another variant drops the "
+                   "tenant's graphs and pool)")
         print(f"elastic: at budget {srv.budget_mb:.1f} MB {why}; the "
               f"budget rises by {ELASTIC_STEP - 1:.0%}")
         budget = srv.budget_mb * ELASTIC_STEP
@@ -2373,6 +2409,520 @@ def check_elastic(requests: int) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: training on the card
+# ---------------------------------------------------------------------------
+def flash_bwd_rows(cfgs) -> list:
+    """(what, B, S, H, KV, D, dtype, kwargs) of the training attention:
+    TRAIN_ARCH's (TRAIN_BATCH x TRAIN_SEQ) and the gemma2 cut's local and
+    global layers (its window and both softcaps reach the backward)."""
+    tl, gm = (cfgs[ARCHS.index(a)] for a in (TRAIN_ARCH, GEMMA_CUT[0]))
+    cap = dict(softcap=gm.attn_logit_softcap)
+    return [(f"train {tl.name}", TRAIN_BATCH, TRAIN_SEQ, tl.num_heads,
+             tl.num_kv_heads, tl.resolved_head_dim, torch.bfloat16, {}),
+            *((f"train {gm.name} {kind}", GEMMA_CUT[2], GEMMA_CUT[3],
+               gm.num_heads, gm.num_kv_heads, gm.resolved_head_dim,
+               torch.bfloat16, kw)
+              for kind, kw in (("local", dict(cap, window=gm.sliding_window)),
+                               ("global", cap)))]
+
+
+def hold_grads(what, got, want, dt) -> float:
+    """dq, dk, dv held element-wise to TOL[dt] and, in bf16, by relative
+    l2 error (FLASH_REL_TOL); returns the worst element error."""
+    worst = 0.0
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        worst = max(worst, compare(f"{what} {name}", a, b, TOL[dt], TOL[dt]))
+        rel = rel_l2(a.float(), b.float())
+        if dt == torch.bfloat16 and rel > FLASH_REL_TOL:
+            raise AssertionError(f"{what} {name}: relative l2 err {rel:.3g}"
+                                 f" (tol {FLASH_REL_TOL})")
+    return worst
+
+
+def check_flash_bwd(ref, g, cfgs) -> dict:
+    """Phase 10 (a) and (b): the backward kernel against autograd through
+    the plain version at the sweep and the training shapes, and timed at
+    the training shapes."""
+    from repro_torch.kernels import flash_attention as fa
+
+    worst, n = 0.0, 0
+    for (B, S, H, KV, D) in FLASH_SWEEP:
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v, do = (rand(g, B, S, n_, D, dtype=dt)
+                           for n_ in (H, KV, KV, H))
+            for kw in FLASH_MODES + [dict(causal=False)]:
+                out, lse = fa.flash_attention_lse(q, k, v, **kw)
+                worst = max(worst, hold_grads(
+                    f"flash_attention_bwd {B, S, H, KV, D} {dt} {kw}",
+                    fa.flash_attention_bwd(q, k, v, out, do, lse, **kw),
+                    ref.flash_attention_bwd(q, k, v, do, **kw), dt))
+                n += 1
+    row = None
+    for what, B, S, H, KV, D, dt, kw in flash_bwd_rows(cfgs):
+        r = flash_bwd_row(fa, ref, g, what, B, S, H, KV, D, dt, kw)
+        row = row or r
+        n += 1
+        torch.cuda.empty_cache()
+    print(f"flash_attention_bwd: {n} cases within tolerance of autograd "
+          f"through the plain version (f32 {TOL[torch.float32]}, bf16 "
+          f"{TOL[torch.bfloat16]} and relative l2 {FLASH_REL_TOL}); sweep "
+          f"max abs err {worst:.3g}")
+    return row
+
+
+def flash_bwd_row(fa, ref, g, what, B, S, H, KV, D, dt, kw) -> dict:
+    """One training shape: the backward held to autograd through the
+    plain version, and timed: the forward with its log-sum-exp and the
+    backward (both kernels) by device time and event time, the plain
+    backward (autograd over a kept graph), SDPA's backward (causal, no
+    softcap or window: a yardstick), and the bound (10 D operations a
+    visible (query, key) pair and head at the peak of dt, or the bytes of
+    q, k, v, o, dO, dQ, dK and dV)."""
+    q, k, v, do = (rand(g, B, S, n_, D, dtype=dt) for n_ in (H, KV, KV, H))
+    out, lse = fa.flash_attention_lse(q, k, v, **kw)
+    got = fa.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    with torch.enable_grad():
+        o = ref.flash_attention(*leaves, **kw)
+    want = torch.autograd.grad(o, leaves, do, retain_graph=True)
+    err = hold_grads(f"flash_attention_bwd {what} {dt} {kw}", got, want, dt)
+    del got, want
+
+    def plain():
+        return torch.autograd.grad(o, leaves, do, retain_graph=True)
+
+    plain_ms = time_ms(plain, iters=3, warmup=1)
+    del o
+    torch.cuda.empty_cache()
+    st = [t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v)]
+    with torch.enable_grad():
+        so = F.scaled_dot_product_attention(*st, is_causal=True,
+                                            enable_gqa=True)
+    sdo = do.transpose(1, 2)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(so, st, sdo, retain_graph=True)
+
+    library_ms = kernel_ms(sdpa_bwd)
+    del so, st
+    esz = q.element_size()
+    nbytes = 4 * (q.numel() + k.numel()) * esz
+    ops_ = 10 * B * H * D * visible_pairs(S, S, kw.get("window", 0))
+
+    def bwd():
+        return fa.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+
+    row = dict(max_abs_err=err, ms=time_ms(bwd, iters=5), plain_ms=plain_ms,
+               library_ms=library_ms, **bound(nbytes, ops_, dt))
+    row["device_ms"] = kernel_ms(bwd)
+    fwd_ms = kernel_ms(lambda: fa.flash_attention_lse(q, k, v, **kw))
+    p = fa.flash_bwd_plan(B, S, S, H, KV, D)
+    print(f"  {what} ({B}, {S}, {H}/{KV} heads, D={D}"
+          f"{', ' + str(kw) if kw else ''}) {dt}: backward {row['ms']:.3f} "
+          f"ms (event), device {row['device_ms']:.3f} ms "
+          f"({row['bound_ms'] / row['device_ms']:.1%} of the bound "
+          f"{row['bound_ms']:.4f} ms, {row['bound_by']}; "
+          f"{ops_ / row['device_ms'] / 1e9:.1f} TFLOP/s of the gradient's "
+          f"{ops_ / 1e9:.1f} GFLOP), forward with lse device "
+          f"{fwd_ms:.3f} ms, plain backward {plain_ms:.3f} ms, sdpa "
+          f"backward device {library_ms:.3f} ms, max abs err {err:.3g}; "
+          f"plan: D padded to {p.dp}, {p.big} keys (rows) a block, "
+          f"{p.small} rows (keys) a step, {p.q_blocks} + {p.kv_blocks} "
+          f"blocks, {p.smem} B shared, {p.sm_blocks} an SM")
+    row["fwd_lse_ms"] = fwd_ms
+    return row
+
+
+def train_batch(ds, step: int) -> dict:
+    return {k: torch.from_numpy(v).to("cuda")
+            for k, v in ds.batch_at(step).items()}
+
+
+def train_main(kernels, bwd) -> dict:
+    """Phase 10 (c): TRAIN_ARCH at full width and depth, f32 master
+    weights, bf16 compute, remat, z-loss: TRAIN_STEPS AdamW steps on the
+    synthetic stream, the last two with grad_accum=2.  Gates: every loss
+    finite, the last below the first, every parameter leaf moved.
+    Returns the wrapper launches of the run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.training import pytree
+    from repro_torch.training.data import DataConfig, SyntheticStream
+    from repro_torch.training.optim import AdamW, warmup_cosine
+    from repro_torch.training.train_step import init_state, make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    opt = AdamW(lr=warmup_cosine(*TRAIN_LR))
+    state = init_state(cfg, 0, opt, dtype=torch.float32, device="cuda")
+    before = [p.detach().clone() for p in pytree.leaves(state.params)]
+    step1 = make_train_step(cfg, opt, remat=True, z_loss=TRAIN_Z)
+    step2 = make_train_step(cfg, opt, remat=True, z_loss=TRAIN_Z,
+                            grad_accum=2)
+    ds = SyntheticStream(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH))
+    for fn in (*kernels.values(), bwd):
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls, accum_walls = [], [], []
+    prof_step = 4
+    for s in range(TRAIN_STEPS):
+        batch = train_batch(ds, s)
+        step = step2 if s >= TRAIN_STEPS - 2 else step1
+        torch.cuda.synchronize()
+        if s == prof_step:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                torch.cuda.synchronize()
+                prof_wall = (time.perf_counter() - t0) * 1e3
+        else:
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            if s >= TRAIN_STEPS - 2:
+                accum_walls.append(wall)
+            elif s > 0:
+                walls.append(wall)
+        losses.append(float(m["loss"]))
+    calls = {k: fn.launches for k, fn in kernels.items()}
+    calls["flash_attention_bwd"] = bwd.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train: a loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: the loss did not fall: {losses}")
+    still = [i for i, (a, b) in enumerate(zip(
+        before, pytree.leaves(state.params))) if torch.equal(a, b)]
+    if still:
+        raise AssertionError(f"train: parameter leaves {still} never moved")
+    ms, counts = card_activity(prof)
+    busy = sum(ms.values())
+    fam = {}
+    for name, n in counts.items():
+        for k, part in (("flash_attention", "flash_tiles"),
+                        ("flash_attention_bwd", "flash_bwd")):
+            if part in name:
+                fam[k] = fam.get(k, 0) + n
+    n_params = sum(p.numel() for p in before) - before[0].numel()  # embed
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    attn = 12 * TRAIN_BATCH * cfg.num_heads * cfg.resolved_head_dim \
+        * visible_pairs(TRAIN_SEQ, TRAIN_SEQ, 0) * cfg.num_layers
+    flops = 6 * n_params * tokens + attn
+    med = float(np.median(walls))
+    print(f"train ({card()}): {cfg.name} full width and depth "
+          f"({cfg.num_layers} layers, d_model {cfg.d_model}), f32 master, "
+          f"bf16 compute, remat, z-loss {TRAIN_Z}, AdamW warmup_cosine"
+          f"{TRAIN_LR}, batch {TRAIN_BATCH} x {TRAIN_SEQ}: losses "
+          + ", ".join(f"{x:.4f}" for x in losses)
+          + f"; step ms median {med:.1f} ({', '.join(f'{w:.1f}' for w in walls)}"
+          f"; grad_accum=2: {', '.join(f'{w:.1f}' for w in accum_walls)};"
+          f" step 0 untimed), {tokens / med * 1e3:.0f} tokens/s; "
+          f"6 N T + attention {flops / 1e12:.2f} TFLOP a step (N "
+          f"{n_params / 1e9:.3f} B without the embedding), "
+          f"{flops / (med / 1e3) / 989e12:.1%} of 989 TFLOP/s; profiled "
+          f"step {prof_step}: wall {prof_wall:.1f} ms, device busy "
+          f"{busy:.1f} ms, idle share {1 - busy / prof_wall:.3f}, "
+          f"{sum(counts.values())} kernels, attention forward/backward "
+          f"kernels (profiler) {fam}; by family: {families(ms, counts)}; "
+          f"peak memory {peak_gb:.2f} GB; wrapper launches over the run "
+          f"{calls}")
+    if calls["flash_attention"] == 0 or calls["flash_attention_bwd"] == 0:
+        raise AssertionError(f"train: attention kernels not launched {calls}")
+    want_bwd = cfg.num_layers * (TRAIN_STEPS + 2)  # 2 micro-steps twice
+    if calls["flash_attention_bwd"] != want_bwd:
+        raise AssertionError(f"train: {calls['flash_attention_bwd']} "
+                             f"backward launches, want {want_bwd}")
+    del state, before
+    gc.collect()
+    torch.cuda.empty_cache()
+    return calls
+
+
+def cut_config(arch: str, layers: int):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), num_layers=layers)
+
+
+def cut_setup(arch: str, layers: int, B: int, S: int):
+    """A depth cut at full width: its config, f32 weights on the host
+    (seed 1), the optimizer and the first batch of the stream (host)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.training.data import DataConfig, SyntheticStream
+    from repro_torch.training.optim import AdamW, warmup_cosine
+
+    cfg = cut_config(arch, layers)
+    ds = SyntheticStream(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                    global_batch=B))
+    return (cfg, T.init_params(cfg, 1, torch.float32, device="cpu"),
+            AdamW(lr=warmup_cosine(*TRAIN_LR)),
+            {k: torch.from_numpy(v) for k, v in ds.batch_at(0).items()})
+
+
+def cut_step(cfg, params, opt, batch, device, compute_dtype,
+             remat: bool) -> dict:
+    """One train step on ``device`` from the host's ``params``: the loss,
+    the gradient norm, the first moment and the params after it, flat
+    f32 on the host, and the wall seconds."""
+    from repro_torch.training import pytree
+    from repro_torch.training.train_step import (make_train_step,
+                                                 state_from_params)
+
+    t0 = time.perf_counter()
+    st, m = make_train_step(cfg, opt, remat=remat, z_loss=TRAIN_Z,
+                            compute_dtype=compute_dtype)(
+        state_from_params(pytree.tree_map(lambda p: p.to(device), params),
+                          opt),
+        {k: v.to(device) for k, v in batch.items()})
+    out = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+               **{name: torch.cat([x.float().cpu().ravel()
+                                   for x in pytree.leaves(tree)])
+                  for name, tree in (("mu", st.opt.mu),
+                                     ("params", st.params))})
+    out["secs"] = time.perf_counter() - t0
+    return out
+
+
+def host_cuts_child(out: Path) -> None:
+    """The host's side of phase 10 (d), run in a child process that the
+    smoke starts before phase 2, so that its CPU work overlaps the card's
+    phases: each cut's train step through the plain path in bf16 (the
+    card's compute type), on HOST_THREADS threads, saved under ``out``."""
+    sys.path.insert(0, str(SRC))
+    os.nice(19)  # the card's phases keep the CPU they need
+    torch.set_num_threads(HOST_THREADS)
+    for cut in HOST_CUTS:
+        cfg, params, opt, batch = cut_setup(*cut)
+        torch.save(cut_step(cfg, params, opt, batch, "cpu", torch.bfloat16,
+                            remat=False), out / f"{cut[0]}.pt")
+
+
+def start_host_cuts():
+    """Start :func:`host_cuts_child`; returns (process, its directory)."""
+    import shutil
+
+    out = ROOT / "build" / "host_cuts"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    log = open(out / "child.log", "w")
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                             "--host-cuts", str(out)], stdout=log,
+                            stderr=subprocess.STDOUT)
+    log.close()
+    return proc, out
+
+
+def check_train_cut(cut, host) -> None:
+    """Phase 10 (d): ``cut`` = (arch, layers, B, S), ``arch`` at full
+    width cut to ``layers`` layers: one train step on the card (bf16
+    compute, remat) and one through the plain path on the host (bf16
+    compute; ``host_cuts_child``) from the same f32 weights and batch:
+    the loss, the global gradient norm, the first moment (the clipped
+    gradient, every leaf together) and the step's params held to PERF.md
+    section 2's bf16 rule: relative 3e-2 from the host; past it, the
+    card no further than 2x the host from the host's f32 evaluation,
+    which runs only then.  The update itself (Adam's first step sends it
+    to +-lr wherever a gradient is near zero) is recorded."""
+    import shutil
+
+    from repro_torch.training import pytree
+
+    arch, layers, B, S = cut
+    cfg, params, opt, batch = cut_setup(*cut)
+    p0 = torch.cat([x.ravel() for x in pytree.leaves(params)])
+    card = cut_step(cfg, params, opt, batch, "cuda", torch.bfloat16,
+                    remat=True)
+    proc, out = host
+    t0 = time.perf_counter()
+    if proc.wait(timeout=900) != 0:
+        raise AssertionError(f"train cut: the host's child failed:\n"
+                             + (out / "child.log").read_text()[-3000:])
+    waited = time.perf_counter() - t0
+    plain = torch.load(out / f"{arch}.pt")
+    (out / f"{arch}.pt").unlink()
+
+    def gaps(got, want):
+        return dict(loss=abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+                    grad_norm=abs(got["grad_norm"] - want["grad_norm"])
+                    / want["grad_norm"],
+                    grads=rel_l2(got["mu"], want["mu"]),
+                    params=rel_l2(got["params"], want["params"]),
+                    update=rel_l2(got["params"] - p0, want["params"] - p0))
+
+    gap = gaps(card, plain)
+    text = "against the host's bf16 run: " + ", ".join(
+        f"{k} {v:.3g}" for k, v in gap.items())
+    past = [k for k in ("loss", "grad_norm", "grads", "params")
+            if gap[k] > TOL[torch.bfloat16]]
+    if past:
+        f32 = cut_step(cfg, params, opt, batch, "cpu", None, remat=False)
+        card_f32, plain_f32 = gaps(card, f32), gaps(plain, f32)
+        text += "; from the host's f32 evaluation, card / host bf16: " + \
+            ", ".join(f"{k} {card_f32[k]:.3g} / {plain_f32[k]:.3g}"
+                      for k in past)
+        over = [k for k in past if card_f32[k] > 2 * plain_f32[k]]
+        if over:
+            raise AssertionError(f"train cut {arch}: {over} past the bf16 "
+                                 f"rule: {text}")
+    print(f"train cut {arch} ({layers} layers, full width, {B} x {S}): "
+          f"card (bf16, remat) {text} (tol {TOL[torch.bfloat16]}, past it "
+          f"2x the host's own distance from f32; the update recorded); "
+          f"card {card['secs']:.1f} s, host bf16 {plain['secs']:.1f} s "
+          f"({HOST_THREADS} threads, in a child process since phase 2; "
+          f"waited for {waited:.1f} s here)")
+    if arch == HOST_CUTS[-1][0]:
+        shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def check_recovery() -> None:
+    """Phase 10 (e), run in a child process so that cuBLAS can be given a
+    fixed workspace (``CUBLAS_WORKSPACE_CONFIG``) before it starts: see
+    ``recovery_child``."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          "--recovery-child"], capture_output=True,
+                         text=True, env=env, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"recovery: the child failed:\n{out.stderr}")
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    if not res["ok"]:
+        raise AssertionError(f"recovery: {res}")
+    print(f"recovery ({time.perf_counter() - t0:.1f} s, child process): "
+          f"{res['text']}")
+
+
+def recovery_child() -> None:
+    """The cut-depth TRAIN_ARCH (CUT_LAYERS layers, full width) trained
+    RECOVERY_STEPS steps by ``run_supervised`` twice under
+    ``torch.use_deterministic_algorithms(True)``: unbroken, and with a
+    node failure injected at step 3, checkpoints every 2 steps under
+    ``build/``; the final params must be equal bit for bit.  Where an op
+    has no deterministic CUDA form, it is named and the runs are held to
+    1e-6 relative instead.  Prints one JSON line."""
+    import shutil
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch.distributed.fault_tolerance import (FailureInjector,
+                                                         run_supervised)
+    from repro_torch.kernels import build
+    from repro_torch.models import transformer as T
+    from repro_torch.training import pytree
+    from repro_torch.training.data import DataConfig, SyntheticStream
+    from repro_torch.training.optim import AdamW, warmup_cosine
+    from repro_torch.training.train_step import (make_train_step,
+                                                 state_from_params)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    build.build_all(("flash_attention", "flash_attention_bwd"))
+    cfg = cut_config(TRAIN_ARCH, CUT_LAYERS)
+    opt = AdamW(lr=warmup_cosine(*TRAIN_LR))
+    params = T.init_params(cfg, 2, torch.float32, device="cuda")
+    step_fn = make_train_step(cfg, opt, remat=True, z_loss=TRAIN_Z)
+    ds = SyntheticStream(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH))
+    root = ROOT / "build" / "smoke_ckpt"
+
+    def run(name, injector):
+        d = root / name
+        shutil.rmtree(d, ignore_errors=True)
+        rep = run_supervised(
+            init_state=state_from_params(params, opt), step_fn=step_fn,
+            batch_fn=lambda s: train_batch(ds, s),
+            total_steps=RECOVERY_STEPS, ckpt_dir=str(d), ckpt_every=2,
+            injector=injector)
+        return rep, d
+
+    nondet = ""
+    torch.use_deterministic_algorithms(True)
+    try:
+        a, da = run("unbroken", None)
+        b, db = run("faulted", FailureInjector(fail_at_steps=(3,)))
+    except RuntimeError as e:
+        if "deterministic" not in str(e):
+            raise
+        nondet = str(e).splitlines()[0]
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        a, da = run("unbroken", None)
+        b, db = run("faulted", FailureInjector(fail_at_steps=(3,)))
+    from repro_torch.distributed import checkpoint as ckpt
+
+    template = state_from_params(params, opt)
+    fa, fb = (pytree.leaves(ckpt.restore(template, str(d)))
+              for d in (da, db))
+    equal = all(torch.equal(x, y) for x, y in zip(fa, fb))
+    worst = max(float(rel_l2(x.float(), y.float())) if x.is_floating_point()
+                else float(not torch.equal(x, y)) for x, y in zip(fa, fb))
+    ok = b.restarts == 1 and (equal or (nondet and worst <= 1e-6))
+    shutil.rmtree(root, ignore_errors=True)
+    text = (f"{cfg.name} cut to {CUT_LAYERS} layers, {RECOVERY_STEPS} steps"
+            f", failure at step 3, checkpoints every 2: restarts "
+            f"{b.restarts}; final params and optimizer state "
+            + ("bit-equal to the unbroken run" if equal else
+               f"differ from the unbroken run (worst relative l2 {worst:.3g})")
+            + f"; losses {[round(x, 5) for x in a.losses]} / "
+            f"{[round(x, 5) for x in b.losses]}; deterministic algorithms on"
+            + (f", an op without a deterministic CUDA form: {nondet}"
+               if nondet else ", no op refused"))
+    print(json.dumps({"ok": bool(ok), "text": text}))
+
+
+def check_refusal() -> None:
+    """Phase 10 (f): a mamba2 layer with grad on the card raises, naming
+    the ROADMAP item of ``ssd_scan``'s backward."""
+    from repro_torch.models import transformer as T
+    from repro_torch.training import pytree
+
+    cfg = cut_config("mamba2-780m", 1)
+    params = pytree.tree_map(lambda p: p.requires_grad_(),
+                             T.init_params(cfg, 0, torch.float32,
+                                           device="cuda"))
+    batch = {"tokens": torch.zeros((1, 16), dtype=torch.int32,
+                                   device="cuda")}
+    batch["labels"] = batch["tokens"]
+    try:
+        T.loss_fn(cfg, params, batch)
+    except RuntimeError as e:
+        if "ssd_scan: no backward kernel" not in str(e) or "A14" not in str(e):
+            raise
+        print(f"refusal: a grad through mamba2's ssd_scan on the card "
+              f"raises: {e}")
+        return
+    raise AssertionError("refusal: ssd_scan took a grad on the card")
+
+
+def check_training(ref, g, cfgs, kernels, host) -> tuple:
+    """Phase 10: training on the card; ``host`` is ``start_host_cuts``'s.
+    Returns (the backward's kernels row, the training run's wrapper
+    launches)."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    t0 = time.perf_counter()
+    row = check_flash_bwd(ref, g, cfgs)
+    print(f"backward kernel checks took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    calls = train_main(kernels, flash_attention_bwd)
+    print(f"training run took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for cut in HOST_CUTS:
+        check_train_cut(cut, host)
+    print(f"cut-depth checks took {time.perf_counter() - t0:.1f} s")
+    check_recovery()
+    check_refusal()
+    return row, calls
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -2387,12 +2937,22 @@ def main() -> None:
     # bf16 products reduce in f32 (cuBLAS's split-K may otherwise reduce
     # in bf16), as the host's plain versions do.
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    t_start = time.perf_counter()
     name = card()
     print(f"card: {name}")
     print(f"kernels built in {build.build_all():.1f} s "
           f"({', '.join(build.KERNELS)})")
+    host = start_host_cuts()  # phase 10's host side, beside phases 2-9
+    try:
+        run(ops, ref, get_config, host)
+    finally:
+        if host[0].poll() is None:
+            host[0].kill()
+            host[0].wait()
 
+
+def run(ops, ref, get_config, host) -> None:
+    """Phases 2-11 (``main`` builds the kernels and starts the host's
+    side of phase 10 first)."""
     g = torch.Generator(device="cuda").manual_seed(0)
     cfgs = [get_config(a) for a in ARCHS]
     t0 = time.perf_counter()
@@ -2431,22 +2991,25 @@ def main() -> None:
     check_dense_cuts(kernels)
     print(f"depth-cut models checked in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    requests = ELASTIC_REQUESTS
-    if t0 - t_start > ELASTIC_CUT_AFTER_S:
-        requests = ELASTIC_REQUESTS // 2
-        print(f"elastic: {t0 - t_start:.0f} s into the smoke (past "
-              f"{ELASTIC_CUT_AFTER_S:.0f} s): the trace cut to {requests} "
-              f"of {ELASTIC_REQUESTS} requests a tenant")
-    paths["elastic"] = check_elastic(requests)
+    paths["elastic"] = check_elastic(ELASTIC_REQUESTS)
     print(f"elastic A/B served and checked in "
           f"{time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rows["flash_attention_bwd"], calls = check_training(ref, g, cfgs,
+                                                        kernels, host)
+    paths["train"] = {k: n for k, n in calls.items() if n}
+    print(f"training phase took {time.perf_counter() - t0:.1f} s")
 
     replaces = {
         "quant_matmul": "src/repro/kernels/quant_matmul.py:102",
         "decode_attention": "src/repro/kernels/decode_attention.py:122",
         "flash_attention": "src/repro/kernels/flash_attention.py:124",
         "ssd_scan": "src/repro/kernels/ssd_scan.py:137",
-        "paged_decode_attention": "src/repro/kernels/decode_attention.py:191"}
+        "paged_decode_attention": "src/repro/kernels/decode_attention.py:191",
+        # Port-only: the gradient of that kernel (the Pallas one has none).
+        "flash_attention_bwd": "src/repro/kernels/flash_attention.py:124"}
     # The serving kernels run inside CUDA graphs, where their wrappers
     # are not called: their launches are the profiler's count over the
     # main path's serving run, phase 8's and phase 9's two, graph replays
@@ -2455,6 +3018,11 @@ def main() -> None:
                   "main path, the families and the elastic A/B, graph "
                   "replays and eager calls" for k in kernels}
     counted_by["paged_decode_attention"] = "wrapper calls over the replay"
+    counted_by["flash_attention"] += ("; the training run's eager calls by "
+                                      "the wrapper")
+    counted_by["flash_attention_bwd"] = (
+        "wrapper calls over the training run (each launches the dQ and "
+        "the dK/dV kernels; the profiler counted both over one step)")
     launches_by = {k: {p: n[k] for p, n in paths.items() if k in n}
                    for k in replaces}
     out = [dict(name=k, route="cuda", source="src/repro_torch/csrc/"
@@ -2471,4 +3039,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--recovery-child"]:  # phase 10's own children
+        recovery_child()
+    elif sys.argv[1:2] == ["--host-cuts"]:
+        host_cuts_child(Path(sys.argv[2]))
+    else:
+        main()

@@ -704,6 +704,12 @@ class MemoryState:
         t = self.tenants[act.app]
         if isinstance(act, A.Load):
             if act.staged:
+                if act.variant != t.loaded:
+                    # A load of another variant drops the tenant's graphs
+                    # and their pool now (the runtime serves eagerly until
+                    # the commit), so the claim is planned against the
+                    # memory the pool gave back.
+                    t.pool_mb = 0.0
                 load = A.concretize_load(act, self)
                 if self.free_mb < load.claim_mb - 1e-9:
                     raise A.PlanError(

@@ -46,7 +46,9 @@
 // exactly zero, so the result matches the reference's finite mask; a row
 // with no visible key at all gets the reference's answer, the uniform
 // average of v over all T.  Sums run in a fixed order: calls are
-// bit-identical run to run.
+// bit-identical run to run.  For training, the launcher may be given a
+// buffer for each row's log-sum-exp (m + log l), from which the backward
+// (flash_attention_bwd.cu) recomputes P.
 #include <cmath>
 
 #include "common.cuh"
@@ -100,6 +102,7 @@ struct Args {
   const KT* k;
   const KT* v;
   void* out;
+  float* lse;  // (B, H, S) log-sum-exp of each row, for the backward; or null
   int q_bf16, S, T, H, KV, D;
   float scale;
   int causal, window;
@@ -463,6 +466,9 @@ flash_tiles(const Args<KT> a) {
   if (spart == 0) {
     sl[srow] = l;
     if (l == 0.f && spos[srow] >= 0) any_empty = 1;
+    if (a.lse != nullptr && spos[srow] >= 0)  // -inf: the row saw no key
+      a.lse[((size_t)b * a.H + h0 + srow / a.bq) * a.S + q0 + srow % a.bq] =
+          l == 0.f ? -INFINITY : m + logf(l);
   }
   __syncthreads();
 #pragma unroll
@@ -534,7 +540,9 @@ int launch_d(const Args<KT>& a, int B, int dp, size_t smem,
 }  // namespace
 
 // q: (B, S, H, D); k, v: (B, T, KV, D); out: (B, S, H, D) in q's type; all
-// contiguous.  The plan (dp, bq, gb, bk, stages, smem) is
+// contiguous.  lse: null, or (B, H, S) float32 that receives each row's
+// log-sum-exp of its capped, masked scores (-inf for a row that saw no
+// key), which flash_attention_bwd.cu reads; the serving path passes null.  The plan (dp, bq, gb, bk, stages, smem) is
 // kernels/flash_attention.py::flash_plan's: D padded to dp, bq query
 // positions of gb heads a block (gb = 1, or all H / KV heads of one KV
 // head), tiles of bk keys.  aligned: k and v 16-byte aligned with rows of
@@ -542,7 +550,8 @@ int launch_d(const Args<KT>& a, int B, int dp, size_t smem,
 // 16-byte aligned (q read four elements a load).  Returns the CUDA error of the
 // launch; a shape or plan the kernel cannot take is cudaErrorInvalidValue.
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* out, int q_bf16,
+    const void* q, const void* k, const void* v, void* out, float* lse,
+    int q_bf16,
     int kv_bf16, int B, int S, int T, int H, int KV, int D, float scale,
     int causal, int window, float softcap, int prefix, int q_offset, int dp,
     int bq, int gb, int bk, int stages, long long smem, int aligned,
@@ -561,14 +570,14 @@ extern "C" int flash_attention_launch(
   if (kv_bf16) {
     using KT = __nv_bfloat16;
     const Args<KT> a{q, static_cast<const KT*>(k), static_cast<const KT*>(v),
-                     out, q_bf16, S, T, H, KV, D, scale, causal, window,
+                     out, lse, q_bf16, S, T, H, KV, D, scale, causal, window,
                      softcap, prefix, q_offset, bq, gb, bk, stages, aligned,
                      q_vec};
     return launch_d<KT>(a, B, dp, (size_t)smem, st);
   }
   const Args<float> a{q, static_cast<const float*>(k),
-                      static_cast<const float*>(v), out, q_bf16, S, T, H, KV,
-                      D, scale, causal, window, softcap, prefix, q_offset, bq,
-                      gb, bk, stages, aligned, q_vec};
+                      static_cast<const float*>(v), out, lse, q_bf16, S, T,
+                      H, KV, D, scale, causal, window, softcap, prefix,
+                      q_offset, bq, gb, bk, stages, aligned, q_vec};
   return launch_d<float>(a, B, dp, (size_t)smem, st);
 }

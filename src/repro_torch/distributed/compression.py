@@ -1,13 +1,64 @@
-"""Wire compression for weight staging.
+"""Gradient compression and wire compression for weight staging.
 
-Port of the part of :mod:`repro.distributed.compression` the serving
-loaders use: :func:`wire_compression_ratio`, the contract for
-``LoaderSpec(compress="int8")`` — host→device streams ship the int8
-payload plus per-group scales instead of full-width leaves, so a load's
-virtual transfer time shrinks by exactly this ratio while the resident
-footprint is unchanged.  Gradient compression is not ported yet.
+Port of :mod:`repro.distributed.compression`:
+
+* :func:`compress_grads` — int8 symmetric quantization (one absmax scale
+  a tensor) with error feedback, applied inside the train step; the
+  error accumulator (``CompressionState``, carried in ``TrainState``)
+  keeps the long-run bias at zero (EF-SGD).
+* :func:`wire_compression_ratio` — the contract for
+  ``LoaderSpec(compress="int8")``: host→device streams ship the int8
+  payload plus per-group scales instead of full-width leaves, so a load's
+  virtual transfer time shrinks by exactly this ratio while the resident
+  footprint is unchanged.
+
+The reference's ``compressed_psum`` (an int8 all-reduce across devices)
+is ROADMAP A10.
 """
 from __future__ import annotations
+
+from typing import Any, NamedTuple, Tuple
+
+import torch
+
+from repro_torch.training import pytree
+
+PyTree = Any
+_QMAX = 127.0
+
+
+class CompressionState(NamedTuple):
+    error: PyTree  # error-feedback accumulator, same structure as grads
+
+    @classmethod
+    def init(cls, params: PyTree) -> "CompressionState":
+        return cls(error=pytree.tree_map(
+            lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                  device=p.device), params))
+
+
+def _q_dq(x: torch.Tensor) -> torch.Tensor:
+    """Quantize to int8 and back (per-tensor absmax scale)."""
+    scale = torch.clamp_min(x.abs().max(), 1e-12) / _QMAX
+    return torch.clamp(torch.round(x / scale), -_QMAX - 1, _QMAX) * scale
+
+
+def compress_grads(grads: PyTree, state: CompressionState
+                   ) -> Tuple[PyTree, CompressionState]:
+    """EF-compression: g' = Q(g + e);  e' = (g + e) − g'.  Tensors of
+    fewer than 2 dims pass through uncompressed, their error zeroed."""
+    def one(g, e):
+        corrected = g.float() + e
+        if g.ndim < 2:  # tiny tensors: not worth compressing
+            return corrected, torch.zeros_like(e)
+        out = _q_dq(corrected)
+        return out, corrected - out
+
+    flat_g, structure = pytree.flatten(grads)
+    outs = [one(g, e) for g, e in zip(flat_g, pytree.leaves(state.error))]
+    return (pytree.unflatten(structure, [o[0] for o in outs]),
+            CompressionState(error=pytree.unflatten(
+                structure, [o[1] for o in outs])))
 
 
 def wire_compression_ratio(bits: int, *, scheme: str = "int8",

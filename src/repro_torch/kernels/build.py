@@ -30,7 +30,9 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("quant_matmul", "decode_attention", "flash_attention",
-           "ssd_scan")
+           "flash_attention_bwd", "ssd_scan")
+# The wrapper module of a source whose name is not its own.
+_MODULES = {"flash_attention_bwd": "flash_attention"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -52,7 +54,8 @@ def _nvcc() -> str:
 def flags(name: str) -> Tuple[str, ...]:
     """nvcc's flags for source ``name``: the common ones, then the
     ``-D`` definitions its wrapper module declares in ``NVCC_DEFINES``."""
-    mod = importlib.import_module(f"repro_torch.kernels.{name}")
+    mod = importlib.import_module(
+        f"repro_torch.kernels.{_MODULES.get(name, name)}")
     return NVCC_FLAGS + tuple(
         f"-D{k}={v}" for k, v in getattr(mod, "NVCC_DEFINES", {}).items())
 
@@ -130,6 +133,18 @@ def stream_ptr(device) -> int:
     """The handle of PyTorch's current stream on ``device``: the kernels
     launch there, in order with the surrounding PyTorch work."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def refuse_grad(name: str, item: str, *tensors) -> None:
+    """Raise if a CUDA input of kernel ``name`` requires grad under grad
+    mode: the kernel has no backward, and its output would carry no
+    ``grad_fn`` (every gradient below it silently lost).  ``item`` names
+    the ROADMAP item that brings, or rules out, the backward."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: no backward kernel on the card ({item}); call it "
+            "under torch.no_grad() or with inputs that do not require grad")
 
 
 def check_launch(name: str, err: int) -> None:

@@ -28,7 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.build import check_launch, launcher, stream_ptr
+from repro_torch.kernels.build import (check_launch, launcher,
+                                      refuse_grad, stream_ptr)
 
 _TYPES = (torch.float32, torch.bfloat16)
 _MAX_HEADS = 8  # query heads per block (kMaxHeads in the source)
@@ -138,6 +139,10 @@ def _launch(name: str, q, k, v, table, lengths, n: int, P: int, ps: int,
     return out
 
 
+_SERVES_ONLY = ("ROADMAP A9: training runs prefill attention; the decode "
+                "kernels only serve")
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, lengths: torch.Tensor, *,
                      window: int = 0, softcap: float = 0.0,
@@ -147,6 +152,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         return ref.decode_attention(q, k_cache, v_cache, lengths,
                                     window=window, softcap=softcap,
                                     scale=scale, prefix=prefix)
+    refuse_grad("decode_attention", _SERVES_ONLY, q, k_cache, v_cache)
     B, H, D = q.shape
     _, T, KV, _ = k_cache.shape
     _check("decode_attention", q, k_cache, v_cache, lengths)
@@ -187,6 +193,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
         return ref.paged_decode_attention(
             q, k_pages, v_pages, page_table, lengths, window=window,
             softcap=softcap, scale=scale, prefix=prefix)
+    refuse_grad("paged_decode_attention", _SERVES_ONLY, q, k_pages, v_pages)
     B, H, D = q.shape
     P, KV, ps, _ = k_pages.shape
     _check("paged_decode_attention", q, k_pages, v_pages, lengths,

@@ -10,7 +10,10 @@ override and no silent fallback on a GPU.  ``quantize_weights``,
 ``paginate_kv`` lays a dense cache out as the pages and table that
 ``paged_decode_attention`` reads, ``split_plan`` says how the two
 decode kernels cut a call's keys, ``flash_plan`` and ``ssd_plan`` how the
-prefill attention and the scan cut theirs.
+prefill attention and the scan cut theirs.  ``flash_attention`` is
+differentiable on the card: its backward is the port's own kernel,
+``flash_attention_bwd`` (cut by ``flash_bwd_plan``); the other kernels
+refuse a gradient on the card.
 """
 from __future__ import annotations
 
@@ -18,7 +21,9 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   paged_decode_attention,
                                                   paginate_kv, split_plan)
-from repro_torch.kernels.flash_attention import flash_attention, flash_plan
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_bwd,
+                                                 flash_bwd_plan, flash_plan)
 from repro_torch.kernels.quant_matmul import quant_matmul
 from repro_torch.kernels.ssd_scan import ssd_plan, ssd_scan
 
@@ -28,6 +33,7 @@ causal_conv1d = ref.causal_conv1d
 causal_conv1d_step = ref.causal_conv1d_step
 
 __all__ = ["causal_conv1d", "causal_conv1d_step", "decode_attention",
-           "flash_attention", "flash_plan", "paged_decode_attention", "paginate_kv",
+           "flash_attention", "flash_attention_bwd", "flash_bwd_plan",
+           "flash_plan", "paged_decode_attention", "paginate_kv",
            "quant_matmul", "quantize_weights", "split_plan", "ssd_plan",
            "ssd_scan", "ssd_step"]

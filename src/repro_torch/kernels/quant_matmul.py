@@ -23,7 +23,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.build import check_launch, launcher, stream_ptr
+from repro_torch.kernels.build import (check_launch, launcher,
+                                      refuse_grad, stream_ptr)
 
 _MAX_M = 64  # rows of x one block takes
 # Threads a block may have and blocks an SM holds: at decode (MT = 4),
@@ -106,6 +107,9 @@ def quant_matmul(x: torch.Tensor, w_q: torch.Tensor, scales: torch.Tensor,
     """x: (..., K) f32/bf16; w_q: (K, N) int8; scales: (K/group, N) f32."""
     if x.device.type == "cpu":
         return ref.quant_matmul(x, w_q, scales, out_dtype=out_dtype)
+    refuse_grad("quant_matmul", "ROADMAP A9: training runs dense master "
+                "weights; the zoo's quantized variants only serve", x,
+                scales)
     out_dtype = out_dtype or x.dtype
     K, N = w_q.shape
     G = scales.shape[0]

@@ -8,8 +8,10 @@ and ``chip_smoke.py`` holds each Hopper kernel against them on the card.
 ``decode_attention_splits`` and its paged counterpart model the decode
 kernel's split-key passes, ``quant_matmul_splits`` the cluster's split-K
 sum, ``ssd_scan_sliced`` the scan's chunks and slices and
-``flash_attention_tiles`` the prefill kernel's key tiles, for the tests;
-nothing else calls them.
+``flash_attention_tiles`` the prefill kernel's key tiles and
+``flash_attention_bwd_tiles`` its backward's two passes, for the tests;
+nothing else calls them.  ``flash_attention_bwd`` (autograd through
+``flash_attention``) is the backward kernel's oracle.
 Scores, softmax and products run in float32; outputs are cast back to the
 query's (or ``out_dtype``'s) type, as in the reference.
 """
@@ -131,6 +133,129 @@ def flash_attention_tiles(
         o = torch.where((den == 0)[..., None], mean, o)
         out[:, q0:q1] = o.permute(0, 3, 1, 2, 4)
     return out.reshape(B, S, H, D).to(q.dtype)
+
+
+def _visible(pos: torch.Tensor, tk: torch.Tensor, causal: bool, window: int,
+             prefix: int) -> torch.Tensor:
+    """(query, key) pairs the prefill attention lets through."""
+    vis = torch.ones(pos.shape[0], tk.shape[1], dtype=torch.bool,
+                     device=pos.device)
+    if causal:
+        vis &= tk <= pos
+    if window:
+        vis &= (tk > pos - window) | (tk < prefix)
+    return vis
+
+
+def flash_attention_lse(q, k, v, *, causal=True, window=0, softcap=0.0,
+                        scale=0.0, q_offset=0, prefix=0):
+    """(:func:`flash_attention`, lse): each row's log-sum-exp (B, H, S)
+    float32 of its capped, masked scores, -inf for a row that sees no key
+    (the ``flash_attention`` kernel's training output)."""
+    B, S, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    s = torch.einsum("bskgd,btkd->bkgst",
+                     (q.float() * (scale or D ** -0.5)).reshape(
+                         B, S, KV, H // KV, D), k.float())
+    if softcap:
+        s = _softcap(s, softcap)
+    pos = q_offset + torch.arange(S, device=q.device)[:, None]
+    vis = _visible(pos, torch.arange(T, device=q.device)[None, :], causal,
+                   window, prefix)
+    lse = torch.logsumexp(torch.where(vis, s, float("-inf")), dim=-1)
+    out = flash_attention(q, k, v, causal=causal, window=window,
+                          softcap=softcap, scale=scale, q_offset=q_offset,
+                          prefix=prefix)
+    return out, lse.reshape(B, H, S)
+
+
+def flash_attention_bwd(q, k, v, dout, **kw):
+    """(dq, dk, dv) of :func:`flash_attention` for the output gradient
+    ``dout``: autograd through the plain version, the backward kernel's
+    oracle."""
+    with torch.enable_grad():
+        qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+        o = flash_attention(qq, kk, vv, **kw)
+        return torch.autograd.grad(o, (qq, kk, vv), dout.to(o.dtype))
+
+
+def flash_attention_bwd_tiles(q, k, v, o, dout, lse, *, big: int,
+                              small: int, causal=True, window=0,
+                              softcap=0.0, scale=0.0, q_offset=0, prefix=0):
+    """A plain model of the backward kernel's two passes
+    (``csrc/flash_attention_bwd.cu``), in float32: Delta = rowsum(dO o);
+    dQ by tiles of ``big`` query rows of one head over the key tiles of
+    ``small`` keys they can see (as the forward walks them); dK and dV by
+    tiles of ``big`` keys of one KV head over its G query heads and the
+    rows, ``small`` at a time, that can see a key of the tile; P
+    recomputed from ``lse``; a row that sees no key (lse = -inf) adds
+    dO / T to every key's dV.  Equal to :func:`flash_attention_bwd` up to
+    rounding.  Only the tests call it."""
+    B, S, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = scale or D ** -0.5
+    dev = q.device
+    qf = q.float() * scale
+    kf, vf, do = k.float(), v.float(), dout.float()
+    delta = (do * o.float()).sum(-1)  # (B, S, H)
+    lse_ = lse.permute(0, 2, 1)  # (B, S, H)
+
+    def grads(r0, r1, t0, t1, h):
+        kvh = h // G
+        s = torch.einsum("bqd,btd->bqt", qf[:, r0:r1, h], kf[:, t0:t1, kvh])
+        dp = torch.einsum("bqd,btd->bqt", do[:, r0:r1, h], vf[:, t0:t1, kvh])
+        pos = q_offset + torch.arange(r0, r1, device=dev)[:, None]
+        tk = torch.arange(t0, t1, device=dev)[None, :]
+        lrow = lse_[:, r0:r1, h, None]
+        ok = _visible(pos, tk, causal, window, prefix)[None] & (
+            lrow > float("-inf"))
+        th = torch.tanh(s / softcap) if softcap else None
+        t = th * softcap if softcap else s
+        p = torch.exp(torch.where(ok, t - lrow, float("-inf")))
+        ds = p * (dp - delta[:, r0:r1, h, None])
+        if softcap:
+            ds = ds * (1 - th * th)
+        return p, ds
+
+    dq = torch.zeros((B, S, H, D), device=dev)
+    for h in range(H):
+        for r0 in range(0, S, big):
+            r1 = min(S, r0 + big)
+            last = q_offset + r1 - 1
+            hi = min(T, last + 1) if causal else T
+            lo = max(0, q_offset + r0 - window + 1) if window else 0
+            a_end = min(prefix, lo, hi) if window else 0
+            tiles = [(t, min(t + small, a_end)) for t in range(0, a_end, small)]
+            tiles += [(t, min(t + small, hi)) for t in range(lo, hi, small)]
+            for t0, t1 in tiles:
+                _, ds = grads(r0, r1, t0, t1, h)
+                dq[:, r0:r1, h] += torch.einsum("bqt,btd->bqd", ds,
+                                                kf[:, t0:t1, h // G])
+    dq = dq * scale
+    dk = torch.zeros((B, T, KV, D), device=dev)
+    dv = torch.zeros((B, T, KV, D), device=dev)
+    empty = torch.isneginf(lse_)  # (B, S, H)
+    for kvh in range(KV):
+        heads = slice(kvh * G, (kvh + 1) * G)
+        u = torch.einsum("bsh,bshd->bd", empty[:, :, heads].float(),
+                         do[:, :, heads]) / T
+        for n0 in range(0, T, big):
+            n1 = min(T, n0 + big)
+            p_lo = n0 if causal else 0
+            p_hi = (n1 - 2 + window if window and n0 >= prefix
+                    else q_offset + S)
+            r_lo, r_end = max(0, p_lo - q_offset), min(S, p_hi - q_offset + 1)
+            for h in range(kvh * G, (kvh + 1) * G):
+                for r0 in range(r_lo, r_end, small):
+                    r1 = min(S, r0 + small)
+                    p, ds = grads(r0, r1, n0, n1, h)
+                    dv[:, n0:n1, kvh] += torch.einsum("bqt,bqd->btd", p,
+                                                      do[:, r0:r1, h])
+                    dk[:, n0:n1, kvh] += torch.einsum("bqt,bqd->btd", ds,
+                                                      qf[:, r0:r1, h])
+            dv[:, n0:n1, kvh] += u[:, None]
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def decode_attention(

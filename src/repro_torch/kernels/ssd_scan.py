@@ -24,7 +24,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.build import check_launch, launcher, stream_ptr
+from repro_torch.kernels.build import (check_launch, launcher,
+                                      refuse_grad, stream_ptr)
 
 _TYPES = (torch.float32, torch.bfloat16)
 MAX_P, MAX_N = 64, 128  # kMaxP, kMaxN in the source
@@ -155,6 +156,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         return ref.ssd_scan_chunked(x, dt, A, Bm, Cm, D, chunk=chunk,
                                     init_state=init_state,
                                     return_state=return_state)
+    refuse_grad("ssd_scan", "its backward kernel is ROADMAP A14; until then "
+                "the SSM and hybrid families train on the CPU only", x, dt,
+                A, Bm, Cm, D, init_state)
     Bb, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     dev = x.device

@@ -7,8 +7,11 @@ stacked along a leading ``L`` axis; where the reference scans over layers,
 the port runs a Python loop over the slices.  Every family's block is
 ported: attention (dense, vlm, audio), the pure SSM (mamba2), the hybrid
 block whose attention and SSM branches share one norm and are fused
-(hymba), and the MoE FFN (olmoe, llama4).  Rematerialization and the
-loss raise ``NotImplementedError``: they wait for the training slice.
+(hymba), and the MoE FFN (olmoe, llama4).  Training's pieces are ported
+too: :func:`loss_fn` (sequence-chunked cross entropy with z-loss, each
+chunk recomputed in the backward) and ``remat=True`` (each block
+recomputed in the backward), both through ``torch.utils.checkpoint``
+where the reference uses ``jax.checkpoint``.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -111,8 +115,11 @@ def init_params(cfg: ModelConfig, seed: int, dtype=torch.bfloat16,
     """Random parameters from ``seed`` on ``device``.  The port's own
     initializer: same shapes and scales as the reference's, not the same
     numbers (tests carry the reference's weights over with
-    :func:`params_from_numpy`)."""
-    device = torch.device(device)
+    :func:`params_from_numpy`).  Asking for CUDA without a card raises
+    (:func:`~repro_torch.serving.server.resolve_device`)."""
+    from repro_torch.serving.server import resolve_device
+
+    device = resolve_device(device)
     # On "meta" only shapes exist (zoo and budget math at full width).
     g = torch.Generator(device="cpu" if device.type == "meta" else device)
     g.manual_seed(seed)
@@ -340,17 +347,19 @@ def _frontend(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
 def _hidden(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
             moe_impl: str, remat: bool) -> torch.Tensor:
     """Hidden states after the last block, before the final norm: every
-    block over the whole sequence, no cache built."""
-    if remat:
-        raise NotImplementedError(
-            "remat=True: rematerialization belongs to training, not ported "
-            "yet; see ROADMAP A9")
+    block over the whole sequence, no cache built.  ``remat=True`` keeps
+    only each block's input for the backward and recomputes the block
+    there (the reference's ``jax.checkpoint`` over its layer scan)."""
     h = _frontend(cfg, params, batch)
     positions = torch.arange(h.shape[1], device=h.device)
     for i, window in enumerate(_layer_windows(cfg)):
-        h, _ = _block_prefill(cfg, h, _layer(params["layers"], i), window,
-                              positions, moe_impl=moe_impl,
-                              collect_cache=False)
+        def block(h, lp, window=window):
+            return _block_prefill(cfg, h, lp, window, positions,
+                                  moe_impl=moe_impl, collect_cache=False)[0]
+
+        lp = _layer(params["layers"], i)
+        h = (checkpoint(block, h, lp, use_reentrant=False,
+                        preserve_rng_state=False) if remat else block(h, lp))
     return h
 
 
@@ -367,6 +376,65 @@ def forward_hidden(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
     """Final-normed hidden states (B, S_total, D): no logits projection."""
     return L.rms_norm(_hidden(cfg, params, batch, moe_impl, remat),
                       params["final_norm"], cfg.norm_eps)
+
+
+CE_CHUNK = 512  # sequence-chunked cross entropy (keeps logits off HBM)
+
+
+def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
+            moe_impl: str = "dense", remat: bool = True,
+            z_loss: float = 1e-4):
+    """Causal LM loss, padded-vocab masked, computed in chunks of
+    ``CE_CHUNK`` positions (and the remainder) so that the full
+    (B, S, Vp) logits never exist: each chunk's body is checkpointed and
+    recomputes its logits in the backward.  The softcap of the final
+    logits, z-loss ``z * sum(lse^2) / denom``.  Returns (loss, metrics
+    ``loss``, ``nll``, ``accuracy``), as the reference's."""
+    hidden = forward_hidden(cfg, params, batch, moe_impl=moe_impl,
+                            remat=remat)
+    B, S_total, D = hidden.shape
+    labels = batch["labels"]  # (B, S) or (B, S, Kcb)
+    if labels.ndim == 2:
+        labels = labels[..., None]
+    S = labels.shape[1]
+    hidden = hidden[:, S_total - S:, :]  # frontend/meta positions: unlabeled
+    if cfg.tie_embeddings:
+        w = params["embed"].transpose(1, 2)  # (Kcb, D, Vp)
+    else:
+        w = L.dense_w(params["head"])
+    Vp = w.shape[-1]
+    col_ok = torch.arange(Vp, device=hidden.device) < cfg.vocab_size
+
+    def chunk_stats(h_chunk, lab_chunk):
+        # h_chunk: (B, ck, D); lab_chunk: (B, ck, Kcb)
+        logits = torch.einsum("bsd,kdv->bskv", h_chunk,
+                              w.to(h_chunk.dtype)).float()
+        if cfg.final_logit_softcap:
+            logits = L.softcap(logits, cfg.final_logit_softcap)
+        logits = torch.where(col_ok, logits, -1e9)
+        lse = torch.logsumexp(logits, dim=-1)  # (B, ck, Kcb)
+        lab = torch.gather(logits, -1, lab_chunk[..., None].long())[..., 0]
+        correct = logits.argmax(dim=-1) == lab_chunk
+        return torch.stack([(lse - lab).sum(), (lse * lse).sum(),
+                            correct.float().sum()])
+
+    ck = min(CE_CHUNK, S)
+    sums = torch.zeros(3, device=hidden.device)
+    for c0 in range(0, S - S % ck, ck):
+        sums = sums + checkpoint(chunk_stats, hidden[:, c0:c0 + ck],
+                                 labels[:, c0:c0 + ck], use_reentrant=False,
+                                 preserve_rng_state=False)
+    if S % ck:
+        sums = sums + chunk_stats(hidden[:, S - S % ck:],
+                                  labels[:, S - S % ck:])
+    nll_sum, zsq_sum, acc_sum = sums.unbind()
+    denom = float(B * S * labels.shape[-1])
+    nll = nll_sum / denom
+    loss = nll
+    if z_loss:
+        loss = loss + z_loss * zsq_sum / denom
+    metrics = {"loss": loss, "nll": nll, "accuracy": acc_sum / denom}
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------

@@ -165,13 +165,19 @@ class BackgroundLoader:
 
     def __init__(self, manager, stage_fn: Optional[
             Callable[[str, Optional[ModelVariant]], None]] = None,
-            compress: Optional[str] = None):
+            compress: Optional[str] = None,
+            graphs_fn: Optional[Callable[[str, bool], None]] = None):
         if compress not in (None, "int8"):
             raise ValueError(
                 f"unknown wire compression {compress!r} (None or 'int8')")
         self.manager = manager
         self.compress = compress
         self._stage_fn = stage_fn or (lambda app, variant: None)
+        # graphs_fn(app, hold): a staged load of another variant drops the
+        # tenant's CUDA graphs and their pool when its plan applies (the
+        # ledger drops the pool's charge in the same apply) and holds the
+        # runtime eager; the load's commit or cancel releases it.
+        self._graphs_fn = graphs_fn or (lambda app, hold: None)
         self._pool = ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="model-loader")
         # Predictor fits get their own worker: they mutate no device
@@ -304,10 +310,16 @@ class BackgroundLoader:
         rplan = self._concretize(rplan, now_ms)
         if rplan is None:
             return None
+        state = self.manager.state
+        held = [act.app for act in rplan
+                if isinstance(act, A.Load) and act.staged
+                and act.variant != state.tenants[act.app].loaded]
         try:
-            self.manager.state.apply(rplan)
+            state.apply(rplan)
         except A.PlanError:
             return None  # plan went stale between planning and execute
+        for app in held:
+            self._graphs_fn(app, True)
         ld: Optional[InflightLoad] = None
         for act in rplan:
             staged = self._perform(act, now_ms, demand=demand,
@@ -396,6 +408,7 @@ class BackgroundLoader:
             ld.future.result()
             commit = A.Load(app, ld.variant, claim_mb=ld.charge_mb)
             state.apply(A.ResidencyPlan((commit,)))
+            self._graphs_fn(app, False)
             ld.state = "committed"
             rec = LoadRecord(
                 app=app, bits=ld.variant.bits,
@@ -485,6 +498,7 @@ class BackgroundLoader:
             # The worker already staged (or is staging) the new variant:
             # queue a restore so device contents match the accounting.
             self.stage(app, state.tenants[app].loaded)
+        self._graphs_fn(app, False)
         self._emit(now_ms, "cancel", app, -ld.charge_mb)
         return ld
 

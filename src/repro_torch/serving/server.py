@@ -219,6 +219,7 @@ class TenantRuntime:
         self._graphs: "OrderedDict[tuple, _Graph]" = OrderedDict()
         self._seen: "OrderedDict[tuple, float]" = OrderedDict()
         self._warm = False
+        self._held = False  # a staged load of another variant: no graphs
         self.pool = None
         self.pool_mb = 0.0
         self.captures = 0
@@ -262,6 +263,17 @@ class TenantRuntime:
             self.pool_mb = 0.0
             self._drop_graphs()
 
+    def hold_graphs(self, hold: bool) -> None:
+        """The loader's call when a load of another variant is staged
+        (``hold``): drop every graph and give the pool back to the card
+        now, as the ledger drops its charge, and serve eagerly until the
+        load commits or is cancelled (``hold`` False)."""
+        with self._lock:
+            self._held = hold
+            if hold:
+                self.pool_mb = 0.0
+                self._drop_graphs()
+
     def reshard_device_params(self) -> None:
         """Elastic recovery hook: re-place the resident variant's buffers
         after the ledger's layout changed.  A no-op: the port serves a
@@ -303,7 +315,7 @@ class TenantRuntime:
                     max_new=max_new, max_len=S + max_new,
                     extra=extra_t).cpu().numpy()
 
-            if dev.type != "cuda" or extra:
+            if dev.type != "cuda" or extra or self._held:
                 return run()
             key = (self.loaded_bits, prompts.shape[0], S, max_new,
                    S + max_new)
@@ -535,6 +547,11 @@ class EdgeServer:
         def stage(app: str, variant: Optional[ModelVariant]) -> None:
             self.tenants[app].set_variant(variant)
 
+        def graphs(app: str, hold: bool) -> None:
+            hold_graphs = getattr(self.tenants[app], "hold_graphs", None)
+            if hold_graphs is not None:
+                hold_graphs(hold)
+
         def loader_cb(app: str, variant: Optional[ModelVariant]) -> None:
             # Synchronous (admission-path) weight moves ride the same
             # single-worker staging channel as background loads, so
@@ -562,11 +579,12 @@ class EdgeServer:
                 self.manager,
                 n_devices=self.manager.state.devices.n_devices,
                 stage_fn=stage, migrate=self.migrate,
-                compress=self.compress)
+                compress=self.compress, graphs_fn=graphs)
             self._attach_physical_mesh()
         else:
             self.loader = (BackgroundLoader(self.manager, stage_fn=stage,
-                                            compress=self.compress)
+                                            compress=self.compress,
+                                            graphs_fn=graphs)
                            if self.prefetch else None)
         if self.loader is not None:
             # Admission-path migrations land in the same audit trail as

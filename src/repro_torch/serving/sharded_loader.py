@@ -118,10 +118,12 @@ class ShardedLoaderChannel(BackgroundLoader):
                      [str, ModelVariant], Tuple[float, ...]]] = None,
                  stage_shard_fn: Optional[ShardStageFn] = None,
                  migrate: bool = True,
-                 compress: Optional[str] = None):
+                 compress: Optional[str] = None,
+                 graphs_fn: Optional[Callable[[str, bool], None]] = None):
         if n_devices < 1:
             raise ValueError(f"n_devices must be >= 1, got {n_devices}")
-        super().__init__(manager, stage_fn=stage_fn, compress=compress)
+        super().__init__(manager, stage_fn=stage_fn, compress=compress,
+                         graphs_fn=graphs_fn)
         self.n_devices = n_devices
         self.migrate = migrate
         self._shard_fn = shard_fn
@@ -367,6 +369,7 @@ class ShardedLoaderChannel(BackgroundLoader):
             commit = A.Load(app, ld.variant, claim_mb=ld.charge_mb,
                             shard_claims=ld.shard_claims)
             state.apply(A.ResidencyPlan((commit,)))
+            self._graphs_fn(app, False)
             ld.state = "committed"
             rec = LoadRecord(
                 app=app, bits=ld.variant.bits,
@@ -453,6 +456,7 @@ class ShardedLoaderChannel(BackgroundLoader):
         ld = self.inflight.pop(app, None)
         if ld is None or not self._retire_load(ld):
             return None
+        self._graphs_fn(app, False)
         self.prefetch_wasted += 1
         self._emit(now_ms, "cancel", app, -ld.charge_mb)
         return ld

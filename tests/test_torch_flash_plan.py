@@ -41,6 +41,16 @@ MODES = [{}, dict(causal=False), dict(window=32), dict(softcap=20.0),
          dict(q_offset=64), dict(window=8, q_offset=5)]
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """The tile models run thousands of tiny ops: one intra-op thread a
+    test keeps parallel test workers from waking each other's pools."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @functools.lru_cache(maxsize=None)
 def _inputs(B, S, T, H, KV, D, seed=50):
     rng = np.random.default_rng(seed)
@@ -147,3 +157,4 @@ def test_flash_plan_groups_when_the_grid_fills():
     assert flash_plan(4, 1024, 1024, 32, 4, 64, torch.float32).heads == 8
     assert flash_plan(4, 1024, 1024, 32, 4, 64, torch.float32,
                       sms=4096).heads == 1
+

@@ -26,12 +26,18 @@ assert not bad, bad
 print(" ".join(names))
 """
 
-# The modules of the sharded loader, the elastic mesh and the cluster tier.
+# The modules of the sharded loader, the elastic mesh and the cluster
+# tier; of training, checkpoints and supervised restarts.
 SLICE = ("repro_torch.distributed.sharding",
          "repro_torch.distributed.fault_tolerance",
          "repro_torch.serving.sharded_loader", "repro_torch.serving.elastic",
          "repro_torch.cluster", "repro_torch.cluster.config",
-         "repro_torch.cluster.routers", "repro_torch.cluster.cluster")
+         "repro_torch.cluster.routers", "repro_torch.cluster.cluster",
+         "repro_torch.training.data", "repro_torch.training.optim",
+         "repro_torch.training.pytree", "repro_torch.training.train_step",
+         "repro_torch.distributed.checkpoint",
+         "repro_torch.distributed.compression",
+         "repro_torch.launch.train")
 
 
 def test_port_imports_neither_jax_nor_repro():
@@ -43,3 +49,20 @@ def test_port_imports_neither_jax_nor_repro():
     # Every module was imported (kernels, models, serving, cluster...).
     assert len(names) >= 50
     assert set(SLICE) <= set(names)
+
+
+def test_smoke_and_training_example_import_neither_jax_nor_repro():
+    """``chip_smoke.py`` and ``examples/torch_train_small_lm.py`` name no
+    JAX module and nothing of the JAX package."""
+    import ast
+
+    root = SRC.parent
+    for path in (root / "chip_smoke.py",
+                 root / "examples" / "torch_train_small_lm.py"):
+        names = set()
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names |= {a.name.split(".")[0] for a in node.names}
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names.add(node.module.split(".")[0])
+        assert not names & {"jax", "jaxlib", "repro"}, (path, names)

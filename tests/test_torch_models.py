@@ -531,12 +531,24 @@ def test_decode_matches_forward(name):
 @pytest.mark.parametrize("kw,item", [(dict(remat=True), "A9")])
 @pytest.mark.parametrize("fn", ["forward", "forward_hidden"])
 def test_forward_modes_not_ported_raise(kw, item, fn):
+    """The modes that raised until their ROADMAP item was ported now run:
+    ``remat=True`` (A9, training) recomputes each block in the backward
+    and leaves the forward's values unchanged."""
     cfg = tget("tinyllama-1.1b", reduced=True)
     params = TT.init_params(cfg, 0, torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        getattr(TT, fn)(cfg, params,
-                        {"tokens": torch.zeros((1, 4), dtype=torch.int32)},
-                        **kw)
+    batch = {"tokens": torch.arange(4, dtype=torch.int32)[None]}
+    assert item == "A9"
+    got = getattr(TT, fn)(cfg, params, batch, **kw)
+    assert torch.equal(got, getattr(TT, fn)(cfg, params, batch))
+
+
+def test_init_params_without_a_card_names_the_cause(monkeypatch):
+    """Asking for CUDA where there is none raises the port's message,
+    not torch's about its CUDA generator."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tget("tinyllama-1.1b", reduced=True)
+    with pytest.raises(RuntimeError, match="no CUDA device is available"):
+        TT.init_params(cfg, 0, torch.float32)
 
 
 def test_sliding_window_restricts_context():

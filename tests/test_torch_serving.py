@@ -427,3 +427,113 @@ def test_graph_pools_keep_every_event_within_budget(budget_mb):
     assert all(e.used_mb + e.inflight_mb <= budget_mb + 1e-6
                for e in events)
     assert any(e.pool_mb > 0 for e in events)
+
+
+# ---------------------------------------------------------------------------
+# A demoted variant's pool and its repromotion (phase 9 of chip_smoke.py)
+# ---------------------------------------------------------------------------
+# The graph pools the card measured (PERF.md section 5, PR 19): MB by
+# tenant and bits, each variant's first captured key.
+PHASE9_POOLS = {"tinyllama-1.1b": {8: 528.0, 16: 6.0},
+                "mamba2-780m": {8: 334.0, 16: 334.0}}
+_SIM = tapi.SimTenant
+
+
+class _VariantPoolStub(_PoolStub):
+    """A stub runtime whose loaded variant keeps the pool the card's
+    captures of that variant kept: its first batch on a variant charges
+    the pool (when the budget takes it; else it runs eagerly and tries
+    again at the next); a variant change drops it, and a staged load of
+    another variant drops it at once (``hold_graphs``), the tenant then
+    running eagerly until the load commits or is cancelled."""
+
+    def __init__(self, name, cfg, precisions=(16, 8), predictor=None,
+                 service_ms=None):
+        _SIM.__init__(self, name, cfg, precisions=precisions,
+                      predictor=predictor, service_ms=service_ms)
+        self.pool_ledger = None
+        self.pool_mb = 0.0
+        self.seen, self.graphs = set(), set()
+        self.captures = self.replays = self.eager = 0
+        self.held = False
+
+    def hold_graphs(self, hold):
+        self.held = hold
+        if hold:
+            self.graphs.clear()
+            self.pool_mb = 0.0
+
+    def execute(self, batch, extra=None):
+        if self.graphs:
+            self.replays += 1
+        elif not self.held and self._charge(
+                PHASE9_POOLS[self.name][self.loaded_bits]):
+            self.graphs.add(self.loaded_bits)
+            self.captures += 1
+        else:
+            self.eager += 1
+        return _SIM.execute(self, batch, extra)
+
+
+def _phase9(api, server_cls, budget_mb, stub=None):
+    """``chip_smoke.py``'s phase 9 plan in sim time: the serving
+    benchmark's elastic A/B configuration (faulted), its two tenants at
+    full width, 30 Poisson requests a tenant (seed 7)."""
+    config = api.ServingConfig(
+        tenants=tuple(api.TenantSpec(a, reduced=False)
+                      for a in ("tinyllama-1.1b", "mamba2-780m")),
+        executor="sim", policy="iws-bfe", delta_ms=750.0,
+        batching=api.BatchingSpec(max_batch=4, window_ms=20.0),
+        loader=api.LoaderSpec(sharded=True, mesh_shape=(4,)),
+        predictor=api.PredictorSpec(min_fit_samples=10**6),
+        kv_headroom_shape=(2, 12), budget_mb=budget_mb,
+        fault=api.FaultSpec(events=((3000.0, 3, "down"),
+                                    (9000.0, 3, "up"))))
+    if stub is not None:
+        sim, api.SimTenant = api.SimTenant, stub
+    try:
+        srv = server_cls.build(config)
+    finally:
+        if stub is not None:
+            api.SimTenant = sim
+    cfgs = {t.name: t.cfg for t in srv.tenants.values()}
+    trace, _ = (jtrace if api is japi else ttrace)(
+        cfgs, requests_per_app=30, mean_iat_ms=400.0, seed=7)
+    stats = srv.engine.run_trace(trace)
+    srv.engine.check_event_invariant()
+    srv.close()
+    return srv, stats
+
+
+def test_demoted_pool_does_not_block_its_repromotion():
+    """Phase 9's plan in sim time with stub pools of the card's sizes, at
+    the sim's derived budget + 10% (3456.8 MB; sim zoo sizes come from
+    parameter math, and the card's derived budget is 3454.0 MB): the drain
+    of chip 3 downgrades tinyllama to 8 bits, whose first batch there
+    charges a 528 MB pool; at chip_up the repromotion's staged 16-bit
+    load drops that pool with the ledger's charge (the runtime eager
+    until the commit), so its claim fits and 16 bits come back.  Before,
+    the pool stayed charged until the commit, the claim did not fit, and
+    tinyllama stayed at 8 bits (as on the card at + 5% in PR 20).  With
+    pools out of the way, the port's trail (pool events aside) equals
+    the reference's sim trail at the same budget."""
+    derived = _phase9(japi, JServer, None)[0].budget_mb
+    budget = derived * 1.10
+    srv, stats = _phase9(tapi, TServer, budget, stub=_VariantPoolStub)
+    ctl = srv.elastic
+    stub = srv.tenants["tinyllama-1.1b"]
+    assert ctl.drain_downgrades >= 1 and ctl.repromotions >= 1
+    assert stub.captures >= 2 and not stub.held
+    assert stats.chips_lost == stats.chips_recovered == 1
+    pools = [e for e in srv.engine.events if e.kind == "pool"]
+    assert pools and any(e.pool_mb >= 528.0 for e in pools)
+    assert all(e.used_mb + e.inflight_mb <= budget + 1e-6
+               for e in srv.engine.events)
+    jsrv, jstats = _phase9(japi, JServer, budget)
+    assert jsrv.elastic.repromotions == ctl.repromotions
+    # MB to 1e-9: the pools' charges and refunds pass through the same
+    # float sums, which then round in the last bits.
+    trail = [(e.kind.value, e.t, e.app, round(e.detail, 9))
+             for e in srv.engine.audit_trail if e.kind.value != "pool"]
+    assert trail == [(e.kind.value, e.t, e.app, round(e.detail, 9))
+                     for e in jsrv.engine.audit_trail]

@@ -1,0 +1,211 @@
+"""Training on the card (marked ``cuda``; skipped without an sm_90 device).
+
+The backward kernel (``repro_torch/csrc/flash_attention_bwd.cu``) against
+``torch.autograd.grad`` through the plain ``ref.flash_attention`` on the
+same card tensors: the sweep of ``test_kernels.py``, tinyllama-1.1b's and
+gemma2-2b's heads, every mask mode (causal, none, window, window with
+prefix, softcap, ``q_offset``, rows that see no key at all), f32 and
+bf16.  Tolerances: f32 ``rtol=atol=3e-5`` element-wise (the kernel and
+autograd both sum in f32, in other orders); bf16 ``rtol=atol=3e-2``
+element-wise and, since a gradient summed over many rows can sit near
+zero, also 1e-2 relative l2.  Then: two calls bit-identical (no float
+atomics); the autograd Function's gradients equal the kernel's; the four
+kernels without a backward refuse a grad; and one supervised run of a
+reduced model with an injected failure ends bit-equal to an unbroken
+run.  Imports no JAX: it runs on the machine with the card.
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_train_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                 flash_attention_lse)
+
+TOL = {torch.float32: dict(rtol=3e-5, atol=3e-5),
+       torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
+REL_L2 = 1e-2  # bf16: relative l2 of each gradient
+# (B, S, T, H, KV, D): the sweep of test_kernels.py; a prefill continuing
+# past its keys; tinyllama-1.1b's and gemma2-2b's heads.
+SHAPES = [(1, 64, 64, 4, 4, 32), (2, 160, 160, 8, 4, 64),
+          (1, 257, 257, 6, 2, 128), (2, 128, 128, 25, 5, 64),
+          (1, 64, 128, 4, 2, 64), (2, 256, 256, 32, 4, 64),
+          (1, 300, 300, 8, 4, 256)]
+MODES = [{}, dict(causal=False), dict(window=32), dict(softcap=20.0),
+         dict(window=16, prefix=8), dict(window=32, softcap=50.0, prefix=4),
+         dict(q_offset=64)]
+# Rows past T + window - 1 see nothing (the forward gives them the mean
+# of v): zero dQ, dO / T to every key's dV.
+EMPTY = [((1, 64, 40, 4, 2, 64), dict(window=8, q_offset=20)),
+         ((2, 70, 30, 8, 4, 256), dict(window=16, q_offset=30,
+                                       softcap=30.0)),
+         ((1, 50, 20, 6, 3, 128), dict(causal=False, window=4,
+                                       q_offset=30))]
+
+
+@pytest.fixture
+def sm90():
+    if not torch.cuda.is_available() \
+            or torch.cuda.get_device_capability() < (9, 0):
+        pytest.skip("needs an sm_90 CUDA device")
+    return torch.device("cuda")
+
+
+def _inputs(dev, B, S, T, H, KV, D, dtype, seed=3):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return [torch.randn(s, generator=g).to(dev, dtype) for s in
+            ((B, S, H, D), (B, T, KV, D), (B, T, KV, D), (B, S, H, D))]
+
+
+def _hold(got, want, dtype, what):
+    for name, a, b in zip("qkv", got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, (what, name)
+        a, b = a.float().cpu(), b.float().cpu()
+        assert torch.isfinite(a).all(), (what, name)
+        np.testing.assert_allclose(a.numpy(), b.numpy(), **TOL[dtype],
+                                   err_msg=f"{what} d{name}")
+        if dtype == torch.bfloat16:
+            rel = float((a - b).norm() / b.norm().clamp_min(1e-30))
+            assert rel <= REL_L2, (what, name, rel)
+
+
+def _check(dev, shape, dtype, kw):
+    B, S, T, H, KV, D = shape
+    q, k, v, do = _inputs(dev, B, S, T, H, KV, D, dtype)
+    out, lse = flash_attention_lse(q, k, v, **kw)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    want = tref.flash_attention_bwd(q, k, v, do, **kw)
+    _hold(got, want, dtype, f"{shape} {dtype} {kw}")
+    return q, k, v, do, out, lse, got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kw", MODES)
+def test_flash_backward_kernel(sm90, shape, dtype, kw):
+    _check(sm90, shape, dtype, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,kw", EMPTY)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_rows_that_see_nothing(sm90, shape, dtype, kw):
+    q, k, v, do, out, lse, (dq, _, _) = _check(sm90, shape, dtype, kw)
+    empty = torch.isneginf(lse).permute(0, 2, 1)  # (B, S, H)
+    assert empty.any()
+    assert (dq[empty] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_is_deterministic_and_autograd_uses_it(sm90, dtype):
+    """Two calls bit-identical; gradients through ``ops.flash_attention``
+    under autograd are the kernel's, one forward and one backward launch."""
+    kw = dict(window=48, softcap=30.0)
+    q, k, v, do = _inputs(sm90, 2, 200, 200, 8, 4, 128, dtype)
+    out, lse = flash_attention_lse(q, k, v, **kw)
+    a = flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    b = flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    f0 = ops.flash_attention.launches
+    b0 = flash_attention_bwd.launches
+    o = ops.flash_attention(*leaves, **kw)
+    assert o.grad_fn is not None and torch.equal(o, out)
+    grads = torch.autograd.grad(o, leaves, do)
+    assert ops.flash_attention.launches == f0 + 1
+    assert flash_attention_bwd.launches == b0 + 1
+    for x, y in zip(grads, a):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_kernels_without_a_backward_refuse_grad(sm90):
+    """A CUDA input that requires grad, under grad mode, raises: a
+    silent detach would lose every gradient below the call.  Under
+    ``torch.no_grad()`` the same calls run."""
+    x = torch.randn(4, 64, device=sm90, requires_grad=True)
+    wq, ws = ops.quantize_weights(torch.randn(64, 32, device=sm90), bits=8)
+    q = torch.randn(2, 8, 64, device=sm90, requires_grad=True)
+    kc = torch.randn(2, 32, 4, 64, device=sm90)
+    lens = torch.full((2,), 20, dtype=torch.int32, device=sm90)
+    kp, vp, table = ops.paginate_kv(kc, kc, lens, 16)
+    xs = torch.randn(1, 16, 2, 16, device=sm90, requires_grad=True)
+    dt = torch.rand(1, 16, 2, device=sm90)
+    A, Dk = -torch.rand(2, device=sm90), torch.ones(2, device=sm90)
+    Bm = torch.randn(1, 16, 1, 8, device=sm90)
+    calls = {
+        "quant_matmul": lambda: ops.quant_matmul(x, wq, ws),
+        "decode_attention": lambda: ops.decode_attention(q, kc, kc, lens),
+        "paged_decode_attention": lambda: ops.paged_decode_attention(
+            q, kp, vp, table, lens),
+        "ssd_scan": lambda: ops.ssd_scan(xs, dt, A, Bm, Bm, Dk),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match=f"{name}: no backward"):
+            call()
+        with torch.no_grad():
+            call()
+
+
+@pytest.mark.cuda
+def test_supervised_recovery_is_bit_equal_on_the_card(sm90, tmp_path):
+    """Reduced tinyllama trained 5 steps on the card by ``run_supervised``
+    (bf16 compute, remat, the attention kernels' forward and backward),
+    with a node failure at step 3 and checkpoints every 2 steps: the
+    final state equals an unbroken run's bit for bit.  Runs in a child
+    process so that deterministic algorithms and cuBLAS's fixed
+    workspace hold from the start."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    child = f"""
+import json, torch
+torch.use_deterministic_algorithms(True)
+from repro_torch.configs import get_config
+from repro_torch.distributed import checkpoint as ckpt
+from repro_torch.distributed.fault_tolerance import (FailureInjector,
+                                                     run_supervised)
+from repro_torch.kernels import ops
+from repro_torch.training import pytree
+from repro_torch.training.data import DataConfig, SyntheticStream
+from repro_torch.training.optim import AdamW, warmup_cosine
+from repro_torch.training.train_step import init_state, make_train_step
+cfg = get_config("tinyllama-1.1b", reduced=True)
+opt = AdamW(lr=warmup_cosine(3e-3, 2, 5))
+state = init_state(cfg, 0, opt, device="cuda")
+step = make_train_step(cfg, opt)
+ds = SyntheticStream(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                                global_batch=4))
+def batch(s):
+    return {{k: torch.from_numpy(v).cuda() for k, v in ds.batch_at(s).items()}}
+out = {{}}
+for name, inj in (("a", None), ("b", FailureInjector(fail_at_steps=(3,)))):
+    rep = run_supervised(init_state=state, step_fn=step, batch_fn=batch,
+                         total_steps=5, ckpt_dir={str(tmp_path)!r} + "/" + name,
+                         ckpt_every=2, injector=inj)
+    out[name] = (rep.restarts,
+                 pytree.leaves(ckpt.restore(state, {str(tmp_path)!r} + "/" + name)))
+equal = all(torch.equal(x, y) for x, y in zip(out["a"][1], out["b"][1]))
+print(json.dumps({{"restarts": out["b"][0], "equal": equal,
+                  "bwd": ops.flash_attention_bwd.launches}}))
+"""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               PYTHONPATH=str(root / "src"))
+    out = subprocess.run([sys.executable, "-c", child], env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["restarts"] == 1 and res["equal"] and res["bwd"] > 0, res
