@@ -112,23 +112,32 @@
    training shapes (tinyllama 4 x 1024; gemma2's local and global layers
    at 1 x 4200 with both softcaps), and timed there (forward with its
    log-sum-exp, backward, the plain backward, SDPA's backward, the
-   bound).  Then tinyllama-1.1b at full width and depth trains 8 AdamW
-   steps (f32 master, bf16 compute, remat, z-loss; the last two with
-   grad_accum=2) on the synthetic stream at 4 x 1024 tokens: losses
+   bound).  The backward kernel of ``ssd_scan``
+   (``csrc/ssd_scan_bwd.cu``) held to autograd through the plain chunked
+   form at the scan's sweep (f32 and bf16, with and without an initial
+   state and a final-state cotangent; f32 2e-4, bf16 3e-2 and 1e-2
+   relative l2, dA and dD to their largest element) and at the training
+   shapes (mamba2-780m 4 x 1024, hymba-1.5b's branch 1 x 2176, bf16),
+   and timed there (backward, forward, the plain backward, the bound).
+   Then tinyllama-1.1b and mamba2-780m at full width and depth each train
+   8 AdamW steps (f32 master, bf16 compute, remat, z-loss; the last two
+   with grad_accum=2) on the synthetic stream at 4 x 1024 tokens: losses
    finite and falling, every parameter moved; step ms, tokens/s, the
    share of 989 TFLOP/s, one profiled step's idle share and kernels,
-   peak memory, and both attention kernels' launches (zeroed just
-   before, read just after).  Depth cuts at full width (tinyllama 2
-   layers; gemma2 2 layers, 1 x 4200) take one step on the card and on
-   the host from the same weights: loss, gradient norm, gradients and
+   peak memory, and the model's forward and backward kernels' launches
+   (zeroed just before, read just after; the backward once a layer and
+   micro-step).  Depth cuts at full width (tinyllama 2 layers; mamba2 2
+   layers; hymba 2 layers, one full and one windowed, 1 x 2048 behind its
+   meta tokens; gemma2 2 layers, 1 x 4200) take one step on the card and
+   on the host from the same weights: loss, gradient norm, gradients and
    params held to PERF.md section 2's bf16 rule (the host's steps run in
-   a child process started before phase 2, beside the card's phases).  A child process runs
-   the cut tinyllama through ``run_supervised`` with a failure at step 3
-   under deterministic algorithms: its final state bit-equal to an
-   unbroken run's.  A grad through mamba2's ``ssd_scan`` must raise.
+   a child process started before phase 2, beside the card's phases).  A
+   child process runs the cut tinyllama through ``run_supervised`` with a
+   failure at step 3 under deterministic algorithms: its final state
+   bit-equal to an unbroken run's.
 11. Prints the kernels as one JSON line (launches summed over the main
    path's, the families' and the elastic A/B's serving runs and the
-   training run, and by path), the card, and last
+   training runs, and by path), the card, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a CUDA device, or without
@@ -242,13 +251,26 @@ TRAIN_Z = 1e-4
 CUT_LAYERS = 2
 GEMMA_CUT = ("gemma2-2b", 2, 1, 4200)
 RECOVERY_STEPS = 4  # the supervised runs of the recovery check
-HOST_CUTS = ((TRAIN_ARCH, CUT_LAYERS, TRAIN_BATCH, TRAIN_SEQ), GEMMA_CUT)
+# The SSM tenant trains at full width and depth by the same recipe, through
+# the scan's backward kernel; it and hymba-1.5b (2 layers: one full, one
+# windowed; 2048 tokens behind its 128 meta tokens) are also cut in depth
+# and held to the host.  hymba stays cut: at about 48 bytes a parameter
+# (the training run's peak) its 1.5 B parameters would not fit 80 GB.
+SSM_TRAIN_ARCH = "mamba2-780m"
+SSM_CUT = (SSM_TRAIN_ARCH, CUT_LAYERS, TRAIN_BATCH, TRAIN_SEQ)
+HYMBA_CUT = ("hymba-1.5b", 2, 1, 2048)
+HOST_CUTS = ((TRAIN_ARCH, CUT_LAYERS, TRAIN_BATCH, TRAIN_SEQ), SSM_CUT,
+             HYMBA_CUT, GEMMA_CUT)
+# The scan backward's training shapes: (arch, batch, rows a sequence).
+SSD_BWD_ROWS = ((SSM_TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ),
+                ("hymba-1.5b", 1, 2048 + 128))
 HOST_THREADS = 4  # of the card machine's 8 cores: the host's cut steps
 
 # The main path's kernels by the profiler's names: the substrings of each
 # wrapper's kernel (the decode kernels' split pass, dense or paged).
 KERNEL_NAMES = {"quant_matmul": ("qmm_cluster",),
                 "flash_attention_bwd": ("flash_bwd",),
+                "ssd_scan_bwd": ("ssd_bwd",),
                 "decode_attention": ("decode_split", "Dense"),
                 "flash_attention": ("flash_tiles",),
                 "ssd_scan": ("ssd_cluster",),
@@ -2534,17 +2556,146 @@ def flash_bwd_row(fa, ref, g, what, B, S, H, KV, D, dt, kw) -> dict:
     return row
 
 
+SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dD", "dinit")
+# dA and dD sum over every token of the batch: their element errors grow
+# with the sum of the terms' sizes, not the result's (two float32
+# evaluations of the plain backward differ past 2e-4 on dA at
+# mamba2-780m's heads: tests/test_torch_ssd_bwd_plan.py), so they are held
+# to the tolerance times their largest element.
+SSD_SUMS = ("dA", "dD")
+
+
+def hold_ssd_grads(what, got, want) -> float:
+    """The scan's seven gradients: float32 ones within SSD_TOL, bf16 ones
+    within TOL and, by relative l2, FLASH_REL_TOL; dA and dD scaled as
+    above.  Returns the worst element error."""
+    worst = 0.0
+    for name, a, b in zip(SSD_GRADS, got, want):
+        if a is None or b is None:
+            if a is not b:
+                raise AssertionError(f"{what} {name}: {a} against {b}")
+            continue
+        tol = SSD_TOL if a.dtype == torch.float32 else TOL[a.dtype]
+        atol = tol * float(b.abs().max()) if name in SSD_SUMS else tol
+        worst = max(worst, compare(f"{what} {name}", a, b, tol, atol))
+        rel = rel_l2(a.float(), b.float())
+        if a.dtype == torch.bfloat16 and rel > FLASH_REL_TOL:
+            raise AssertionError(f"{what} {name}: relative l2 err {rel:.3g}"
+                                 f" (tol {FLASH_REL_TOL})")
+    return worst
+
+
+def ssd_bwd_work(B, S, H, P, G, N, esz, with_init, with_dstate):
+    """(bytes, operations) of one scan backward: x, dt, B, C and dy read
+    and their gradients written once (the state's, its cotangent and the
+    initial state's gradient when present; A, D, dA and dD); and the
+    least arithmetic, the sequential form's backward: per token and head
+    11 P N + 6 P (``csrc/ssd_scan_bwd.cu``'s header), and the sums of dB
+    and dC over the heads of a group."""
+    nbytes = (3 * B * S * H * P + 2 * B * S * H + 4 * B * S * G * N) * esz \
+        + 16 * H + 4 * B * H * P * N * (2 * with_init + with_dstate)
+    return nbytes, B * S * H * (11 * P * N + 6 * P) + 2 * B * S * (H - G) * N
+
+
+def check_ssd_bwd(ref, g) -> dict:
+    """Phase 10 (a): the scan's backward kernel against autograd through
+    the plain chunked form, at the sweep in f32 and bf16, with and
+    without an initial state and a final-state cotangent; then at the
+    training shapes, held and timed."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan as sm
+
+    worst, n = 0.0, 0
+    for shape in SSD_SWEEP:
+        for dt in (torch.float32, torch.bfloat16):
+            x, dt_, A, Bm, Cm, D, init = ssd_inputs(g, *shape, dt)
+            args = (x, dt_, A, Bm, Cm, D)
+            dy = rand(g, *shape[:4], dtype=dt)
+            dstate = rand(g, shape[0], shape[2], shape[3], shape[5],
+                          scale=0.5)
+            for with_init in (False, True):
+                for with_ds in (False, True):
+                    kw = dict(init_state=init if with_init else None,
+                              dstate=dstate if with_ds else None)
+                    worst = max(worst, hold_ssd_grads(
+                        f"ssd_scan_bwd {shape} {dt} init={with_init} "
+                        f"dstate={with_ds}", sm.ssd_scan_bwd(*args, dy, **kw),
+                        ref.ssd_scan_bwd(*args, dy, **kw)))
+                    n += 1
+    rows = []
+    for arch, B, S in SSD_BWD_ROWS:
+        rows.append(ssd_bwd_row(sm, ref, g, get_config(arch), B, S))
+        n += 1
+        torch.cuda.empty_cache()
+    print(f"ssd_scan_bwd: {n} cases within tolerance of autograd through "
+          f"the plain chunked form (f32 {SSD_TOL}, bf16 "
+          f"{TOL[torch.bfloat16]} and relative l2 {FLASH_REL_TOL}; dA and "
+          f"dD to their largest element); sweep max abs err {worst:.3g}")
+    return rows[0]
+
+
+def ssd_bwd_row(sm, ref, g, cfg, B, S) -> dict:
+    """One training shape of ``cfg``'s scan, in bf16 (the compute type),
+    no initial state or final-state cotangent (as the model trains): the
+    backward held to autograd through the plain chunked form at the
+    model's chunk, and timed: the backward (both kernels) by device and
+    event time, the forward kernel's device time, the plain backward
+    (autograd over a kept graph) and the bound."""
+    shape = (B, S, cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_ngroups,
+             cfg.ssm_state)
+    x, dt_, A, Bm, Cm, D, _ = ssd_inputs(g, *shape, torch.bfloat16)
+    args = (x, dt_, A, Bm, Cm, D)
+    dy = rand(g, *shape[:4], dtype=torch.bfloat16)
+    got = sm.ssd_scan_bwd(*args, dy)
+    leaves = [t.detach().requires_grad_() for t in args]
+    with torch.enable_grad():
+        y = ref.ssd_scan_chunked(*leaves, chunk=cfg.ssm_chunk)
+    want = torch.autograd.grad(y, leaves, dy, retain_graph=True) + (None,)
+    what = f"train {cfg.name} {shape}"
+    err = hold_ssd_grads(f"ssd_scan_bwd {what}", got, want)
+    del got, want
+
+    def plain():
+        return torch.autograd.grad(y, leaves, dy, retain_graph=True)
+
+    plain_ms = time_ms(plain, iters=3, warmup=1)
+    del y
+    torch.cuda.empty_cache()
+
+    def bwd():
+        return sm.ssd_scan_bwd(*args, dy)
+
+    nbytes, ops_ = ssd_bwd_work(*shape, 2, False, False)
+    row = dict(max_abs_err=err, ms=time_ms(bwd, iters=5), plain_ms=plain_ms,
+               library_ms=None, **bound(nbytes, ops_, torch.float32))
+    row["device_ms"] = kernel_ms(bwd)
+    row["fwd_ms"] = kernel_ms(lambda: sm.ssd_scan(*args))
+    p = sm.ssd_bwd_plan(*shape)
+    print(f"  {what} bf16: backward {row['ms']:.3f} ms (event), device "
+          f"{row['device_ms']:.3f} ms ({row['bound_ms'] / row['device_ms']:.1%}"
+          f" of the bound {row['bound_ms']:.4f} ms, {row['bound_by']}; "
+          f"{ops_ / row['device_ms'] / 1e9:.2f} TFLOP/s of the least "
+          f"{ops_ / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), forward kernel "
+          f"device {row['fwd_ms']:.3f} ms, plain backward (chunk "
+          f"{cfg.ssm_chunk}) {plain_ms:.3f} ms, max abs err {err:.3g}; "
+          f"plan: chunk {p.kq}, {p.chunks} chunks, {p.blocks} blocks, "
+          f"{p.smem} B shared, {p.sm_blocks} an SM")
+    return row
+
+
 def train_batch(ds, step: int) -> dict:
     return {k: torch.from_numpy(v).to("cuda")
             for k, v in ds.batch_at(step).items()}
 
 
-def train_main(kernels, bwd) -> dict:
-    """Phase 10 (c): TRAIN_ARCH at full width and depth, f32 master
+def train_main(kernels, bwds, arch) -> dict:
+    """Phase 10 (b) and (c): ``arch`` at full width and depth, f32 master
     weights, bf16 compute, remat, z-loss: TRAIN_STEPS AdamW steps on the
     synthetic stream, the last two with grad_accum=2.  Gates: every loss
-    finite, the last below the first, every parameter leaf moved.
-    Returns the wrapper launches of the run."""
+    finite, the last below the first, every parameter leaf moved, and the
+    model's forward and backward kernels launched (zeroed just before,
+    read just after), the backward once a layer and micro-step.  Returns
+    the wrapper launches of the run."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
@@ -2553,7 +2704,7 @@ def train_main(kernels, bwd) -> dict:
     from repro_torch.training.optim import AdamW, warmup_cosine
     from repro_torch.training.train_step import init_state, make_train_step
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(arch)
     opt = AdamW(lr=warmup_cosine(*TRAIN_LR))
     state = init_state(cfg, 0, opt, dtype=torch.float32, device="cuda")
     before = [p.detach().clone() for p in pytree.leaves(state.params)]
@@ -2563,7 +2714,8 @@ def train_main(kernels, bwd) -> dict:
     ds = SyntheticStream(DataConfig(vocab_size=cfg.vocab_size,
                                     seq_len=TRAIN_SEQ,
                                     global_batch=TRAIN_BATCH))
-    for fn in (*kernels.values(), bwd):
+    fns = {**kernels, **bwds}
+    for fn in fns.values():
         fn.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2590,32 +2742,28 @@ def train_main(kernels, bwd) -> dict:
             elif s > 0:
                 walls.append(wall)
         losses.append(float(m["loss"]))
-    calls = {k: fn.launches for k, fn in kernels.items()}
-    calls["flash_attention_bwd"] = bwd.launches
+    calls = {k: fn.launches for k, fn in fns.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"train: a loss is not finite: {losses}")
+        raise AssertionError(f"train {arch}: a loss is not finite: {losses}")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"train: the loss did not fall: {losses}")
+        raise AssertionError(f"train {arch}: the loss did not fall: {losses}")
     still = [i for i, (a, b) in enumerate(zip(
         before, pytree.leaves(state.params))) if torch.equal(a, b)]
     if still:
-        raise AssertionError(f"train: parameter leaves {still} never moved")
+        raise AssertionError(f"train {arch}: parameter leaves {still} never "
+                             "moved")
     ms, counts = card_activity(prof)
     busy = sum(ms.values())
-    fam = {}
-    for name, n in counts.items():
-        for k, part in (("flash_attention", "flash_tiles"),
-                        ("flash_attention_bwd", "flash_bwd")):
-            if part in name:
-                fam[k] = fam.get(k, 0) + n
+    fam = {k: n for k, n in kernel_launches(counts).items() if n}
     n_params = sum(p.numel() for p in before) - before[0].numel()  # embed
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    attn = 12 * TRAIN_BATCH * cfg.num_heads * cfg.resolved_head_dim \
-        * visible_pairs(TRAIN_SEQ, TRAIN_SEQ, 0) * cfg.num_layers
+    attn = (12 * TRAIN_BATCH * cfg.num_heads * cfg.resolved_head_dim
+            * visible_pairs(TRAIN_SEQ, TRAIN_SEQ, 0) * cfg.num_layers
+            if cfg.uses_attention else 0)
     flops = 6 * n_params * tokens + attn
     med = float(np.median(walls))
-    print(f"train ({card()}): {cfg.name} full width and depth "
+    print(f"train {arch} ({card()}): full width and depth "
           f"({cfg.num_layers} layers, d_model {cfg.d_model}), f32 master, "
           f"bf16 compute, remat, z-loss {TRAIN_Z}, AdamW warmup_cosine"
           f"{TRAIN_LR}, batch {TRAIN_BATCH} x {TRAIN_SEQ}: losses "
@@ -2623,21 +2771,22 @@ def train_main(kernels, bwd) -> dict:
           + f"; step ms median {med:.1f} ({', '.join(f'{w:.1f}' for w in walls)}"
           f"; grad_accum=2: {', '.join(f'{w:.1f}' for w in accum_walls)};"
           f" step 0 untimed), {tokens / med * 1e3:.0f} tokens/s; "
-          f"6 N T + attention {flops / 1e12:.2f} TFLOP a step (N "
-          f"{n_params / 1e9:.3f} B without the embedding), "
+          f"6 N T{' + attention' if attn else ''} {flops / 1e12:.2f} TFLOP "
+          f"a step (N {n_params / 1e9:.3f} B without the embedding), "
           f"{flops / (med / 1e3) / 989e12:.1%} of 989 TFLOP/s; profiled "
           f"step {prof_step}: wall {prof_wall:.1f} ms, device busy "
           f"{busy:.1f} ms, idle share {1 - busy / prof_wall:.3f}, "
-          f"{sum(counts.values())} kernels, attention forward/backward "
-          f"kernels (profiler) {fam}; by family: {families(ms, counts)}; "
-          f"peak memory {peak_gb:.2f} GB; wrapper launches over the run "
-          f"{calls}")
-    if calls["flash_attention"] == 0 or calls["flash_attention_bwd"] == 0:
-        raise AssertionError(f"train: attention kernels not launched {calls}")
+          f"{sum(counts.values())} kernels, the port's kernels (profiler) "
+          f"{fam}; by family: {families(ms, counts)}; peak memory "
+          f"{peak_gb:.2f} GB; wrapper launches over the run {calls}")
+    fwd, bwd = (("ssd_scan", "ssd_scan_bwd") if cfg.family == "ssm" else
+                ("flash_attention", "flash_attention_bwd"))
+    if calls[fwd] == 0 or calls[bwd] == 0:
+        raise AssertionError(f"train {arch}: kernels not launched {calls}")
     want_bwd = cfg.num_layers * (TRAIN_STEPS + 2)  # 2 micro-steps twice
-    if calls["flash_attention_bwd"] != want_bwd:
-        raise AssertionError(f"train: {calls['flash_attention_bwd']} "
-                             f"backward launches, want {want_bwd}")
+    if calls[bwd] != want_bwd:
+        raise AssertionError(f"train {arch}: {calls[bwd]} {bwd} launches, "
+                             f"want {want_bwd}")
     del state, before
     gc.collect()
     torch.cuda.empty_cache()
@@ -2878,49 +3027,31 @@ def recovery_child() -> None:
     print(json.dumps({"ok": bool(ok), "text": text}))
 
 
-def check_refusal() -> None:
-    """Phase 10 (f): a mamba2 layer with grad on the card raises, naming
-    the ROADMAP item of ``ssd_scan``'s backward."""
-    from repro_torch.models import transformer as T
-    from repro_torch.training import pytree
-
-    cfg = cut_config("mamba2-780m", 1)
-    params = pytree.tree_map(lambda p: p.requires_grad_(),
-                             T.init_params(cfg, 0, torch.float32,
-                                           device="cuda"))
-    batch = {"tokens": torch.zeros((1, 16), dtype=torch.int32,
-                                   device="cuda")}
-    batch["labels"] = batch["tokens"]
-    try:
-        T.loss_fn(cfg, params, batch)
-    except RuntimeError as e:
-        if "ssd_scan: no backward kernel" not in str(e) or "A14" not in str(e):
-            raise
-        print(f"refusal: a grad through mamba2's ssd_scan on the card "
-              f"raises: {e}")
-        return
-    raise AssertionError("refusal: ssd_scan took a grad on the card")
-
-
 def check_training(ref, g, cfgs, kernels, host) -> tuple:
     """Phase 10: training on the card; ``host`` is ``start_host_cuts``'s.
-    Returns (the backward's kernels row, the training run's wrapper
-    launches)."""
+    Returns ({kernel: its row} of the two backward kernels, the training
+    runs' wrapper launches summed)."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd
 
+    bwds = {"flash_attention_bwd": flash_attention_bwd,
+            "ssd_scan_bwd": ssd_scan_bwd}
     t0 = time.perf_counter()
-    row = check_flash_bwd(ref, g, cfgs)
+    rows = {"flash_attention_bwd": check_flash_bwd(ref, g, cfgs),
+            "ssd_scan_bwd": check_ssd_bwd(ref, g)}
     print(f"backward kernel checks took {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    calls = train_main(kernels, flash_attention_bwd)
-    print(f"training run took {time.perf_counter() - t0:.1f} s")
+    calls = {}
+    for arch in (TRAIN_ARCH, SSM_TRAIN_ARCH):
+        t0 = time.perf_counter()
+        for k, n in train_main(kernels, bwds, arch).items():
+            calls[k] = calls.get(k, 0) + n
+        print(f"training run {arch} took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     for cut in HOST_CUTS:
         check_train_cut(cut, host)
     print(f"cut-depth checks took {time.perf_counter() - t0:.1f} s")
     check_recovery()
-    check_refusal()
-    return row, calls
+    return rows, calls
 
 
 def main() -> None:
@@ -2997,8 +3128,8 @@ def run(ops, ref, get_config, host) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    rows["flash_attention_bwd"], calls = check_training(ref, g, cfgs,
-                                                        kernels, host)
+    bwd_rows, calls = check_training(ref, g, cfgs, kernels, host)
+    rows.update(bwd_rows)
     paths["train"] = {k: n for k, n in calls.items() if n}
     print(f"training phase took {time.perf_counter() - t0:.1f} s")
 
@@ -3008,8 +3139,10 @@ def run(ops, ref, get_config, host) -> None:
         "flash_attention": "src/repro/kernels/flash_attention.py:124",
         "ssd_scan": "src/repro/kernels/ssd_scan.py:137",
         "paged_decode_attention": "src/repro/kernels/decode_attention.py:191",
-        # Port-only: the gradient of that kernel (the Pallas one has none).
-        "flash_attention_bwd": "src/repro/kernels/flash_attention.py:124"}
+        # Port-only: the gradients of those kernels (the Pallas ones have
+        # none).
+        "flash_attention_bwd": "src/repro/kernels/flash_attention.py:124",
+        "ssd_scan_bwd": "src/repro/kernels/ssd_scan.py:137"}
     # The serving kernels run inside CUDA graphs, where their wrappers
     # are not called: their launches are the profiler's count over the
     # main path's serving run, phase 8's and phase 9's two, graph replays
@@ -3018,11 +3151,15 @@ def run(ops, ref, get_config, host) -> None:
                   "main path, the families and the elastic A/B, graph "
                   "replays and eager calls" for k in kernels}
     counted_by["paged_decode_attention"] = "wrapper calls over the replay"
-    counted_by["flash_attention"] += ("; the training run's eager calls by "
-                                      "the wrapper")
+    for k in ("flash_attention", "ssd_scan"):
+        counted_by[k] += "; the training runs' eager calls by the wrapper"
     counted_by["flash_attention_bwd"] = (
-        "wrapper calls over the training run (each launches the dQ and "
+        "wrapper calls over the training runs (each launches the dQ and "
         "the dK/dV kernels; the profiler counted both over one step)")
+    counted_by["ssd_scan_bwd"] = (
+        "wrapper calls over the training runs (each launches the chunk "
+        "kernel and the reduction; the profiler counted both over one "
+        "step)")
     launches_by = {k: {p: n[k] for p, n in paths.items() if k in n}
                    for k in replaces}
     out = [dict(name=k, route="cuda", source="src/repro_torch/csrc/"

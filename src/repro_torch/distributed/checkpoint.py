@@ -16,9 +16,12 @@ the other.
 * **atomic commit** — written to ``step_<N>.tmp``, then renamed: a crash
   mid-save never corrupts the latest checkpoint;
 * **async** — :class:`AsyncCheckpointer` snapshots to host memory
-  synchronously and writes in a background thread.
-
-Restoring onto a sharding (the reference's elastic path) is ROADMAP A10.
+  synchronously and writes in a background thread;
+* **elastic** — ``restore(..., shardings=)`` places each leaf on a
+  ``DeviceMesh`` with the placements of
+  :func:`repro_torch.distributed.sharding.named` (``distribute_tensor``),
+  whatever mesh wrote the checkpoint: a ``DTensor`` is saved whole
+  (``full_tensor``), so the files are the reference's layout either way.
 """
 from __future__ import annotations
 
@@ -39,6 +42,8 @@ PyTree = Any
 def _to_numpy(leaf) -> np.ndarray:
     """A leaf as a host numpy array; bfloat16 as ``V2`` raw bits."""
     if isinstance(leaf, torch.Tensor):
+        if _is_dtensor(leaf):  # gathered whole (a collective)
+            leaf = leaf.full_tensor()
         t = leaf.detach().to("cpu")
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.dtype("V2"))
@@ -51,16 +56,33 @@ def _dtype_name(arr: np.ndarray) -> str:
 
 
 def save(tree: PyTree, directory: str, step: int) -> str:
-    """Synchronous atomic save.  Returns the committed path."""
+    """Synchronous atomic save.  Returns the committed path.  A tree that
+    holds ``DTensor``s is saved by every rank of their mesh together: each
+    leaf is gathered whole on every rank, rank 0 writes, and all wait for
+    the commit."""
     flat, structure = pytree.flatten(tree)
+    shared = any(_is_dtensor(leaf) for leaf in flat)
+    arrs = [_to_numpy(leaf) for leaf in flat]
     final = os.path.join(directory, f"step_{step:08d}")
+    if not shared or torch.distributed.get_rank() == 0:
+        _write(arrs, repr(structure), directory, final, step)
+    if shared:
+        torch.distributed.barrier()
+    return final
+
+
+def _is_dtensor(leaf) -> bool:
+    return isinstance(leaf, torch.Tensor) and hasattr(leaf, "full_tensor")
+
+
+def _write(arrs, treedef: str, directory: str, final: str,
+           step: int) -> None:
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp, exist_ok=True)
-    manifest = {"step": step, "treedef": repr(structure), "leaves": []}
-    for i, leaf in enumerate(flat):
-        arr = _to_numpy(leaf)
+    manifest = {"step": step, "treedef": treedef, "leaves": []}
+    for i, arr in enumerate(arrs):
         fname = f"leaf_{i:05d}.npy"
         np.save(os.path.join(tmp, fname), arr)
         manifest["leaves"].append({"file": fname, "shape": list(arr.shape),
@@ -71,7 +93,6 @@ def save(tree: PyTree, directory: str, step: int) -> str:
         shutil.rmtree(final)
     os.rename(tmp, final)  # atomic commit
     _gc(directory, keep=3)
-    return final
 
 
 class AsyncCheckpointer:
@@ -130,10 +151,12 @@ def _from_numpy(arr: np.ndarray, like) -> torch.Tensor:
 def restore(template: PyTree, directory: str, step: Optional[int] = None,
             shardings: Optional[PyTree] = None) -> PyTree:
     """Restore into the structure of ``template``, each leaf in the file's
-    type on the device of the template's leaf."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore onto shardings (elastic resharding) is ROADMAP A10")
+    type.  Without ``shardings`` a leaf goes to the device of the
+    template's leaf.  With ``shardings`` (a tree matching ``template`` of
+    what :func:`repro_torch.distributed.sharding.named` returns, or one
+    such value for every leaf) each leaf becomes a ``DTensor`` placed on
+    its mesh with ``distribute_tensor``: the elastic path, onto a mesh
+    other than the one that saved it.  Every rank of the mesh calls it."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -145,8 +168,19 @@ def restore(template: PyTree, directory: str, step: Optional[int] = None,
     if len(flat_t) != len(manifest["leaves"]):
         raise ValueError(f"checkpoint has {len(manifest['leaves'])} leaves, "
                          f"template has {len(flat_t)}")
-    out = [_from_numpy(np.load(os.path.join(path, meta["file"])), t_leaf)
-           for t_leaf, meta in zip(flat_t, manifest["leaves"])]
+    if shardings is None:
+        flat_s = [None] * len(flat_t)
+    elif hasattr(shardings, "placements"):  # one sharding for every leaf
+        flat_s = [shardings] * len(flat_t)
+    else:
+        flat_s = pytree.flatten_up_to(structure, shardings)
+    out = []
+    for t_leaf, meta, sh in zip(flat_t, manifest["leaves"], flat_s):
+        arr = np.load(os.path.join(path, meta["file"]))
+        if sh is None:
+            out.append(_from_numpy(arr, t_leaf))
+        else:
+            out.append(sh.place(_from_numpy(arr, None)))
     return pytree.unflatten(structure, out)
 
 

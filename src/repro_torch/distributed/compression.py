@@ -6,14 +6,15 @@ Port of :mod:`repro.distributed.compression`:
   a tensor) with error feedback, applied inside the train step; the
   error accumulator (``CompressionState``, carried in ``TrainState``)
   keeps the long-run bias at zero (EF-SGD).
+* :func:`compressed_psum` — an all-reduce over a ``torch.distributed``
+  group that moves int8 on the wire (the reference's ``shard_map``
+  collective); :func:`compressed_allreduce_demo` runs it over the first
+  dim of a ``DeviceMesh``.
 * :func:`wire_compression_ratio` — the contract for
   ``LoaderSpec(compress="int8")``: host→device streams ship the int8
   payload plus per-group scales instead of full-width leaves, so a load's
   virtual transfer time shrinks by exactly this ratio while the resident
   footprint is unchanged.
-
-The reference's ``compressed_psum`` (an int8 all-reduce across devices)
-is ROADMAP A10.
 """
 from __future__ import annotations
 
@@ -59,6 +60,41 @@ def compress_grads(grads: PyTree, state: CompressionState
     return (pytree.unflatten(structure, [o[0] for o in outs]),
             CompressionState(error=pytree.unflatten(
                 structure, [o[1] for o in outs])))
+
+
+def compressed_psum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``group`` (every rank calls it),
+    with int8 on the wire: each rank quantizes with its own scale
+    ``max(max|x|, 1e-12) / 127``, ``q = clamp(round(x / s), -128, 127)``,
+    and all-gathers its int8 payload and its one float32 scale (the
+    reference's arithmetic; its ``psum`` of the dequantized values sums
+    in an order of XLA's).  Every rank then sums ``q_r * s_r`` in float32
+    in rank order, so all hold the same bits.  Returns float32."""
+    import torch.distributed as dist
+
+    xf = x.float()
+    scale = torch.clamp_min(xf.abs().max(), 1e-12) / _QMAX
+    q = torch.clamp(torch.round(xf / scale), -_QMAX - 1, _QMAX).to(
+        torch.int8)
+    world = dist.get_world_size(group)
+    qs = [torch.empty_like(q) for _ in range(world)]
+    scales = [torch.empty((1,), dtype=torch.float32, device=x.device)
+              for _ in range(world)]
+    dist.all_gather(qs, q, group=group)
+    dist.all_gather(scales, scale.reshape(1), group=group)
+    out = torch.zeros_like(xf)
+    for qr, sr in zip(qs, scales):
+        out += qr.float() * sr
+    return out
+
+
+def compressed_allreduce_demo(values: torch.Tensor, mesh) -> torch.Tensor:
+    """``values`` (n k, ...), the same on every rank, split in n blocks
+    over the first dim of ``mesh`` (a ``DeviceMesh``); each rank's block
+    summed over that dim by :func:`compressed_psum`: (k, ...)."""
+    n = mesh.shape[0]
+    block = values.chunk(n, dim=0)[mesh.get_local_rank(0)]
+    return compressed_psum(block, mesh.get_group(0))
 
 
 def wire_compression_ratio(bits: int, *, scheme: str = "int8",

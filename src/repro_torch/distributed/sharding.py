@@ -1,116 +1,390 @@
-"""Sharding rules for serving: logical meshes and per-device weight shares.
+"""Sharding rules: every parameter, batch, cache and optimizer leaf mapped
+to a partition on the production mesh, and logical meshes for serving.
 
-Port of the part of :mod:`repro.distributed.sharding` the serving stack
-uses: :class:`LogicalMesh`, :func:`serving_mesh`,
-:func:`weight_shard_fraction` and :func:`variant_shard_mb`.  The
-reference reads its ``param_specs`` ``PartitionSpec`` trees; here the
-same rules are a function of one leaf's path and shape
-(:func:`leaf_spec`), evaluated over the port's own parameter template on
-the ``meta`` device, so no weight is ever allocated (llama4-scout at full
-width is 107.8 B parameters).  Bytes are summed in the reference's leaf
-order (dict keys sorted), so a fraction equals the reference's bit for
-bit: a last-bit difference would move a per-device budget, and with it a
-sim trail.
+Port of :mod:`repro.distributed.sharding`.  A partition (:data:`Spec`) is
+a tuple with one entry a tensor dimension: None (replicated), a mesh axis
+name, or a tuple of axis names (the dimension split over their product,
+the first axis major), exactly as the reference's ``PartitionSpec``.  The
+spec functions walk the port's templates on the ``meta`` device
+(:func:`repro_torch.models.transformer.abstract_params`,
+:func:`~repro_torch.models.transformer.abstract_cache`,
+:func:`repro_torch.launch.specs.batch_specs_for`), so no weight is ever
+allocated (llama4-scout at full width is 107.8 B parameters), and return
+trees of the same structure.  :func:`named` turns a spec tree into
+``DTensor`` placements on a ``DeviceMesh``.  The rules only read
+``mesh.shape[name]``, so a :class:`LogicalMesh` serves them without
+devices.
 
 Scheme (Megatron-style tensor parallelism on the ``model`` axis):
 column-parallel in-projections, row-parallel out-projections, experts
-sharded on their expert dimension; every rule checks divisibility and
-replicates a leaf that does not divide.  The training-only spec
-functions (batch, cache, ZeRO-1 and optimizer-state specs) wait for the
-distributed remainder (ROADMAP A10).
+sharded on their expert dimension, data parallelism over ``data`` (and
+``pod``), sequence sharding for long-context caches; every rule checks
+divisibility and replicates a leaf that does not divide.  With ``fsdp``
+(training) a 1-D shard still above ``_FSDP_THRESHOLD`` bytes also splits
+over the data axes.  :func:`leaf_spec`, the serving layout of one leaf,
+is that same rule with ``fsdp=False``.  The serving side's
+:func:`weight_shard_fraction` sums bytes in the reference's leaf order
+(dict keys sorted), so a fraction equals the reference's bit for bit: a
+last-bit difference would move a per-device budget, and with it a sim
+trail.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.models.config import ModelConfig
 
+PyTree = Any
 # Weights whose *input* (K) dim is sharded: the row-parallel halves of each
 # Megatron pair.  Everything else 2-D prefers column (output/N) sharding.
 _ROW_PARALLEL = ("wo", "wd", "ws_d", "ssm_out")
 
-Spec = Tuple[Optional[str], ...]
+Entry = Union[None, str, Tuple[str, ...]]
+Spec = Tuple[Entry, ...]
+
+# 1-D (TP-only) shards above this per-device size get a second axis
+# (fully-sharded compute weights): without it the 103B-param MoE tenant's
+# bf16 compute copy alone is 12.9 GB a device.
+_FSDP_THRESHOLD = 64 * 1024 * 1024
 
 
 def _div(n: int, m: int) -> bool:
     return m > 0 and n % m == 0
 
 
-def _spec_for(name: str, shape: Tuple[int, ...], in_layers: bool,
-              m: int, model_axis: str) -> list:
-    """The reference's ``param_specs`` rule for one (unquantized) leaf
-    with ``fsdp=False``, the serving layout."""
-    nd = len(shape)
-    lead = 1 if in_layers else 0  # stacked L dim
-    base: list = [None] * nd
-    if in_layers and nd - lead <= 1:
-        return base  # per-layer vectors: replicate
-    if name == "embed":  # (Kcb, Vp, D)
-        if _div(shape[1], m):
-            base[1] = model_axis
-        return base
-    if name == "head":  # (Kcb, D, Vp)
-        if _div(shape[2], m):
-            base[2] = model_axis
-        return base
-    if name in ("meta", "final_norm"):
-        return base
-    if name.startswith("we_"):  # (L, E, D, F): shard experts
-        if _div(shape[1], m):
-            base[1] = model_axis
-        elif _div(shape[-1], m):
-            base[-1] = model_axis
-        return base
-    if nd - lead == 2:  # (L, K, N) linear weights
-        k_dim, n_dim = nd - 2, nd - 1
-        row_first = any(name.startswith(r) for r in _ROW_PARALLEL)
-        for d in ((k_dim, n_dim) if row_first else (n_dim, k_dim)):
-            if _div(shape[d], m):
-                base[d] = model_axis
-                break
-        return base
-    return base
+def _dp(mesh, dp_axes: Tuple[str, ...]) -> Tuple[int, Entry]:
+    """(size, entry) of the data axes: one axis by its name, several as
+    their tuple."""
+    size = 1
+    for a in dp_axes:
+        size *= mesh.shape[a]
+    return size, (dp_axes if len(dp_axes) > 1 else dp_axes[0])
 
 
-def leaf_spec(path: str, shape: Tuple[int, ...], mesh, *,
-              model_axis: str = "model") -> Spec:
+def _is_spec(x) -> bool:
+    """A partition, as opposed to a tree node (NamedTuples are nodes)."""
+    return type(x) is tuple
+
+
+def spec_map(fn, spec_tree: PyTree, *rest: PyTree) -> PyTree:
+    """``fn`` over the partitions of ``spec_tree`` and the matching leaves
+    of each tree in ``rest``: ``jax.tree.map`` with ``PartitionSpec`` a
+    leaf."""
+    if _is_spec(spec_tree):
+        return fn(spec_tree, *rest)
+    if spec_tree is None:
+        return None
+    if isinstance(spec_tree, dict):
+        return {k: spec_map(fn, v, *(r[k] for r in rest))
+                for k, v in spec_tree.items()}
+    vals = [spec_map(fn, v, *(r[i] for r in rest))
+            for i, v in enumerate(spec_tree)]
+    return type(spec_tree)(*vals) if hasattr(spec_tree, "_fields") \
+        else type(spec_tree)(vals)
+
+
+def _paths(tree: PyTree, path: str = ""):
+    """(path, leaf) of every leaf, dict keys sorted at every level: the
+    order ``jax.tree.leaves`` walks the reference's pytrees in, and its
+    key paths joined with ``/``."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _paths(tree[k], f"{path}/{k}" if path else k)
+    else:
+        yield path, tree
+
+
+def _with_paths(fn, tree: PyTree, path: str = "") -> PyTree:
+    """``fn(path, leaf)`` over a dict tree, keeping its structure."""
+    if isinstance(tree, dict):
+        return {k: _with_paths(fn, v, f"{path}/{k}" if path else k)
+                for k, v in tree.items()}
+    return fn(path, tree)
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+def _param_rule(path: str, shape: Tuple[int, ...], mesh, model_axis: str,
+                dp_axes: Tuple[str, ...], fsdp: bool) -> Spec:
     """The partition of one parameter leaf (``path`` joins dict keys with
-    ``/``, as ``quant.quantize.tree_map`` does) under ``mesh``: for each
-    dimension the mesh axis it is split over, or None.  A quantized
-    leaf's ``q`` takes its weight's rule; its scales ``s`` (..., G, N)
-    shard N like ``q`` and never the group axis."""
+    ``/``): the reference's ``param_specs`` rule.  A quantized leaf's ``q``
+    takes its weight's rule; its scales ``s`` (..., G, N) shard N like
+    ``q`` and never the group axis."""
     m = mesh.shape[model_axis]
     parts = path.split("/")
     in_layers = parts[0] == "layers"
     shape = tuple(shape)
+
+    def maybe_2d(base: list) -> list:
+        """The data axes on the largest free divisible dim, when the 1-D
+        shard is still huge (MoE expert stacks; f32 bytes).  Train-only:
+        at serve time 2-D weights force per-layer gathers."""
+        if not fsdp:
+            return base
+        n = 4
+        for d in shape:
+            n *= d
+        if n // m < _FSDP_THRESHOLD:
+            return base
+        dp_size, dp_spec = _dp(mesh, dp_axes)
+        cands = [i for i in range(len(shape))
+                 if base[i] is None and _div(shape[i], dp_size)]
+        if cands:
+            base[max(cands, key=lambda i: shape[i])] = dp_spec
+        return base
+
+    def spec_for(name: str) -> list:
+        nd = len(shape)
+        lead = 1 if in_layers else 0  # stacked L dim
+        base: list = [None] * nd
+        if in_layers and nd - lead <= 1:
+            return base  # per-layer vectors: replicate
+        if name == "embed":  # (Kcb, Vp, D)
+            if _div(shape[1], m):
+                base[1] = model_axis
+            return maybe_2d(base)
+        if name == "head":  # (Kcb, D, Vp)
+            if _div(shape[2], m):
+                base[2] = model_axis
+            return maybe_2d(base)
+        if name in ("meta", "final_norm"):
+            return base
+        if name.startswith("we_"):  # (L, E, D, F): shard experts
+            if _div(shape[1], m):
+                base[1] = model_axis
+            elif _div(shape[-1], m):
+                base[-1] = model_axis
+            return maybe_2d(base)
+        if nd - lead == 2:  # (L, K, N) linear weights
+            k_dim, n_dim = nd - 2, nd - 1
+            row_first = any(name.startswith(r) for r in _ROW_PARALLEL)
+            for d in ((k_dim, n_dim) if row_first else (n_dim, k_dim)):
+                if _div(shape[d], m):
+                    base[d] = model_axis
+                    break
+            return maybe_2d(base)
+        return base
+
     if parts[-1] in ("q", "s"):
-        sp = _spec_for(parts[-2], shape, in_layers, m, model_axis)
+        sp = spec_for(parts[-2])
         if parts[-1] == "s":
             sp[len(shape) - 2] = None  # row-parallel q: scales replicate
         return tuple(sp)
-    name = parts[1] if in_layers else parts[0]
-    return tuple(_spec_for(name, shape, in_layers, m, model_axis))
+    return tuple(spec_for(parts[1] if in_layers else parts[0]))
+
+
+def param_specs(cfg: ModelConfig, abstract_params: PyTree, mesh, *,
+                model_axis: str = "model",
+                dp_axes: Tuple[str, ...] = ("data",),
+                fsdp: bool = True) -> PyTree:
+    """The partition of every leaf of ``abstract_params`` (plain or
+    quantized, any device, ``meta`` included), as a tree of its
+    structure."""
+    return _with_paths(
+        lambda path, leaf: _param_rule(path, tuple(leaf.shape), mesh,
+                                       model_axis, dp_axes, fsdp),
+        abstract_params)
+
+
+def leaf_spec(path: str, shape: Tuple[int, ...], mesh, *,
+              model_axis: str = "model") -> Spec:
+    """The serving partition of one parameter leaf: :func:`param_specs`'s
+    rule with ``fsdp=False`` (so no data axis is read)."""
+    return _param_rule(path, shape, mesh, model_axis, ("data",), False)
+
+
+# ---------------------------------------------------------------------------
+# Batches, caches, optimizer state
+# ---------------------------------------------------------------------------
+def batch_specs(cfg: ModelConfig, batch_abstract: PyTree, mesh, *,
+                dp_axes: Tuple[str, ...] = ("data",)) -> PyTree:
+    """Every batch leaf split on its leading (batch) dim over the data
+    axes, where it divides."""
+    dp_size, dp_spec = _dp(mesh, dp_axes)
+
+    def visit(path, leaf):
+        base: list = [None] * leaf.dim()
+        if leaf.dim() >= 1 and _div(leaf.shape[0], dp_size):
+            base[0] = dp_spec
+        return tuple(base)
+
+    return _with_paths(visit, batch_abstract)
+
+
+def cache_specs(cfg: ModelConfig, cache_abstract: PyTree, mesh, *,
+                dp_axes: Tuple[str, ...] = ("data",),
+                model_axis: str = "model") -> PyTree:
+    """The decode cache: batch over the data axes, KV heads (else the
+    sequence) over ``model``; a batch that does not divide (long context,
+    one sequence) shards the sequence over the data axes and ``model``
+    together."""
+    m = mesh.shape[model_axis]
+    dp_size, dp_spec = _dp(mesh, dp_axes)
+
+    def kv(shape, nd):  # (L, B, T, KV[, hd])
+        sp: list = [None] * nd
+        B, T, KV = shape[1], shape[2], shape[3]
+        b_sharded = _div(B, dp_size)
+        if b_sharded:
+            sp[1] = dp_spec
+        if _div(KV, m):
+            sp[3] = model_axis
+        elif not b_sharded and _div(T, dp_size * m):
+            sp[2] = tuple(dp_axes) + (model_axis,)  # long-context seq
+        elif _div(T, m):
+            sp[2] = model_axis
+        return tuple(sp)
+
+    def visit(path, leaf):
+        name = path.split("/")[0]
+        shape = tuple(leaf.shape)
+        if name == "lengths":  # (B,)
+            return (dp_spec if _div(shape[0], dp_size) else None,)
+        if name in ("k", "v", "k_scale", "v_scale"):
+            return kv(shape, len(shape))
+        if name == "state":  # (L, B, nh, hd, N)
+            sp: list = [None] * 5
+            if _div(shape[1], dp_size):
+                sp[1] = dp_spec
+            if _div(shape[2], m):
+                sp[2] = model_axis
+            return tuple(sp)
+        if name == "conv":  # (L, B, W-1, convd)
+            sp = [None] * 4
+            if _div(shape[1], dp_size):
+                sp[1] = dp_spec
+            if _div(shape[3], m):
+                sp[3] = model_axis
+            return tuple(sp)
+        return (None,) * len(shape)
+
+    return _with_paths(visit, cache_abstract)
+
+
+def zero1_specs(abstract_tree: PyTree, spec_tree: PyTree, mesh, *,
+                dp_axes: Tuple[str, ...] = ("data",)) -> PyTree:
+    """ZeRO-1: also shard the f32 master and optimizer leaves over the
+    data axes on their largest free divisible dim (the combined data axes
+    first, then each free one alone), so that the big MoE tenants'
+    master copy and moments drop by the data-parallel degree."""
+    dp_size, dp_spec = _dp(mesh, dp_axes)
+
+    def augment(spec, leaf):
+        shape = tuple(leaf.shape)
+        if len(shape) < 2:
+            return spec
+        dims = list(spec)
+        used = {a for d in dims if d is not None
+                for a in (d if isinstance(d, tuple) else (d,))}
+        if used & set(dp_axes):
+            return spec  # already fully sharded (FSDP 2-D weights)
+        attempts = [(dp_spec, dp_size)] + [(a, mesh.shape[a])
+                                           for a in dp_axes if a not in used]
+        for ax_spec, ax_size in attempts:
+            cands = [i for i in range(len(shape))
+                     if dims[i] is None and _div(shape[i], ax_size)]
+            if cands:
+                dims[max(cands, key=lambda i: shape[i])] = ax_spec
+                return tuple(dims)
+        return spec
+
+    return spec_map(augment, spec_tree, abstract_tree)
+
+
+def state_specs(cfg: ModelConfig, abstract_state, mesh,
+                param_spec_tree: PyTree, *, zero1: bool = True,
+                dp_axes: Tuple[str, ...] = ("data",)):
+    """A ``TrainState`` of partitions: the optimizer state mirrors the
+    parameter sharding (with ZeRO-1 over the data axes for the f32 master
+    copy and both AdamW moments); the step is replicated."""
+    from repro_torch.training.train_step import TrainState
+
+    master = (zero1_specs(abstract_state.params, param_spec_tree, mesh,
+                          dp_axes=dp_axes) if zero1 else param_spec_tree)
+    return TrainState(
+        params=master,
+        opt=type(abstract_state.opt)(step=(), mu=master, nu=master),
+        comp=None if abstract_state.comp is None else CompState_spec(master))
+
+
+def CompState_spec(param_spec_tree: PyTree):
+    """The error-feedback accumulator sharded as the parameters."""
+    from repro_torch.distributed.compression import CompressionState
+
+    return CompressionState(error=param_spec_tree)
+
+
+# ---------------------------------------------------------------------------
+# DTensor placements
+# ---------------------------------------------------------------------------
+class NamedSharding(NamedTuple):
+    """A partition on a ``torch.distributed`` ``DeviceMesh`` (with
+    ``mesh_dim_names``): what :func:`named` gives a leaf, and what
+    :func:`repro_torch.distributed.checkpoint.restore` and
+    :func:`repro_torch.distributed.elastic.reshard` place with."""
+    mesh: Any
+    spec: Spec
+
+    @property
+    def placements(self) -> tuple:
+        return placements(self.mesh, self.spec)
+
+    def place(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` as a ``DTensor`` on this mesh with these placements: a
+        ``DTensor`` of this mesh is redistributed, one of another mesh
+        gathered whole first, a plain tensor split (every rank of the
+        mesh calls it, with the same value)."""
+        from torch.distributed.tensor import distribute_tensor
+
+        if hasattr(t, "redistribute"):  # a DTensor
+            if t.device_mesh == self.mesh:
+                return t.redistribute(self.mesh, list(self.placements))
+            t = t.full_tensor()
+        return distribute_tensor(t.to(self.mesh.device_type), self.mesh,
+                                 list(self.placements))
+
+
+def placements(mesh, spec: Spec) -> tuple:
+    """``DTensor`` placements of ``spec`` on ``mesh``: ``Shard(d)`` on each
+    mesh dim whose axis the spec puts on tensor dim ``d``, ``Replicate()``
+    elsewhere.  An entry of several axes must name them in the mesh's
+    order (the first the major one, as in the reference), the order in
+    which ``DTensor`` splits a dim over several mesh dims."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec {spec}: axes {axes} of dim {d} are not "
+                             f"in the mesh's order {names}")
+        for i in idx:
+            out[i] = Shard(d)
+    return tuple(out)
+
+
+def named(mesh, spec_tree: PyTree) -> PyTree:
+    """Each partition of ``spec_tree`` as a :class:`NamedSharding` on
+    ``mesh`` (a ``DeviceMesh``)."""
+    return spec_map(lambda s: NamedSharding(mesh, s), spec_tree)
 
 
 def _divisor(spec: Spec, mesh) -> int:
     """How many ways a leaf with partition ``spec`` is split on ``mesh``."""
     div = 1
     for entry in spec:
-        if entry is not None:
-            div *= mesh.shape[entry]
+        if entry is None:
+            continue
+        for ax in (entry if isinstance(entry, tuple) else (entry,)):
+            div *= mesh.shape[ax]
     return div
-
-
-def _sorted_leaves(tree, path: str = ""):
-    """(path, tensor) of every leaf, dict keys sorted at every level: the
-    order ``jax.tree.leaves`` walks the reference's pytrees in."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _sorted_leaves(tree[k], f"{path}/{k}" if path else k)
-    else:
-        yield path, tree
 
 
 # ---------------------------------------------------------------------------
@@ -165,10 +439,10 @@ def weight_shard_fraction(cfg: ModelConfig, mesh, *,
     initializer keeps some vectors in f32, as the reference's does."""
     from repro_torch.models import transformer as T
 
-    abstract = T.init_params(cfg, 0, dtype or torch.bfloat16, device="meta")
+    abstract = T.abstract_params(cfg, dtype or torch.bfloat16)
     total = 0
     per_device = 0.0
-    for path, leaf in _sorted_leaves(abstract):
+    for path, leaf in _paths(abstract):
         nbytes = leaf.numel() * leaf.element_size()
         spec = leaf_spec(path, tuple(leaf.shape), mesh,
                          model_axis=model_axis)

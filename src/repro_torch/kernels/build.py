@@ -30,9 +30,10 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("quant_matmul", "decode_attention", "flash_attention",
-           "flash_attention_bwd", "ssd_scan")
+           "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd")
 # The wrapper module of a source whose name is not its own.
-_MODULES = {"flash_attention_bwd": "flash_attention"}
+_MODULES = {"flash_attention_bwd": "flash_attention",
+            "ssd_scan_bwd": "ssd_scan"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

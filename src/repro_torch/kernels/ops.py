@@ -10,10 +10,11 @@ override and no silent fallback on a GPU.  ``quantize_weights``,
 ``paginate_kv`` lays a dense cache out as the pages and table that
 ``paged_decode_attention`` reads, ``split_plan`` says how the two
 decode kernels cut a call's keys, ``flash_plan`` and ``ssd_plan`` how the
-prefill attention and the scan cut theirs.  ``flash_attention`` is
-differentiable on the card: its backward is the port's own kernel,
-``flash_attention_bwd`` (cut by ``flash_bwd_plan``); the other kernels
-refuse a gradient on the card.
+prefill attention and the scan cut theirs.  ``flash_attention`` and
+``ssd_scan`` are differentiable on the card: their backwards are the
+port's own kernels, ``flash_attention_bwd`` (cut by ``flash_bwd_plan``)
+and ``ssd_scan_bwd`` (cut by ``ssd_bwd_plan``); the other kernels refuse
+a gradient on the card.
 """
 from __future__ import annotations
 
@@ -25,7 +26,8 @@ from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_bwd,
                                                  flash_bwd_plan, flash_plan)
 from repro_torch.kernels.quant_matmul import quant_matmul
-from repro_torch.kernels.ssd_scan import ssd_plan, ssd_scan
+from repro_torch.kernels.ssd_scan import (ssd_bwd_plan, ssd_plan, ssd_scan,
+                                          ssd_scan_bwd)
 
 quantize_weights = ref.quantize_weights
 ssd_step = ref.ssd_step
@@ -35,5 +37,5 @@ causal_conv1d_step = ref.causal_conv1d_step
 __all__ = ["causal_conv1d", "causal_conv1d_step", "decode_attention",
            "flash_attention", "flash_attention_bwd", "flash_bwd_plan",
            "flash_plan", "paged_decode_attention", "paginate_kv",
-           "quant_matmul", "quantize_weights", "split_plan", "ssd_plan",
-           "ssd_scan", "ssd_step"]
+           "quant_matmul", "quantize_weights", "split_plan", "ssd_bwd_plan",
+           "ssd_plan", "ssd_scan", "ssd_scan_bwd", "ssd_step"]

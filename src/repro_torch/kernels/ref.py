@@ -9,9 +9,11 @@ and ``chip_smoke.py`` holds each Hopper kernel against them on the card.
 kernel's split-key passes, ``quant_matmul_splits`` the cluster's split-K
 sum, ``ssd_scan_sliced`` the scan's chunks and slices and
 ``flash_attention_tiles`` the prefill kernel's key tiles and
-``flash_attention_bwd_tiles`` its backward's two passes, for the tests;
+``flash_attention_bwd_tiles`` its backward's two passes,
+``ssd_scan_bwd_tiles`` the scan backward's passes, for the tests;
 nothing else calls them.  ``flash_attention_bwd`` (autograd through
-``flash_attention``) is the backward kernel's oracle.
+``flash_attention``) and ``ssd_scan_bwd`` (autograd through
+``ssd_scan_chunked``) are the backward kernels' oracles.
 Scores, softmax and products run in float32; outputs are cast back to the
 query's (or ``out_dtype``'s) type, as in the reference.
 """
@@ -538,12 +540,16 @@ def ssd_scan_chunked(
     a = dtf * Af[None, None, None, :]  # (B, nc, Q, H) — log decay per step
     a_cum = torch.cumsum(a, dim=2)  # inclusive within-chunk cumulative decay
     # Intra-chunk ("diagonal block") term.  exp(seg) overflows above the
-    # diagonal; the select (not a product) keeps it out of the result.
+    # diagonal; the select (not a product) keeps it out of the result.  It
+    # selects the exponent's argument (-inf above the diagonal, exp 0), not
+    # exp(seg) itself: the values are the same, and autograd's gradient
+    # stays finite (through a select of exp(seg), a zero cotangent meets
+    # the overflowed exp and gives 0 * inf = NaN).
     seg = a_cum[:, :, :, None, :] - a_cum[:, :, None, :, :]  # (B,nc,Qi,Qj,H)
     iq = torch.arange(Q, device=x.device)
     tri = iq[:, None] >= iq[None, :]
-    Ldec = torch.where(tri[None, None, :, :, None], torch.exp(seg),
-                       torch.zeros((), device=x.device))
+    Ldec = torch.exp(torch.where(tri[None, None, :, :, None], seg,
+                                 float("-inf")))
     cb = torch.einsum("bcqhn,bckhn->bcqkh", Cf, Bf)
     M = cb * Ldec * dtf[:, :, None, :, :]  # weight by dt at the key position
     y_diag = torch.einsum("bcqkh,bckhp->bcqhp", M, xf)
@@ -637,6 +643,133 @@ def ssd_scan_sliced(
     if return_state:
         return y, h
     return y
+
+
+def ssd_scan_bwd(x, dt, A, Bm, Cm, D, dy, *, init_state=None, dstate=None,
+                 chunk: int = 256):
+    """(dx, ddt, dA, dBm, dCm, dD, d init_state) of :func:`ssd_scan_chunked`
+    at ``chunk`` for the output gradient ``dy`` and the final state's
+    ``dstate`` (either None: zero): autograd through the plain version,
+    the backward kernel's oracle.  Each gradient in its input's type; the
+    last is None without ``init_state``."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (x, dt, A, Bm, Cm, D)]
+        init = (None if init_state is None
+                else init_state.detach().requires_grad_())
+        y, h = ssd_scan_chunked(*leaves, chunk=chunk, init_state=init,
+                                return_state=True)
+        outs, cots = [], []
+        if dy is not None:
+            outs.append(y)
+            cots.append(dy.to(y.dtype))
+        if dstate is not None:
+            outs.append(h)
+            cots.append(dstate.to(h.dtype))
+        wrt = leaves + ([init] if init is not None else [])
+        grads = (torch.autograd.grad(outs, wrt, cots, allow_unused=True)
+                 if outs else [None] * len(wrt))
+    grads = [torch.zeros_like(t) if g is None else g
+             for t, g in zip(wrt, grads)]
+    return (*grads[:6], grads[6] if init is not None else None)
+
+
+def ssd_scan_bwd_tiles(x, dt, A, Bm, Cm, D, dy, *, kq: int, init_state=None,
+                       dstate=None):
+    """A plain model of the backward kernel's decomposition
+    (``csrc/ssd_scan_bwd.cu``), in float32: chunks of ``kq`` rows, the
+    last one ragged; pass 1 the state entering each chunk, pass 2 over the
+    chunks in reverse with the state cotangent g: the decay block's M, W
+    and F, dx, per-head partials of dB and dC, d(a) per row and its
+    reverse cumulative sum into ddt, dA and dD gathered chunk by chunk, and
+    g stepped back.  Then the partials of dB and dC summed over the heads
+    of each group in head order, and dA and dD over the sequences.  Equal
+    to :func:`ssd_scan_bwd` up to rounding.  Only the tests call it."""
+    Bb, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep = H // G
+    dev = x.device
+    xf, dtf = x.float(), dt.float()
+    dyf = (torch.zeros((Bb, S, H, P), device=dev) if dy is None
+           else dy.float())
+    Bf = Bm.float().repeat_interleave(rep, dim=2)  # (B, S, H, N)
+    Cf = Cm.float().repeat_interleave(rep, dim=2)
+    Af, Df = A.float(), D.float()
+    chunks = [(c0, min(kq, S - c0)) for c0 in range(0, S, kq)]
+
+    def decays(c0, nq):  # a, e^a, e^(a_end - a), w: (B, q, H); a_end (B, H)
+        a = torch.cumsum(dtf[:, c0:c0 + nq] * Af, dim=1)
+        ed = torch.exp(a[:, -1:] - a)
+        return a, torch.exp(a), ed, ed * dtf[:, c0:c0 + nq], a[:, -1]
+
+    h = (torch.zeros((Bb, H, P, N), device=dev) if init_state is None
+         else init_state.float())
+    starts = []
+    for c0, nq in chunks:  # pass 1
+        starts.append(h)
+        sl = slice(c0, c0 + nq)
+        _, _, _, w, a_end = decays(c0, nq)
+        h = torch.exp(a_end)[..., None, None] * h + torch.einsum(
+            "bjh,bjhp,bjhn->bhpn", w, xf[:, sl], Bf[:, sl])
+    g = (torch.zeros((Bb, H, P, N), device=dev) if dstate is None
+         else dstate.float())
+    dx = torch.empty((Bb, S, H, P), device=dev)
+    ddt = torch.empty((Bb, S, H), device=dev)
+    dBp = torch.empty((Bb, S, H, N), device=dev)
+    dCp = torch.empty((Bb, S, H, N), device=dev)
+    dAp = torch.zeros((Bb, H), device=dev)
+    dDp = torch.zeros((Bb, H), device=dev)
+    for c in reversed(range(len(chunks))):  # pass 2
+        c0, nq = chunks[c]
+        sl = slice(c0, c0 + nq)
+        h = starts[c]
+        xc, dyc, bc, cc, dtc = (xf[:, sl], dyf[:, sl], Bf[:, sl], Cf[:, sl],
+                                dtf[:, sl])
+        a, ea, ed, w, a_end = decays(c0, nq)
+        i = torch.arange(nq, device=dev)
+        tri = (i[:, None] >= i[None, :])[None, None]
+        ah = a.permute(0, 2, 1)  # (B, H, q)
+        L = torch.where(tri, torch.exp(ah[..., :, None] - ah[..., None, :]),
+                        torch.zeros((), device=dev))
+        cb = torch.einsum("bihn,bjhn->bhij", cc, bc)
+        dm = torch.einsum("bihp,bjhp->bhij", dyc, xc)
+        dtj = dtc.permute(0, 2, 1)[:, :, None, :]
+        M, W, F_ = cb * L * dtj, dm * L * dtj, dm * cb * L
+        gB = torch.einsum("bhpn,bjhn->bjhp", g, bc)
+        Z = torch.einsum("bihp,bhpn->bihn", dyc, h)
+        zc = (cc * Z).sum(-1)  # (B, q, H)
+        xgb = (xc * gB).sum(-1)
+        dx[:, sl] = (torch.einsum("bhij,bihp->bjhp", M, dyc)
+                     + Df[:, None] * dyc + w[..., None] * gB)
+        dCp[:, sl] = (torch.einsum("bhij,bjhn->bihn", W, bc)
+                      + ea[..., None] * Z)
+        rowe = (F_ * dtj).sum(-1).permute(0, 2, 1)  # (B, q, H)
+        colf = F_.sum(-2).permute(0, 2, 1)
+        gh = (g * h).sum((-1, -2))  # (B, H)
+        Xg = torch.einsum("bjhp,bhpn->bjhn", xc, g)
+        u = w * xgb
+        da = rowe - dtc * colf + ea * zc - u
+        da[:, nq - 1] += u.sum(1) + torch.exp(a_end) * gh
+        R = torch.flip(torch.cumsum(torch.flip(da, (1,)), 1), (1,))
+        ddt[:, sl] = colf + ed * xgb + Af * R
+        dAp += (dtc * R).sum(1)
+        dDp += torch.diagonal(dm, dim1=-2, dim2=-1).sum(-1)
+        dBp[:, sl] = (torch.einsum("bhij,bihn->bjhn", W, cc)
+                      + w[..., None] * Xg)
+        g = torch.exp(a_end)[..., None, None] * g + torch.einsum(
+            "bih,bihp,bihn->bhpn", ea, dyc, cc)
+    dB = torch.zeros((Bb, S, G, N), device=dev)
+    dC = torch.zeros((Bb, S, G, N), device=dev)
+    for r in range(rep):  # the heads of each group, in order
+        dB += dBp.reshape(Bb, S, G, rep, N)[:, :, :, r]
+        dC += dCp.reshape(Bb, S, G, rep, N)[:, :, :, r]
+    dA = torch.zeros((H,), device=dev)
+    dD = torch.zeros((H,), device=dev)
+    for b in range(Bb):  # the sequences, in order
+        dA += dAp[b]
+        dD += dDp[b]
+    return (dx.to(x.dtype), ddt.to(dt.dtype), dA.to(A.dtype),
+            dB.to(Bm.dtype), dC.to(Cm.dtype), dD.to(D.dtype),
+            g if init_state is not None else None)
 
 
 def ssd_step(

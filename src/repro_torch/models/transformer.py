@@ -141,6 +141,13 @@ def init_params(cfg: ModelConfig, seed: int, dtype=torch.bfloat16,
     return params
 
 
+def abstract_params(cfg: ModelConfig, dtype=torch.bfloat16) -> PyTree:
+    """The parameter tree's shapes and types, on the ``meta`` device:
+    nothing is allocated (the reference's ``jax.eval_shape`` of
+    ``init_params``)."""
+    return init_params(cfg, 0, dtype, device="meta")
+
+
 def params_from_numpy(tree: PyTree, device="cpu") -> PyTree:
     """A reference parameter tree (``repro.models.transformer.init_params``
     output, or a quantized variant, as numpy arrays) as the port's params
@@ -192,6 +199,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return {name: torch.zeros(shape, dtype=dt, device=device)
             for name, (shape, dt) in cache_shapes(
                 cfg, batch, max_len, dtype, quantized).items()}
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   dtype=torch.bfloat16, quantized: bool = False) -> PyTree:
+    """The decode cache's shapes and types, on the ``meta`` device."""
+    return init_cache(cfg, batch, max_len, dtype, quantized, device="meta")
 
 
 def _layer_windows(cfg: ModelConfig) -> Tuple[int, ...]:

@@ -69,3 +69,23 @@ def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
     if any(len(o) != len(flat) for o in others):
         raise ValueError("trees of different structure")
     return unflatten(structure, [fn(*xs) for xs in zip(flat, *others)])
+
+
+def flatten_up_to(structure: Any, tree: PyTree) -> List[Any]:
+    """The subtrees of ``tree`` at the leaf positions of ``structure``
+    (from :func:`flatten`): ``jax``'s ``treedef.flatten_up_to``, for a
+    tree whose leaves are themselves tuples (shardings)."""
+    out: List[Any] = []
+
+    def walk(s, t):
+        if s is None:
+            return
+        if s == _LEAF:
+            out.append(t)
+            return
+        kind, keys, kids = s
+        for k, kid in zip(keys if kind is dict else range(len(kids)), kids):
+            walk(kid, t[k])
+
+    walk(structure, tree)
+    return out

@@ -73,7 +73,8 @@ def make_train_step(
     if zero_specs is not None:
         raise NotImplementedError(
             "zero_specs (ZeRO-2/FSDP sharding of the compute copy and the "
-            "gradients) is ROADMAP A10")
+            "gradients) only constrains a step whose parameters are "
+            "sharded across cards: ROADMAP A13")
 
     def cast(params):
         if compute_dtype is None:

@@ -27,7 +27,9 @@ print(" ".join(names))
 """
 
 # The modules of the sharded loader, the elastic mesh and the cluster
-# tier; of training, checkpoints and supervised restarts.
+# tier; of training, checkpoints and supervised restarts; of the
+# distributed remainder (elastic resharding, the sharding context, the
+# launch specs and meshes).
 SLICE = ("repro_torch.distributed.sharding",
          "repro_torch.distributed.fault_tolerance",
          "repro_torch.serving.sharded_loader", "repro_torch.serving.elastic",
@@ -37,7 +39,9 @@ SLICE = ("repro_torch.distributed.sharding",
          "repro_torch.training.pytree", "repro_torch.training.train_step",
          "repro_torch.distributed.checkpoint",
          "repro_torch.distributed.compression",
-         "repro_torch.launch.train")
+         "repro_torch.launch.train", "repro_torch.distributed.elastic",
+         "repro_torch.distributed.ctx", "repro_torch.launch.specs",
+         "repro_torch.launch.mesh")
 
 
 def test_port_imports_neither_jax_nor_repro():

@@ -1,9 +1,9 @@
 """The port's sharding rules, sharded loader, cross-device migration and
 wire compression against the JAX package's.
 
-Ports ``test_sharded_loader``, the logical part of ``test_sharding``
-(the serving layout's partition rules; the training-only batch, cache and
-ZeRO-1 specs wait for ROADMAP A10), ``test_migration`` and
+Ports ``test_sharded_loader``, the serving layout's part of
+``test_sharding`` (the training specs are ``test_torch_sharding.py``'s),
+``test_migration`` and
 ``test_wire_compression``.  Each scenario runs once on the reference and
 once on the port, in this process, on the same synthetic zoos or sim
 config: the reference test's own assertions hold on both, and what each

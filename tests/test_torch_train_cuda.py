@@ -9,10 +9,21 @@ bf16.  Tolerances: f32 ``rtol=atol=3e-5`` element-wise (the kernel and
 autograd both sum in f32, in other orders); bf16 ``rtol=atol=3e-2``
 element-wise and, since a gradient summed over many rows can sit near
 zero, also 1e-2 relative l2.  Then: two calls bit-identical (no float
-atomics); the autograd Function's gradients equal the kernel's; the four
+atomics); the autograd Function's gradients equal the kernel's; the three
 kernels without a backward refuse a grad; and one supervised run of a
 reduced model with an injected failure ends bit-equal to an unbroken
-run.  Imports no JAX: it runs on the machine with the card.
+run.  The scan's backward kernel (``repro_torch/csrc/ssd_scan_bwd.cu``)
+against ``ref.ssd_scan_bwd`` (autograd through the plain chunked form) at
+the sweep of ``test_kernels.py``, with and without an initial state and a
+final-state cotangent, from column slices of one tensor as the model
+passes them: f32 within 2e-4 (the scan's tolerance), bf16 within 3e-2 and
+1e-2 relative l2; dA and dD, each a sum over every token of the batch,
+within 2e-4 of their largest element (two float32 evaluations of the
+oracle itself differ past 2e-4 there: ``test_torch_ssd_bwd_plan.py::
+test_token_sums_round_with_their_scale``); two calls bit-equal, and
+autograd through
+``ops.ssd_scan`` runs it.  Imports no JAX: it runs on the machine with the
+card.
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_train_cuda.py
 """
@@ -24,6 +35,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                  flash_attention_lse)
+from repro_torch.kernels.ssd_scan import ssd_scan_bwd
 
 TOL = {torch.float32: dict(rtol=3e-5, atol=3e-5),
        torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
@@ -138,16 +150,11 @@ def test_kernels_without_a_backward_refuse_grad(sm90):
     kc = torch.randn(2, 32, 4, 64, device=sm90)
     lens = torch.full((2,), 20, dtype=torch.int32, device=sm90)
     kp, vp, table = ops.paginate_kv(kc, kc, lens, 16)
-    xs = torch.randn(1, 16, 2, 16, device=sm90, requires_grad=True)
-    dt = torch.rand(1, 16, 2, device=sm90)
-    A, Dk = -torch.rand(2, device=sm90), torch.ones(2, device=sm90)
-    Bm = torch.randn(1, 16, 1, 8, device=sm90)
     calls = {
         "quant_matmul": lambda: ops.quant_matmul(x, wq, ws),
         "decode_attention": lambda: ops.decode_attention(q, kc, kc, lens),
         "paged_decode_attention": lambda: ops.paged_decode_attention(
             q, kp, vp, table, lens),
-        "ssd_scan": lambda: ops.ssd_scan(xs, dt, A, Bm, Bm, Dk),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match=f"{name}: no backward"):
@@ -209,3 +216,90 @@ print(json.dumps({{"restarts": out["b"][0], "equal": equal,
     assert out.returncode == 0, out.stderr[-3000:]
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["restarts"] == 1 and res["equal"] and res["bwd"] > 0, res
+
+
+SSD_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4),
+           torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
+# (B, S, H, P, G, N): the sweep of test_kernels.py (ragged tails, G > 1,
+# mamba2-780m's heads) and hymba-1.5b's branch.
+SSD_SHAPES = [(1, 64, 2, 16, 1, 8), (2, 96, 4, 32, 2, 16),
+              (1, 50, 2, 16, 1, 8), (2, 128, 48, 64, 1, 128),
+              (1, 200, 25, 64, 5, 16)]
+SSD_NAMES = ("dx", "ddt", "dA", "dB", "dC", "dD", "dinit")
+SSD_SUMS = ("dA", "dD")  # sums over every token: held to their scale
+
+
+def _ssd_inputs(dev, B, S, H, P, G, N, dtype, seed=5):
+    """x, B and C as column slices of one (B, S, .) tensor (the model's
+    xbc), dt, A, D, an initial state, dy and a final-state cotangent."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def r(*shape, scale=1.0):
+        return torch.randn(shape, generator=g) * scale
+
+    xbc = torch.cat([r(B, S, H * P, scale=0.5), r(B, S, 2 * G * N,
+                                                  scale=0.3)], -1)
+    xbc = xbc.to(dev, dtype)
+    x = xbc[..., :H * P].reshape(B, S, H, P)
+    Bm = xbc[..., H * P:H * P + G * N].reshape(B, S, G, N)
+    Cm = xbc[..., H * P + G * N:].reshape(B, S, G, N)
+    dt = torch.nn.functional.softplus(r(B, S, H)).to(dev, dtype)
+    A = -torch.exp(r(H, scale=0.5)).to(dev)
+    D = r(H).to(dev)
+    init = r(B, H, P, N, scale=0.5).to(dev)
+    dy = r(B, S, H, P).to(dev, dtype)
+    dstate = r(B, H, P, N, scale=0.5).to(dev)
+    return (x, dt, A, Bm, Cm, D), init, dy, dstate
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_init", [False, True])
+@pytest.mark.parametrize("with_dstate", [False, True])
+def test_ssd_backward_kernel(sm90, shape, dtype, with_init, with_dstate):
+    args, init, dy, dstate = _ssd_inputs(sm90, *shape, dtype)
+    kw = dict(init_state=init if with_init else None,
+              dstate=dstate if with_dstate else None)
+    before = ssd_scan_bwd.launches
+    got = ssd_scan_bwd(*args, dy, **kw)
+    assert ssd_scan_bwd.launches == before + 1
+    want = tref.ssd_scan_bwd(*args, dy, **kw)
+    for name, a, b, t in zip(SSD_NAMES, got, want, args + (init,)):
+        if not with_init and name == "dinit":
+            assert a is None and b is None
+            continue
+        assert a.shape == t.shape and a.dtype == b.dtype, name
+        assert a.is_contiguous(), name
+        tol = dict(SSD_TOL[a.dtype])
+        if name in SSD_SUMS:
+            tol["atol"] *= float(b.abs().max())
+        err = float((a.float() - b.float()).abs().max())
+        torch.testing.assert_close(a.float(), b.float(),
+                                   msg=f"{name}: max abs err {err:.3g}", **tol)
+        if a.dtype == torch.bfloat16:
+            rel = float((a.float() - b.float()).norm() / b.float().norm())
+            assert rel <= REL_L2, (name, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_is_deterministic_and_autograd_uses_it(sm90, dtype):
+    """Two calls bit-identical; gradients through ``ops.ssd_scan`` under
+    autograd (with the final state used) are the kernel's, one forward
+    and one backward launch."""
+    args, init, dy, dstate = _ssd_inputs(sm90, 2, 100, 8, 64, 2, 128, dtype)
+    a = ssd_scan_bwd(*args, dy, init_state=init, dstate=dstate)
+    b = ssd_scan_bwd(*args, dy, init_state=init, dstate=dstate)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    leaves = [t.detach().clone().requires_grad_() for t in args]
+    linit = init.clone().requires_grad_()
+    f0, b0 = ops.ssd_scan.launches, ssd_scan_bwd.launches
+    y, h = ops.ssd_scan(*leaves, init_state=linit, return_state=True)
+    assert y.grad_fn is not None
+    grads = torch.autograd.grad((y, h), leaves + [linit], (dy, dstate))
+    assert ops.ssd_scan.launches == f0 + 1
+    assert ssd_scan_bwd.launches == b0 + 1
+    for x, y in zip(grads, a):
+        assert torch.equal(x, y)

@@ -2,8 +2,8 @@
 hybrid and MoE families (mamba2-780m, hymba-1.5b, olmoe-1b-7b,
 llama4-scout), by the checks and tolerances of ``test_torch_training.py``.
 On the CPU the SSM branch trains through the plain ``ssd_scan``, which
-autograd differentiates; on the card its kernel has no backward yet
-(ROADMAP A14).
+autograd differentiates; on the card through the scan's backward kernel
+(``test_torch_train_cuda.py``, ``chip_smoke.py`` phase 10).
 """
 import pytest
 
