@@ -4,9 +4,11 @@ Port of :mod:`repro.distributed.ctx`.  The reference's layers call
 ``hint`` to emit ``with_sharding_constraint`` on activations under a mesh
 context that the launcher installs.  PyTorch has no sharding constraint
 on a plain tensor, and the port's layers call no hint, so :func:`hint`
-returns its input unchanged, also when the context is enabled; the
-context itself (:class:`ShardCtx`, :func:`set_ctx`, :func:`get_ctx`) is
-kept so that the launch code reads as the reference's.
+returns its input unchanged, also when the context is enabled.  The
+context (:class:`ShardCtx`, :func:`set_ctx`, :func:`get_ctx`) keeps the
+reference's names, but nothing in the port reads its fields: a context
+is a frozen value that a launcher may install and read back, and it
+changes no computation.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ from dataclasses import dataclass
 from typing import Optional, Tuple
 
 
-@dataclass
+@dataclass(frozen=True)
 class ShardCtx:
     dp_axes: Tuple[str, ...] = ("data",)
     model_axis: str = "model"

@@ -35,6 +35,7 @@ from typing import Any, NamedTuple, Optional, Tuple, Union
 import torch
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.training import pytree
 
 PyTree = Any
 # Weights whose *input* (K) dim is sharded: the row-parallel halves of each
@@ -69,39 +70,17 @@ def _is_spec(x) -> bool:
 
 
 def spec_map(fn, spec_tree: PyTree, *rest: PyTree) -> PyTree:
-    """``fn`` over the partitions of ``spec_tree`` and the matching leaves
-    of each tree in ``rest``: ``jax.tree.map`` with ``PartitionSpec`` a
-    leaf."""
-    if _is_spec(spec_tree):
-        return fn(spec_tree, *rest)
-    if spec_tree is None:
-        return None
-    if isinstance(spec_tree, dict):
-        return {k: spec_map(fn, v, *(r[k] for r in rest))
-                for k, v in spec_tree.items()}
-    vals = [spec_map(fn, v, *(r[i] for r in rest))
-            for i, v in enumerate(spec_tree)]
-    return type(spec_tree)(*vals) if hasattr(spec_tree, "_fields") \
-        else type(spec_tree)(vals)
+    """``fn`` over the partitions of ``spec_tree`` and the matching
+    subtrees of each tree in ``rest``: ``jax.tree.map`` with
+    ``PartitionSpec`` a leaf."""
+    return pytree.tree_map(fn, spec_tree, *rest, is_leaf=_is_spec)
 
 
-def _paths(tree: PyTree, path: str = ""):
-    """(path, leaf) of every leaf, dict keys sorted at every level: the
-    order ``jax.tree.leaves`` walks the reference's pytrees in, and its
-    key paths joined with ``/``."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _paths(tree[k], f"{path}/{k}" if path else k)
-    else:
-        yield path, tree
-
-
-def _with_paths(fn, tree: PyTree, path: str = "") -> PyTree:
-    """``fn(path, leaf)`` over a dict tree, keeping its structure."""
-    if isinstance(tree, dict):
-        return {k: _with_paths(fn, v, f"{path}/{k}" if path else k)
-                for k, v in tree.items()}
-    return fn(path, tree)
+def _with_paths(fn, tree: PyTree) -> PyTree:
+    """``fn(path, leaf)`` over ``tree``, keeping its structure; ``path``
+    joins the keys with ``/``."""
+    return pytree.tree_map_with_path(
+        lambda path, leaf: fn("/".join(map(str, path)), leaf), tree)
 
 
 # ---------------------------------------------------------------------------
@@ -442,7 +421,8 @@ def weight_shard_fraction(cfg: ModelConfig, mesh, *,
     abstract = T.abstract_params(cfg, dtype or torch.bfloat16)
     total = 0
     per_device = 0.0
-    for path, leaf in _paths(abstract):
+    for path, leaf in pytree.flatten_with_path(abstract)[0]:
+        path = "/".join(map(str, path))
         nbytes = leaf.numel() * leaf.element_size()
         spec = leaf_spec(path, tuple(leaf.shape), mesh,
                          model_axis=model_axis)

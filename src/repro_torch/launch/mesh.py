@@ -15,8 +15,10 @@ from typing import Sequence
 
 from repro_torch.distributed.sharding import LogicalMesh
 
-# One NVIDIA H100 SXM (the card's data sheet; roofline denominators).
+# One NVIDIA H100 SXM (the card's data sheet; roofline denominators, also
+# of chip_smoke.py's bounds).
 PEAK_FLOPS_BF16 = 989e12  # the card's dense bf16 tensor-core FLOP/s
+PEAK_FLOPS_F32 = 67e12  # the card's f32 FLOP/s on the CUDA cores
 HBM_BW = 3.35e12  # the card's HBM3 bytes/s
 NVLINK_BW = 450e9  # the card's NVLink bytes/s each way, to all others
 HBM_BYTES = 80 * 10 ** 9  # the card's device memory

@@ -1,37 +1,58 @@
 """Trees of tensors as the reference's ``jax.tree`` sees them.
 
-The reference keeps parameters, optimizer moments and training state as
-pytrees (dicts, tuples, NamedTuples) and flattens them with
-``jax.tree.flatten``: dict entries in sorted key order, tuple and
-NamedTuple fields in order, ``None`` an empty subtree.  The port keeps
-the same structures, and flattens them in the same order, so that a
-checkpoint's ``leaf_#####.npy`` files line up leaf for leaf in both
-packages.
+The reference keeps parameters, optimizer moments, training state and
+partition specs as pytrees (dicts, tuples, NamedTuples) and flattens
+them with ``jax.tree.flatten``: dict entries in sorted key order, tuple
+and NamedTuple fields in order, ``None`` an empty subtree. The port
+keeps the same structures, and flattens them in the same order, so that
+a checkpoint's ``leaf_#####.npy`` files line up leaf for leaf in both
+packages. As in ``jax.tree``, ``is_leaf`` stops the walk at a node (a
+partition spec is a plain tuple), a path is the tuple of dict keys,
+NamedTuple field names and sequence indices down to a leaf, and a tree
+mapped beside the first only needs the first's structure as a prefix
+(its subtree at a leaf is passed whole: a tree of shardings, each a
+NamedTuple).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 PyTree = Any
+Path = Tuple[Any, ...]
 _LEAF = "leaf"
 
 
-def flatten(tree: PyTree) -> Tuple[List[Any], Any]:
-    """(leaves, structure): ``jax.tree.flatten``'s order."""
-    leaves: List[Any] = []
+def flatten_with_path(tree: PyTree,
+                      is_leaf: Optional[Callable[[Any], bool]] = None
+                      ) -> Tuple[List[Tuple[Path, Any]], Any]:
+    """([(path, leaf)], structure): ``jax.tree_util.tree_flatten_with_path``'s
+    order."""
+    out: List[Tuple[Path, Any]] = []
 
-    def walk(t):
+    def walk(t, path):
+        if is_leaf is not None and is_leaf(t):
+            out.append((path, t))
+            return _LEAF
         if t is None:
             return None
         if isinstance(t, dict):
             keys = sorted(t)
-            return (dict, keys, [walk(t[k]) for k in keys])
+            return (dict, keys, [walk(t[k], path + (k,)) for k in keys])
         if isinstance(t, (list, tuple)):
-            return (type(t), None, [walk(x) for x in t])
-        leaves.append(t)
+            names = getattr(t, "_fields", range(len(t)))  # NamedTuple
+            return (type(t), None,
+                    [walk(x, path + (k,)) for k, x in zip(names, t)])
+        out.append((path, t))
         return _LEAF
 
-    return leaves, walk(tree)
+    return out, walk(tree, ())
+
+
+def flatten(tree: PyTree, is_leaf: Optional[Callable[[Any], bool]] = None
+            ) -> Tuple[List[Any], Any]:
+    """(leaves, structure): ``jax.tree.flatten``'s order."""
+    pairs, structure = flatten_with_path(tree, is_leaf)
+    return [leaf for _, leaf in pairs], structure
 
 
 def unflatten(structure: Any, leaves) -> PyTree:
@@ -61,31 +82,50 @@ def leaves(tree: PyTree) -> List[Any]:
     return flatten(tree)[0]
 
 
-def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
-    """``fn`` over the leaves of ``tree`` and the matching leaves of each
-    tree in ``rest`` (same structure)."""
-    flat, structure = flatten(tree)
-    others = [flatten(r)[0] for r in rest]
-    if any(len(o) != len(flat) for o in others):
-        raise ValueError("trees of different structure")
-    return unflatten(structure, [fn(*xs) for xs in zip(flat, *others)])
-
-
 def flatten_up_to(structure: Any, tree: PyTree) -> List[Any]:
     """The subtrees of ``tree`` at the leaf positions of ``structure``
-    (from :func:`flatten`): ``jax``'s ``treedef.flatten_up_to``, for a
-    tree whose leaves are themselves tuples (shardings)."""
+    (from :func:`flatten`): ``jax``'s ``treedef.flatten_up_to``.  Raises
+    where ``tree`` does not have ``structure`` as a prefix."""
     out: List[Any] = []
 
     def walk(s, t):
-        if s is None:
-            return
         if s == _LEAF:
             out.append(t)
             return
+        if s is None:
+            if t is not None:
+                raise ValueError("trees of different structure")
+            return
         kind, keys, kids = s
-        for k, kid in zip(keys if kind is dict else range(len(kids)), kids):
-            walk(kid, t[k])
+        if kind is dict:
+            if not isinstance(t, dict) or sorted(t) != keys:
+                raise ValueError("trees of different structure")
+            for k, kid in zip(keys, kids):
+                walk(kid, t[k])
+            return
+        if not isinstance(t, (list, tuple)) or len(t) != len(kids):
+            raise ValueError("trees of different structure")
+        for kid, x in zip(kids, t):
+            walk(kid, x)
 
     walk(structure, tree)
     return out
+
+
+def tree_map(fn: Callable, tree: PyTree, *rest: PyTree,
+             is_leaf: Optional[Callable[[Any], bool]] = None) -> PyTree:
+    """``fn`` over the leaves of ``tree`` and the matching subtrees of each
+    tree in ``rest``."""
+    flat, structure = flatten(tree, is_leaf)
+    others = [flatten_up_to(structure, r) for r in rest]
+    return unflatten(structure, [fn(*xs) for xs in zip(flat, *others)])
+
+
+def tree_map_with_path(fn: Callable, tree: PyTree, *rest: PyTree,
+                       is_leaf: Optional[Callable[[Any], bool]] = None
+                       ) -> PyTree:
+    """``fn(path, leaf, *others)`` over the leaves of ``tree``."""
+    pairs, structure = flatten_with_path(tree, is_leaf)
+    others = [flatten_up_to(structure, r) for r in rest]
+    return unflatten(structure, [fn(*p, *xs) for p, *xs in
+                                 zip(pairs, *others)])

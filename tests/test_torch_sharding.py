@@ -38,6 +38,7 @@ from repro_torch.launch import mesh as LM
 from repro_torch.launch import specs as LS
 from repro_torch.models import transformer as TT
 from repro_torch.models.config import SHAPE_SPECS, cell_is_runnable
+from repro_torch.training import pytree
 from repro_torch.training.optim import AdamW
 from repro_torch.training.train_step import state_from_params
 
@@ -60,6 +61,13 @@ class FakeMesh:
 MESH = FakeMesh({"data": 16, "model": 16})
 MESH_MP = FakeMesh({"pod": 2, "data": 16, "model": 16})
 MESHES = {"16x16": MESH, "pod": MESH_MP}
+
+
+def _paths(tree):
+    """(path joined with ``/``, leaf) of every leaf, in the reference's
+    leaf order."""
+    return [("/".join(map(str, p)), leaf)
+            for p, leaf in pytree.flatten_with_path(tree)[0]]
 
 
 def _dp(mesh):
@@ -106,8 +114,8 @@ def test_param_specs_equal_reference(arch, fsdp, mesh):
                                      dp_axes=_dp(m), fsdp=fsdp))
     assert got == want
     if not fsdp:  # the serving rule is the same rule
-        paths = [p for p, _ in SH._paths(tpa)]
-        leaves = [leaf for _, leaf in SH._paths(tpa)]
+        paths = [p for p, _ in _paths(tpa)]
+        leaves = [leaf for _, leaf in _paths(tpa)]
         assert [SH.leaf_spec(p, tuple(leaf.shape), m)
                 for p, leaf in zip(paths, leaves)] == got
 
@@ -184,7 +192,7 @@ def test_param_specs_divisible(arch):
     in one spec (``tests/test_sharding.py`` on the port)."""
     tpa = TT.abstract_params(get_config(arch), torch.bfloat16)
     specs = SH.param_specs(get_config(arch), tpa, MESH)
-    for (_, leaf), spec in zip(SH._paths(tpa), _port_specs(specs)):
+    for (_, leaf), spec in zip(_paths(tpa), _port_specs(specs)):
         axes = _axes_of(spec)
         assert len(axes) == len(set(axes)), spec
         assert _divides(leaf.shape, spec, MESH), (arch, leaf.shape, spec)
@@ -204,7 +212,7 @@ def test_cache_and_batch_specs_divisible(arch, shape_name):
         tree = LS.batch_specs_for(cfg, shape_name,
                                   with_labels=kind == "train")
         specs = SH.batch_specs(cfg, tree, MESH)
-    for (_, leaf), spec in zip(SH._paths(tree), _port_specs(specs)):
+    for (_, leaf), spec in zip(_paths(tree), _port_specs(specs)):
         assert _divides(leaf.shape, spec, MESH), (shape_name, spec)
 
 
@@ -253,7 +261,7 @@ def test_launch_specs_equal_reference(arch):
             tk, tspecs = LS.input_specs(tcfg, shape_name, quantized)
             assert jk == tk
             jl = jax.tree_util.tree_leaves_with_path(jspecs)
-            tl = list(SH._paths(tspecs))
+            tl = list(_paths(tspecs))
             assert [JSH._path_str(p) for p, _ in jl] == [p for p, _ in tl]
             for (_, j), (path, t) in zip(jl, tl):
                 assert tuple(j.shape) == tuple(t.shape), (shape_name, path)
@@ -267,9 +275,9 @@ def test_abstract_params_and_cache_match_the_initialisers():
     cfg = get_config("hymba-1.5b", reduced=True)
     real = TT.init_params(cfg, 0, torch.float32, device="cpu")
     meta = TT.abstract_params(cfg, torch.float32)
-    assert [(p, tuple(a.shape), a.dtype) for p, a in SH._paths(real)] == [
-        (p, tuple(a.shape), a.dtype) for p, a in SH._paths(meta)]
-    assert all(a.device.type == "meta" for _, a in SH._paths(meta))
+    assert [(p, tuple(a.shape), a.dtype) for p, a in _paths(real)] == [
+        (p, tuple(a.shape), a.dtype) for p, a in _paths(meta)]
+    assert all(a.device.type == "meta" for _, a in _paths(meta))
     cache = TT.abstract_cache(cfg, 2, 16)
     want = TT.init_cache(cfg, 2, 16)
     assert {k: (tuple(v.shape), v.dtype) for k, v in cache.items()} == {
@@ -284,8 +292,8 @@ def test_meshes_and_constants():
     assert mp.shape == {"pod": 2, "data": 16, "model": 16}
     assert LM.data_axes(mp) == ("pod", "data")
     assert LM.data_axes(MESH) == ("data",)
-    assert (LM.PEAK_FLOPS_BF16, LM.HBM_BW, LM.NVLINK_BW) == (
-        989e12, 3.35e12, 450e9)
+    assert (LM.PEAK_FLOPS_BF16, LM.PEAK_FLOPS_F32, LM.HBM_BW,
+            LM.NVLINK_BW) == (989e12, 67e12, 3.35e12, 450e9)
     assert LM.HBM_BYTES == 80e9
 
 
@@ -322,3 +330,40 @@ def test_hint_returns_its_input():
     finally:
         CTX.set_ctx(None)
     assert not CTX.get_ctx().enabled and CTX.get_ctx().dp_spec == "data"
+
+
+def test_tree_walk_is_jax_tree_with_is_leaf_and_paths():
+    """The port's one tree walk against ``jax.tree_util`` on a spec-like
+    tree (plain tuples as leaves through ``is_leaf``, NamedTuples and
+    None as nodes): the same leaves in the same order, the same key
+    paths; a tree mapped beside it needs it only as a prefix, and one of
+    another structure raises."""
+    from typing import NamedTuple
+
+    class Pair(NamedTuple):
+        a: object
+        b: object
+
+    tree = {"z": ("data", None), "a": Pair(a=(), b={"y": ("model",),
+                                                   "x": None}),
+            "m": [("data",), None]}
+    pairs, structure = pytree.flatten_with_path(tree, is_leaf=SH._is_spec)
+    jpairs, _ = jax.tree_util.tree_flatten_with_path(
+        tree, is_leaf=SH._is_spec)
+    assert [leaf for _, leaf in pairs] == [leaf for _, leaf in jpairs]
+
+    def key(k):
+        return getattr(k, "key", getattr(k, "idx", getattr(k, "name", k)))
+
+    assert [p for p, _ in pairs] == [
+        tuple(key(k) for k in jp) for jp, _ in jpairs]
+    assert [p for p, _ in pairs] == [("a", "a"), ("a", "b", "y"),
+                                     ("m", 0), ("z",)]
+    assert pytree.unflatten(structure, [x for _, x in pairs]) == tree
+    other = {"z": Pair(1, 2), "a": Pair(a=3, b={"y": 4, "x": None}),
+             "m": [5, None]}
+    got = SH.spec_map(lambda s, o: (s, o), tree, other)
+    assert got["z"] == (("data", None), Pair(1, 2))
+    assert got["a"].b["y"] == (("model",), 4)
+    with pytest.raises(ValueError, match="different structure"):
+        SH.spec_map(lambda s, o: s, tree, {"z": 1, "a": 2})

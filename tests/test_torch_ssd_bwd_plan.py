@@ -198,9 +198,10 @@ def test_token_sums_round_with_their_scale():
     grows with the sum of the terms, not with the result: at the card
     sweep's mamba2 heads two float32 evaluations of the plain backward
     (chunks 16 and 256, the same arithmetic in another order) differ on
-    dA past 2e-4 element-wise, yet within 2e-4 of its largest element,
-    the rule the card holds both to (``test_torch_train_cuda.py``,
-    ``chip_smoke.py``); the per-token gradients agree within 2e-4."""
+    dA past 2e-4 element-wise, yet within 2e-4 of its largest element;
+    the per-token gradients agree within 2e-4.  So the card holds the
+    kernel to the oracle at the kernel's own chunk, element-wise
+    (``test_torch_train_cuda.py``, ``chip_smoke.py``)."""
     args, kw, dy = _torch((2, 128, 48, 64, 1, 128), True, False)
     a = tref.ssd_scan_bwd(*args, dy, chunk=16, **kw)
     b = tref.ssd_scan_bwd(*args, dy, chunk=256, **kw)
