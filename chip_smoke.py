@@ -107,20 +107,23 @@
    times, the drain's ``set_variant`` wall ms and the drain counters, and
    counts the runs' kernel launches with the profiler.
 10. Training on the card: the backward kernel of ``flash_attention``
-   (``csrc/flash_attention_bwd.cu``) held to autograd through the plain
-   version at the sweep (every mask mode, f32 and bf16) and at the
-   training shapes (tinyllama 4 x 1024; gemma2's local and global layers
-   at 1 x 4200 with both softcaps), and timed there (forward with its
-   log-sum-exp, backward, the plain backward, SDPA's backward, the
-   bound).  The backward kernel of ``ssd_scan``
-   (``csrc/ssd_scan_bwd.cu``) held to autograd through the plain chunked
-   form at the kernel's own chunk, element-wise, at the scan's sweep (f32
-   and bf16, with and without an initial state and a final-state
-   cotangent; f32 2e-4, bf16 3e-2 and 1e-2 relative l2) and at the
-   training shapes (mamba2-780m 4 x 1024, hymba-1.5b's branch 1 x 2176,
-   bf16), and timed there (backward, forward, the plain backward at the
-   model's chunk, the bound at the bf16 peak).
-   Then tinyllama-1.1b and mamba2-780m at full width and depth each train
+   (``csrc/flash_attention_bwd.cu``: bf16 calls on its tensor-core
+   kernels, calls with an f32 operand on its CUDA-core ones; first the
+   bf16 kernels' registers and spills from ``python -m
+   repro_torch.kernels.resources``, where a spill fails the phase) held
+   to autograd through the plain version at the sweep (every mask mode,
+   f32 and bf16) and at the training shapes (tinyllama 4 x 1024; gemma2's
+   local and global layers at 1 x 4200 with both softcaps), and timed
+   there (forward with its log-sum-exp, backward, the plain backward,
+   SDPA's backward, the bound; the path and plan each row took).  The
+   backward kernel of ``ssd_scan`` (``csrc/ssd_scan_bwd.cu``) held to
+   autograd through the plain chunked form at the kernel's own chunk,
+   element-wise, at the scan's sweep (f32 and bf16, with and without an
+   initial state and a final-state cotangent; f32 2e-4, bf16 3e-2 and
+   1e-2 relative l2) and at the training shapes (mamba2-780m 4 x 1024,
+   hymba-1.5b's branch 1 x 2176, bf16), and timed there (backward,
+   forward, the plain backward at the model's chunk, the bound at the
+   bf16 peak).  Then tinyllama-1.1b and mamba2-780m at full width and depth each train
    8 AdamW steps (f32 master, bf16 compute, remat, z-loss; the last two
    with grad_accum=2) on the synthetic stream at 4 x 1024 tokens: losses
    finite and falling, every parameter moved; step ms, tokens/s, the
@@ -2474,12 +2477,30 @@ def hold_grads(what, got, want, dt) -> float:
     return worst
 
 
+def print_bwd_resources() -> None:
+    """Registers and spills of the attention backward's bf16 kernels, as
+    ``python -m repro_torch.kernels.resources`` reports them; a spill or a
+    stack frame fails the phase."""
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.kernels.resources",
+         "flash_attention_bwd"], capture_output=True, text=True, check=True,
+        env=dict(os.environ, PYTHONPATH=str(SRC))).stdout
+    lines = [ln for ln in out.splitlines() if "flash_bwd16" in ln]
+    if len(lines) != 6:
+        fail(f"resources: expected 6 bf16 backward kernels, got\n{out}")
+    for ln in lines:
+        print(f"  {ln}")
+        if "stack 0 B, spill 0/0 B" not in ln:
+            fail(f"flash_attention_bwd: a bf16 kernel spills: {ln}")
+
+
 def check_flash_bwd(ref, g, cfgs) -> dict:
     """Phase 10 (a) and (b): the backward kernel against autograd through
     the plain version at the sweep and the training shapes, and timed at
     the training shapes."""
     from repro_torch.kernels import flash_attention as fa
 
+    print_bwd_resources()
     worst, n = 0.0, 0
     for (B, S, H, KV, D) in FLASH_SWEEP:
         for dt in (torch.float32, torch.bfloat16):
@@ -2551,7 +2572,9 @@ def flash_bwd_row(fa, ref, g, what, B, S, H, KV, D, dt, kw) -> dict:
                library_ms=library_ms, **bound(nbytes, ops_, dt))
     row["device_ms"] = kernel_ms(bwd)
     fwd_ms = kernel_ms(lambda: fa.flash_attention_lse(q, k, v, **kw))
-    p = fa.flash_bwd_plan(B, S, S, H, KV, D)
+    p = fa.flash_bwd_plan(B, S, S, H, KV, D, dt == torch.bfloat16,
+                          torch.cuda.get_device_properties(0)
+                          .multi_processor_count)
     print(f"  {what} ({B}, {S}, {H}/{KV} heads, D={D}"
           f"{', ' + str(kw) if kw else ''}) {dt}: backward {row['ms']:.3f} "
           f"ms (event), device {row['device_ms']:.3f} ms "
@@ -2561,9 +2584,11 @@ def flash_bwd_row(fa, ref, g, what, B, S, H, KV, D, dt, kw) -> dict:
           f"{ops_ / 1e9:.1f} GFLOP), forward with lse device "
           f"{fwd_ms:.3f} ms, plain backward {plain_ms:.3f} ms, sdpa "
           f"backward device {library_ms:.3f} ms, max abs err {err:.3g}; "
-          f"plan: D padded to {p.dp}, {p.big} keys (rows) a block, "
-          f"{p.small} rows (keys) a step, {p.q_blocks} + {p.kv_blocks} "
-          f"blocks, {p.smem} B shared, {p.sm_blocks} an SM")
+          f"{p.path} path, plan: D padded to {p.dp}, {p.big} keys (rows) "
+          f"a block, {p.small} rows (keys) a step, {p.col_split} warps to "
+          f"16 rows, {p.stages} stages, heads split {p.head_split} ways, "
+          f"{p.threads} threads, {p.q_blocks} + {p.kv_blocks} blocks, "
+          f"{p.smem} B shared, {p.sm_blocks} an SM")
     row["fwd_lse_ms"] = fwd_ms
     return row
 

@@ -11,10 +11,12 @@ of one KV head, keys a tile.
 Training differentiates the call.  The Pallas kernel has no backward (the
 reference trains through inline ``jnp`` attention); the port's is a kernel
 of its own, ``repro_torch/csrc/flash_attention_bwd.cu``
-(:func:`flash_attention_bwd`, cut by :func:`flash_bwd_plan`).  When a CUDA
-input requires grad under grad mode, :func:`flash_attention` runs as a
-``torch.autograd.Function`` whose forward is the same kernel, also
-writing each row's log-sum-exp, and whose backward is that kernel.
+(:func:`flash_attention_bwd`, cut by :func:`flash_bwd_plan`): on the
+tensor cores where q, k and v are all bf16, on the CUDA cores where any
+is f32.  When a CUDA input requires grad under grad mode,
+:func:`flash_attention` runs as a ``torch.autograd.Function`` whose
+forward is the same kernel, also writing each row's log-sum-exp, and
+whose backward is that kernel.
 
 A tensor on the CPU is computed by the plain version,
 :func:`repro_torch.kernels.ref.flash_attention`, which autograd
@@ -49,7 +51,7 @@ _BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                     ctypes.c_float] + [ctypes.c_int] * 4
                  + [ctypes.c_longlong, ctypes.c_void_p])
-BWD_THREADS = 256  # kThreads of flash_attention_bwd.cu
+BWD_THREADS = 256  # kThreads of flash_attention_bwd.cu (the f32 path)
 
 
 def _smem(dp: int, rows: int, bk: int, esz: int, stages: int) -> int:
@@ -117,9 +119,13 @@ def flash_plan(B: int, S: int, T: int, H: int, KV: int, D: int,
 
 class FlashBwdPlan(NamedTuple):
     """How the backward cuts a call (both of its kernels)."""
+    path: str  # "bf16" (tensor cores: q, k, v all bf16) or "f32" (CUDA cores)
     dp: int  # D padded: 64, 128 or 256
     big: int  # keys a dK/dV block; query rows a dQ block
     small: int  # query rows a dK/dV step; keys a dQ step
+    col_split: int  # warps sharing 16 rows by columns (bf16); 1 on f32
+    stages: int  # buffers of the streamed tiles: 2 (cp.async ring) or 1
+    head_split: int  # dK/dV blocks (a cluster) sharing a KV head's heads
     threads: int  # threads a block
     smem: int  # dynamic shared bytes a block (both kernels)
     sm_blocks: int  # blocks an SM holds by shared memory and threads
@@ -127,34 +133,83 @@ class FlashBwdPlan(NamedTuple):
     kv_blocks: int  # blocks of the dK/dV kernel's grid
 
 
+# The bf16 path's tiles by D padded (``Tiles`` in the source): own rows a
+# block, streamed rows a tile, warps sharing 16 rows by columns.
+_BWD16_TILES = {64: (64, 64, 1), 128: (64, 32, 2), 256: (64, 64, 2)}
+
+
 def _bwd_smem(dp: int, big: int, small: int) -> int:
-    """Shared bytes of one backward block: ``layout()`` in
+    """Shared bytes of one f32-path backward block: ``layout()`` in
     ``flash_attention_bwd.cu``, which the launcher checks against this."""
     ld = dp + 4
     return 4 * (2 * big * ld + 2 * small * ld + 2 * small * (big + 4)
                 + 2 * big + dp)
 
 
+def _bwd16_smem(dp: int) -> int:
+    """Shared bytes of one bf16-path backward block, either kernel:
+    ``layout16()`` in ``flash_attention_bwd.cu`` (own and streamed bf16
+    tiles at a stride of D padded + 8, the latter in two stages; P and dS
+    when warps split the columns; lse and Delta; the empty rows' dO; the
+    split blocks' f32 sums over the tiles after the loop)."""
+    ro, rt, cw = _BWD16_TILES[dp]
+    ldt = dp + 8
+    o = 2 * (2 * ro * ldt + 4 * rt * ldt + (2 * ro * (rt + 8) if cw > 1
+                                             else 0))
+    o += 4 * (max(4 * rt, 2 * ro) + dp)
+    return max(o, 4 * 2 * ro * (dp + 8))
+
+
+def head_split(G: int, blocks: int, sms: int) -> int:
+    """The dK/dV kernel's head split (``head_split`` in the source): the
+    smallest divisor of G, at most 8 (a portable cluster), that gives the
+    grid four blocks an SM, else the largest."""
+    hs = 1
+    for d in range(1, min(G, 8) + 1):
+        if G % d == 0:
+            hs = d
+            if blocks * d >= 4 * sms:
+                break
+    return hs
+
+
 @functools.lru_cache(maxsize=None)
-def flash_bwd_plan(B: int, S: int, T: int, H: int, KV: int,
-                   D: int) -> FlashBwdPlan:
+def flash_bwd_plan(B: int, S: int, T: int, H: int, KV: int, D: int,
+                   bf16: bool = False, sms: int = H100_SMS) -> FlashBwdPlan:
     """Cut the backward of q (B, S, H, D) against k, v (B, T, KV, D) from
-    shapes alone.  D pads to 64, 128 or 256 (columns past D are zeros).
-    Every operand is staged as float32, so the tiles do not depend on the
-    types: BIG keys a dK/dV block (query rows a dQ block) and SMALL query
-    rows a step (keys a step) are 64 and 64 at D <= 64, 64 and 32 at
-    D <= 128, and 32 and 32 at D = 256, which keep a block's shared
-    memory within the card's 227 KB (two blocks an SM at D <= 64)."""
+    shapes alone, on the bf16 path (``bf16``: q, k and v all bfloat16,
+    every training call) or the f32 path.  D pads to 64, 128 or 256
+    (columns past D are zeros).
+
+    bf16: own rows a block (keys of a dK/dV block, query rows of a dQ
+    block) and streamed rows a tile are 64 and 64 at D <= 64 (4 warps,
+    one 16-row slice each), 64 and 32 at D <= 128 and 64 and 64 at D =
+    256 (8 warps, 2 to a slice by columns); streamed tiles in a two-stage
+    ring; the dK/dV grid split over a KV head's query heads until it
+    holds four blocks an SM (``head_split``).
+
+    f32: every operand staged as float32, so BIG keys a dK/dV block
+    (query rows a dQ block) and SMALL query rows a step (keys a step) are
+    64 and 64 at D <= 64, 64 and 32 at D <= 128, and 32 and 32 at D =
+    256, which keep a block's shared memory within the card's 227 KB (two
+    blocks an SM at D <= 64)."""
     if D > 256:
         raise ValueError(f"flash_attention_bwd: needs D <= 256, got {D}")
     dp = next(d for d in (64, 128, 256) if D <= d)
-    big = 32 if dp == 256 else 64
-    small = 64 if dp == 64 else 32
-    smem = _bwd_smem(dp, big, small)
-    return FlashBwdPlan(dp, big, small, BWD_THREADS, smem,
-                        min(SMEM_SM // (smem + 1024), 2048 // BWD_THREADS),
-                        B * H * math.ceil(S / big),
-                        B * KV * math.ceil(T / big))
+    if bf16:
+        big, small, cw = _BWD16_TILES[dp]
+        threads, stages, smem = 32 * big // 16 * cw, 2, _bwd16_smem(dp)
+    else:
+        big = 32 if dp == 256 else 64
+        small = 64 if dp == 64 else 32
+        cw, threads, stages = 1, BWD_THREADS, 1
+        smem = _bwd_smem(dp, big, small)
+    kv_tiles = B * KV * math.ceil(T / big)
+    hs = head_split(H // KV, kv_tiles, sms) if bf16 else 1
+    return FlashBwdPlan("bf16" if bf16 else "f32", dp, big, small, cw,
+                        stages, hs, threads, smem,
+                        min(SMEM_SM // (smem + 1024), 2048 // threads),
+                        B * H * math.ceil(S / big), kv_tiles * hs)
 
 
 @functools.lru_cache(maxsize=None)
@@ -320,7 +375,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if B == 0 or S == 0:
         return dq, dk.zero_(), dv.zero_()
     delta = torch.empty((B, H, S), dtype=torch.float32, device=dev)
-    plan = flash_bwd_plan(B, S, T, H, KV, D)
+    plan = flash_bwd_plan(B, S, T, H, KV, D, bool(
+        q.dtype == k.dtype == torch.bfloat16), _sms(dev.index))
     err = _bwd_launcher()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),

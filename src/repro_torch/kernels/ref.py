@@ -182,17 +182,21 @@ def flash_attention_bwd(q, k, v, dout, **kw):
 
 
 def flash_attention_bwd_tiles(q, k, v, o, dout, lse, *, big: int,
-                              small: int, causal=True, window=0,
-                              softcap=0.0, scale=0.0, q_offset=0, prefix=0):
+                              small: int, splits: int = 1, causal=True,
+                              window=0, softcap=0.0, scale=0.0, q_offset=0,
+                              prefix=0):
     """A plain model of the backward kernel's two passes
     (``csrc/flash_attention_bwd.cu``), in float32: Delta = rowsum(dO o);
     dQ by tiles of ``big`` query rows of one head over the key tiles of
     ``small`` keys they can see (as the forward walks them); dK and dV by
-    tiles of ``big`` keys of one KV head over its G query heads and the
-    rows, ``small`` at a time, that can see a key of the tile; P
-    recomputed from ``lse``; a row that sees no key (lse = -inf) adds
-    dO / T to every key's dV.  Equal to :func:`flash_attention_bwd` up to
-    rounding.  Only the tests call it."""
+    tiles of ``big`` keys of one KV head, whose G query heads are cut
+    into ``splits`` runs of G / splits (the bf16 path's head split, one
+    block each), each run over its heads and the rows, ``small`` at a
+    time, that can see a key of the tile, the runs' sums then added in
+    run order; P recomputed from ``lse``; a row that sees no key (lse =
+    -inf) adds dO / T to every key's dV.  Equal to
+    :func:`flash_attention_bwd` up to rounding.  Only the tests call
+    it."""
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -238,25 +242,30 @@ def flash_attention_bwd_tiles(q, k, v, o, dout, lse, *, big: int,
     dk = torch.zeros((B, T, KV, D), device=dev)
     dv = torch.zeros((B, T, KV, D), device=dev)
     empty = torch.isneginf(lse_)  # (B, S, H)
+    gs = G // splits
     for kvh in range(KV):
-        heads = slice(kvh * G, (kvh + 1) * G)
-        u = torch.einsum("bsh,bshd->bd", empty[:, :, heads].float(),
-                         do[:, :, heads]) / T
         for n0 in range(0, T, big):
             n1 = min(T, n0 + big)
             p_lo = n0 if causal else 0
             p_hi = (n1 - 2 + window if window and n0 >= prefix
                     else q_offset + S)
             r_lo, r_end = max(0, p_lo - q_offset), min(S, p_hi - q_offset + 1)
-            for h in range(kvh * G, (kvh + 1) * G):
-                for r0 in range(r_lo, r_end, small):
-                    r1 = min(S, r0 + small)
-                    p, ds = grads(r0, r1, n0, n1, h)
-                    dv[:, n0:n1, kvh] += torch.einsum("bqt,bqd->btd", p,
-                                                      do[:, r0:r1, h])
-                    dk[:, n0:n1, kvh] += torch.einsum("bqt,bqd->btd", ds,
-                                                      qf[:, r0:r1, h])
-            dv[:, n0:n1, kvh] += u[:, None]
+            for sp in range(splits):
+                heads = range(kvh * G + sp * gs, kvh * G + (sp + 1) * gs)
+                pk = torch.zeros((B, n1 - n0, D), device=dev)
+                pv = torch.zeros((B, n1 - n0, D), device=dev)
+                for h in heads:
+                    for r0 in range(r_lo, r_end, small):
+                        r1 = min(S, r0 + small)
+                        p, ds = grads(r0, r1, n0, n1, h)
+                        pv += torch.einsum("bqt,bqd->btd", p, do[:, r0:r1, h])
+                        pk += torch.einsum("bqt,bqd->btd", ds,
+                                           qf[:, r0:r1, h])
+                hs = slice(heads.start, heads.stop)
+                pv += (torch.einsum("bsh,bshd->bd", empty[:, :, hs].float(),
+                                    do[:, :, hs]) / T)[:, None]
+                dk[:, n0:n1, kvh] += pk
+                dv[:, n0:n1, kvh] += pv
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 

@@ -6,11 +6,13 @@ The kernel runs only on the card (``test_torch_train_cuda.py``, and
 ``chip_smoke.py``'s phase 10).  Here its plain model,
 ``repro_torch.kernels.ref.flash_attention_bwd_tiles`` (the dQ pass over
 the key tiles a query tile can see, the dK/dV pass over the rows that
-can see each key tile, P recomputed from the forward's log-sum-exp, rows
-that see no key), is held against ``jax.vjp`` of the JAX package's
-``repro.kernels.ref.flash_attention`` from the same numpy inputs, f32
-``rtol=atol=3e-5`` (``tests/test_kernels.py``), in every mask mode; and
-``flash_bwd_plan`` cuts the main path's shapes within the card's limits.
+can see each key tile, the head split of the bf16 path's dK/dV blocks, P
+recomputed from the forward's log-sum-exp, rows that see no key), at the
+bf16 path's tiles and the f32 path's, is held against ``jax.vjp`` of the
+JAX package's ``repro.kernels.ref.flash_attention`` from the same numpy
+inputs, f32 ``rtol=atol=3e-5`` (``tests/test_kernels.py``), in every mask
+mode; and ``flash_bwd_plan`` cuts the main path's shapes within the
+card's limits on both paths, the bf16 path's grids filling the card.
 """
 import functools
 
@@ -74,20 +76,21 @@ CASES = sorted({(s, i) for s in (1, 5) for i in range(len(MODES))}
 @pytest.mark.parametrize("shape,kwargs", [(SHAPES[s], MODES[i])
                                           for s, i in CASES])
 def test_backward_model_matches_reference(shape, kwargs):
-    """``ref.flash_attention_bwd_tiles`` at the backward plan's tiles (the
-    kernel's dQ pass over key tiles, its dK/dV pass over the rows that can
-    see each key tile, P from the forward's log-sum-exp) against
-    ``jax.vjp`` of the reference's attention, f32, from the same numpy
-    inputs; the port's autograd oracle too."""
+    """``ref.flash_attention_bwd_tiles`` at the bf16 backward plan's tiles
+    and head split (the kernel's dQ pass over key tiles, its dK/dV pass
+    over the rows that can see each key tile, P from the forward's
+    log-sum-exp) against ``jax.vjp`` of the reference's attention, f32,
+    from the same numpy inputs; the port's autograd oracle too."""
     B, S, H, KV, D = shape
     arrays = _inputs(B, S, S, H, KV, D)
     do = np.random.default_rng(51).standard_normal(
         (B, S, H, D)).astype(np.float32)
     t = [torch.from_numpy(a) for a in arrays]
     out, lse = tref.flash_attention_lse(*t, **kwargs)
-    p = tfa.flash_bwd_plan(B, S, S, H, KV, D)
+    p = tfa.flash_bwd_plan(B, S, S, H, KV, D, True)
     got = tref.flash_attention_bwd_tiles(*t, out, torch.from_numpy(do), lse,
-                                         big=p.big, small=p.small, **kwargs)
+                                         big=p.big, small=p.small,
+                                         splits=p.head_split, **kwargs)
     oracle = tref.flash_attention_bwd(*t, torch.from_numpy(do), **kwargs)
     for g, o, w in zip(got, oracle, _bwd_reference(arrays, do, kwargs)):
         np.testing.assert_allclose(g.numpy(), w, **TOL)
@@ -101,7 +104,9 @@ def test_backward_model_matches_reference(shape, kwargs):
 def test_backward_model_rows_that_see_nothing(kwargs, T):
     """Rows past T + window - 1 see no key: the forward's lse is -inf
     there, their dQ is zero, and each adds dO / T to every key's dV, as
-    the reference's finite mask does (the wrapper flags such calls)."""
+    the reference's finite mask does (the wrapper flags such calls); at
+    the f32 path's tiles, and split over the two heads of a KV head as
+    the bf16 path's dK/dV blocks may be."""
     B, S, H, KV, D = 1, 64, 4, 2, 32
     arrays = _inputs(B, S, T, H, KV, D)
     do = np.random.default_rng(52).standard_normal(
@@ -111,10 +116,11 @@ def test_backward_model_rows_that_see_nothing(kwargs, T):
     assert torch.isneginf(lse).any()
     assert tfa.has_empty_rows(S, T, kwargs.get("causal", True),
                               kwargs["window"], 0, kwargs["q_offset"])
-    for big, small in ((64, 64), (64, 32), (32, 32), (16, 8)):
+    for big, small, splits in ((64, 64, 1), (64, 32, 2), (32, 32, 1),
+                               (16, 8, 2)):
         got = tref.flash_attention_bwd_tiles(
             *t, out, torch.from_numpy(do), lse, big=big, small=small,
-            **kwargs)
+            splits=splits, **kwargs)
         for g, w in zip(got, _bwd_reference(arrays, do, kwargs)):
             np.testing.assert_allclose(g.numpy(), w, **TOL)
         empty = torch.isneginf(lse).permute(0, 2, 1)
@@ -136,11 +142,14 @@ def test_has_empty_rows(S, T, kwargs, empty):
 
 @pytest.mark.parametrize("shape", MAIN)
 def test_backward_plan_fits_the_card(shape):
-    """D pads to 64, 128 or 256; the tiles are (64, 64), (64, 32) and
-    (32, 32); the shared bytes are the source's layout and fit a block
-    (two an SM at D <= 64); the grids cover every query row and key."""
+    """The f32 path: D pads to 64, 128 or 256; the tiles are (64, 64),
+    (64, 32) and (32, 32); the shared bytes are the source's layout and
+    fit a block (two an SM at D <= 64); the grids cover every query row
+    and key."""
     B, S, T, H, KV, D = shape
     p = tfa.flash_bwd_plan(*shape)
+    assert p.path == "f32" and (p.col_split, p.stages, p.head_split) == (
+        1, 1, 1)
     assert p.dp in (64, 128, 256) and D <= p.dp
     assert (p.big, p.small) == {64: (64, 64), 128: (64, 32),
                                 256: (32, 32)}[p.dp]
@@ -153,6 +162,46 @@ def test_backward_plan_fits_the_card(shape):
     # The register tiles of the two kernels divide evenly among threads.
     assert p.big * p.small % (4 * p.threads) == 0
     assert (p.dp // 4) % (p.threads // (p.big // 4)) == 0
+
+
+@pytest.mark.parametrize("shape", MAIN)
+def test_backward_bf16_plan_fits_and_fills_the_card(shape):
+    """The bf16 path: own rows, streamed rows and warps to a 16-row slice
+    are (64, 64, 1), (64, 32, 2) and (64, 64, 2) at D padded to 64, 128
+    and 256; a block's shared bytes are the source's ``layout16`` and fit
+    the card's 227 KB, two stages of the streamed tiles among them; the
+    grids cover every query row and key; the dK/dV grid is split over a
+    KV head's query heads (a divisor of G, at most 8) until it holds four
+    blocks an SM, or as far as G allows; the dQ grid is never split."""
+    B, S, T, H, KV, D = shape
+    G = H // KV
+    p = tfa.flash_bwd_plan(*shape, True)
+    assert p.path == "bf16" and D <= p.dp
+    assert (p.big, p.small, p.col_split) == {64: (64, 64, 1),
+                                             128: (64, 32, 2),
+                                             256: (64, 64, 2)}[p.dp]
+    assert p.threads == 32 * p.big // 16 * p.col_split and p.stages == 2
+    assert p.smem == tfa._bwd16_smem(p.dp) <= 227 * 1024
+    assert p.sm_blocks >= 1
+    assert p.q_blocks == B * H * -(-S // p.big)
+    tiles = B * KV * -(-T // p.big)
+    assert p.kv_blocks == tiles * p.head_split
+    assert G % p.head_split == 0 and p.head_split <= 8
+    fewer = [d for d in range(1, p.head_split) if G % d == 0]
+    assert all(tiles * d < 4 * tfa.H100_SMS for d in fewer)
+    assert (p.kv_blocks >= 4 * tfa.H100_SMS or p.head_split ==
+            max(d for d in range(1, min(G, 8) + 1) if G % d == 0))
+
+
+@pytest.mark.parametrize("G,blocks,hs", [(8, 256, 4), (4, 264, 2),
+                                         (5, 170, 5), (2, 528, 1),
+                                         (1, 4, 1), (16, 8, 8), (6, 100, 6),
+                                         (6, 200, 3)])
+def test_head_split(G, blocks, hs):
+    """tinyllama (G = 8, 256 key tiles), gemma2 at D = 256 (G = 2), hymba
+    (G = 5, 170 tiles), and the edges: one head, a G past the cluster's
+    8, a split that reaches four blocks an SM before G does."""
+    assert tfa.head_split(G, blocks, 132) == hs
 
 
 def test_backward_plan_refuses_wide_heads():

@@ -9,8 +9,13 @@ bf16.  Tolerances: f32 ``rtol=atol=3e-5`` element-wise (the kernel and
 autograd both sum in f32, in other orders); bf16 ``rtol=atol=3e-2``
 element-wise and, since a gradient summed over many rows can sit near
 zero, also 1e-2 relative l2.  Then: two calls bit-identical (no float
-atomics); the autograd Function's gradients equal the kernel's; the three
-kernels without a backward refuse a grad; and one supervised run of a
+atomics); the bf16 path (tensor cores) at its tile edges: S and T ragged
+against its tiles, D = 36 (not whole 16-byte rows), 40, 128 and 256, G =
+1, 5 and 8, a window whose prefix ends mid-tile, ``q_offset``, rows that
+see nothing; a call with a float32 q and bf16 k and v takes the f32
+kernels, bit-equal to the same call with f32 k and v; the autograd
+Function's gradients equal the kernel's; the three kernels without a
+backward refuse a grad; and one supervised run of a
 reduced model with an injected failure ends bit-equal to an unbroken
 run.  The scan's backward kernel (``repro_torch/csrc/ssd_scan_bwd.cu``)
 against ``ref.ssd_scan_bwd`` (autograd through the plain chunked form) at
@@ -34,7 +39,8 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import (flash_attention_bwd,
-                                                 flash_attention_lse)
+                                                 flash_attention_lse,
+                                                 flash_bwd_plan)
 from repro_torch.kernels.ssd_scan import ssd_bwd_plan, ssd_scan_bwd
 
 TOL = {torch.float32: dict(rtol=3e-5, atol=3e-5),
@@ -113,6 +119,47 @@ def test_flash_backward_rows_that_see_nothing(sm90, shape, dtype, kw):
     empty = torch.isneginf(lse).permute(0, 2, 1)  # (B, S, H)
     assert empty.any()
     assert (dq[empty] == 0).all()
+
+
+# The bf16 path's tile edges (64 own rows a block, streamed tiles of 32 to
+# 64 rows worked 32 at a time): S and T off every tile; D = 40 (padded to
+# 64), 128 and 256; D = 36, staged element by element (rows of whole 16
+# bytes take cp.async); G = 1, 5 (a cluster of 5) and 8; a window whose
+# prefix ends mid-tile; q_offset with T > S; rows that see nothing.
+EDGES16 = [((1, 77, 77, 4, 4, 64), {}),
+           ((1, 70, 70, 4, 2, 36), dict(softcap=20.0)),
+           ((2, 100, 131, 8, 4, 40), dict(q_offset=31)),
+           ((1, 150, 150, 10, 2, 128), dict(window=50, prefix=37)),
+           ((1, 203, 203, 16, 2, 256), dict(window=70, prefix=21,
+                                            softcap=30.0)),
+           ((2, 95, 95, 8, 1, 64), dict(causal=False, window=33, prefix=9)),
+           ((1, 130, 60, 5, 1, 128), dict(window=10, q_offset=40)),
+           ((1, 90, 200, 8, 8, 40), dict(causal=False, q_offset=17))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,kw", EDGES16)
+def test_flash_backward_bf16_tile_edges(sm90, shape, kw):
+    assert flash_bwd_plan(*shape, True).path == "bf16"
+    _check(sm90, shape, torch.bfloat16, kw)
+
+
+@pytest.mark.cuda
+def test_flash_backward_mixed_types_take_the_f32_kernels(sm90):
+    """f32 q and dO with bf16 k and v go to the CUDA-core kernels, which
+    widen k and v exactly: the call equals the same call with f32 k and v
+    bit for bit (dK and dV rounded to bf16 once, as the kernel rounds)."""
+    kw = dict(window=40, softcap=20.0)
+    shape = (2, 150, 150, 8, 4, 64)
+    q, _, _, do = _inputs(sm90, *shape, torch.float32)
+    _, k, v, _ = _inputs(sm90, *shape, torch.bfloat16)
+    out, lse = flash_attention_lse(q, k, v, **kw)
+    mixed = flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    wide = flash_attention_bwd(q, k.float(), v.float(), out, do, lse, **kw)
+    assert mixed[0].dtype == torch.float32 and torch.equal(mixed[0], wide[0])
+    for a, b in zip(mixed[1:], wide[1:]):
+        assert a.dtype == torch.bfloat16
+        assert torch.equal(a, b.to(torch.bfloat16))
 
 
 @pytest.mark.cuda
