@@ -116,14 +116,16 @@
    local and global layers at 1 x 4200 with both softcaps), and timed
    there (forward with its log-sum-exp, backward, the plain backward,
    SDPA's backward, the bound; the path and plan each row took).  The
-   backward kernel of ``ssd_scan`` (``csrc/ssd_scan_bwd.cu``) held to
-   autograd through the plain chunked form at the kernel's own chunk,
-   element-wise, at the scan's sweep (f32 and bf16, with and without an
-   initial state and a final-state cotangent; f32 2e-4, bf16 3e-2 and
-   1e-2 relative l2) and at the training shapes (mamba2-780m 4 x 1024,
-   hymba-1.5b's branch 1 x 2176, bf16), and timed there (backward,
-   forward, the plain backward at the model's chunk, the bound at the
-   bf16 peak).  Then tinyllama-1.1b and mamba2-780m at full width and depth each train
+   backward kernels of ``ssd_scan`` (``csrc/ssd_scan_bwd.cu``; first their
+   registers and spills, where a spill fails the phase) held to autograd
+   through the plain chunked form at the kernel's own chunk, evaluated in
+   float64, element-wise, at the scan's sweep (f32 and bf16, with and
+   without an initial state and a final-state cotangent; f32 2e-4, bf16
+   3e-2 and 1e-2 relative l2) and at the training shapes (mamba2-780m 4 x
+   1024, hymba-1.5b's branch 1 x 2176, bf16), and timed there (backward,
+   forward, the plain backward at the model's chunk, the bound at the bf16
+   peak, and beside it the chunked form's operations and the scratch it
+   moves; each row's plan: chunk, head cluster, blocks, scratch).  Then tinyllama-1.1b and mamba2-780m at full width and depth each train
    8 AdamW steps (f32 master, bf16 compute, remat, z-loss; the last two
    with grad_accum=2) on the synthetic stream at 4 x 1024 tokens: losses
    finite and falling, every parameter moved; step ms, tokens/s, the
@@ -2477,21 +2479,24 @@ def hold_grads(what, got, want, dt) -> float:
     return worst
 
 
-def print_bwd_resources() -> None:
-    """Registers and spills of the attention backward's bf16 kernels, as
-    ``python -m repro_torch.kernels.resources`` reports them; a spill or a
-    stack frame fails the phase."""
+def print_bwd_resources(source: str = "flash_attention_bwd",
+                        marker: str = "flash_bwd16", count: int = 6) -> None:
+    """Registers and spills of a backward source's kernels whose names
+    hold ``marker`` (the attention backward's bf16 kernels; every kernel
+    of the scan's backward), as ``python -m
+    repro_torch.kernels.resources`` reports them; a spill or a stack
+    frame fails the phase."""
     out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.kernels.resources",
-         "flash_attention_bwd"], capture_output=True, text=True, check=True,
+        [sys.executable, "-m", "repro_torch.kernels.resources", source],
+        capture_output=True, text=True, check=True,
         env=dict(os.environ, PYTHONPATH=str(SRC))).stdout
-    lines = [ln for ln in out.splitlines() if "flash_bwd16" in ln]
-    if len(lines) != 6:
-        fail(f"resources: expected 6 bf16 backward kernels, got\n{out}")
+    lines = [ln for ln in out.splitlines() if marker in ln]
+    if len(lines) != count:
+        fail(f"resources: expected {count} {marker} kernels, got\n{out}")
     for ln in lines:
         print(f"  {ln}")
         if "stack 0 B, spill 0/0 B" not in ln:
-            fail(f"flash_attention_bwd: a bf16 kernel spills: {ln}")
+            fail(f"{source}: a kernel spills: {ln}")
 
 
 def check_flash_bwd(ref, g, cfgs) -> dict:
@@ -2596,12 +2601,26 @@ def flash_bwd_row(fa, ref, g, what, B, S, H, KV, D, dt, kw) -> dict:
 SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dD", "dinit")
 
 
+def ssd_oracle(ref, args, dy, kq, init_state=None, dstate=None):
+    """The scan backward's oracle: autograd through the plain chunked
+    form at the kernel's own chunk ``kq`` (at another chunk dA, a sum
+    over every token of the batch, differs past 2e-4 by the order of the
+    sums alone), on the inputs widened to float64 (at 64-row chunks the
+    float32 evaluation's own rounding reaches past 2e-4 on dA:
+    tests/test_torch_ssd_bwd_plan.py::
+    test_the_cards_oracle_is_the_float64_evaluation)."""
+    def wide(t):
+        return None if t is None else t.double()
+
+    return ref.ssd_scan_bwd(*[t.double() for t in args], wide(dy), chunk=kq,
+                            init_state=wide(init_state),
+                            dstate=wide(dstate))
+
+
 def hold_ssd_grads(what, got, want) -> float:
     """The scan's seven gradients, element-wise: float32 ones within
-    SSD_TOL, bf16 ones within TOL and, by relative l2, FLASH_REL_TOL.
-    ``want`` is the plain chunked form at the kernel's own chunk: at
-    another chunk dA, a sum over every token of the batch, differs past
-    2e-4 by the order of the sums alone.  Returns the worst element
+    SSD_TOL, bf16 ones within TOL and, by relative l2, FLASH_REL_TOL,
+    against ``want`` (``ssd_oracle``).  Returns the worst element
     error."""
     worst = 0.0
     for name, a, b in zip(SSD_GRADS, got, want):
@@ -2610,6 +2629,7 @@ def hold_ssd_grads(what, got, want) -> float:
                 raise AssertionError(f"{what} {name}: {a} against {b}")
             continue
         tol = SSD_TOL if a.dtype == torch.float32 else TOL[a.dtype]
+        b = b.to(a.dtype) if b.dtype == torch.float64 else b
         worst = max(worst, compare(f"{what} {name}", a, b, tol, tol))
         rel = rel_l2(a.float(), b.float())
         if a.dtype == torch.bfloat16 and rel > FLASH_REL_TOL:
@@ -2630,6 +2650,27 @@ def ssd_bwd_work(B, S, H, P, G, N, esz, with_init, with_dstate):
     return nbytes, B * S * H * (11 * P * N + 6 * P) + 2 * B * S * (H - G) * N
 
 
+def ssd_bwd_chunked(B, S, H, P, G, N, plan) -> tuple:
+    """(operations, tensor-core operations, scratch bytes moved) of the
+    kernels' chunked form at ``plan`` (``ssd_bwd_plan``), per (head,
+    chunk) of Q rows: the chunk's own states S and T (2 x 2 Q P N), g B,
+    dy h and x g (3 x 2 Q P N), and the Q^2 products C B^T, dy x^T, M^T
+    dy, W B and W^T C (2 Q^2 (3 N + 2 P)); on the tensor cores every
+    product with a float32 operand runs three times (its split), C B^T
+    and dy x^T once.  The scratch: S and T written, read and written
+    back as h and g by the scans, read by the gradient kernel (six
+    passes over one (B, H, chunks, P, N) float32 buffer, P and N padded
+    to 32), and the cluster partials of dB and dC written and read."""
+    Q, chunks = plan.kq, plan.chunks
+    per = B * H * chunks
+    split = 10 * Q * P * N + 2 * Q * Q * (P + 2 * N)
+    ops_ = per * (10 * Q * P * N + 2 * Q * Q * (3 * N + 2 * P))
+    tc = per * (3 * split + 2 * Q * Q * (N + P))
+    pp, np_ = -(-P // 32) * 32, -(-N // 32) * 32
+    moved = 6 * 4 * per * pp * np_ + 2 * 2 * 4 * B * S * (H // plan.cluster) * N
+    return ops_, tc, moved
+
+
 def check_ssd_bwd(ref, g) -> dict:
     """Phase 10 (a): the scan's backward kernel against autograd through
     the plain chunked form, at the sweep in f32 and bf16, with and
@@ -2638,6 +2679,7 @@ def check_ssd_bwd(ref, g) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels import ssd_scan as sm
 
+    print_bwd_resources("ssd_scan_bwd", "ssd_bwd", 7)
     worst, n = 0.0, 0
     for shape in SSD_SWEEP:
         for dt in (torch.float32, torch.bfloat16):
@@ -2654,7 +2696,7 @@ def check_ssd_bwd(ref, g) -> dict:
                     worst = max(worst, hold_ssd_grads(
                         f"ssd_scan_bwd {shape} {dt} init={with_init} "
                         f"dstate={with_ds}", sm.ssd_scan_bwd(*args, dy, **kw),
-                        ref.ssd_scan_bwd(*args, dy, chunk=kq, **kw)))
+                        ssd_oracle(ref, args, dy, kq, **kw)))
                     n += 1
     rows = []
     for arch, B, S in SSD_BWD_ROWS:
@@ -2662,7 +2704,8 @@ def check_ssd_bwd(ref, g) -> dict:
         n += 1
         torch.cuda.empty_cache()
     print(f"ssd_scan_bwd: {n} cases within tolerance of autograd through "
-          f"the plain chunked form at the kernel's chunk, element-wise (f32 "
+          f"the plain chunked form at the kernel's chunk in float64, "
+          f"element-wise (f32 "
           f"{SSD_TOL}, bf16 {TOL[torch.bfloat16]} and relative l2 "
           f"{FLASH_REL_TOL}); sweep max abs err {worst:.3g}")
     return rows[0]
@@ -2671,21 +2714,22 @@ def check_ssd_bwd(ref, g) -> dict:
 def ssd_bwd_row(sm, ref, g, cfg, B, S) -> dict:
     """One training shape of ``cfg``'s scan, in bf16 (the compute type),
     no initial state or final-state cotangent (as the model trains): the
-    backward held to autograd through the plain chunked form at the
-    kernel's chunk, and timed: the backward (both kernels) by device and
-    event time, the forward kernel's device time, the plain backward at
-    the model's chunk (autograd over a kept graph) and the bound, at the
-    bf16 peak of the operands' type (the f32 units' time for the same
-    operations printed beside it)."""
+    backward held to ``ssd_oracle``, and timed: the backward (its four
+    kernels) by device and event time, the forward kernel's device time,
+    the plain backward at the model's chunk (autograd over a kept graph)
+    and the bound, at the bf16 peak of the operands' type (the f32 units'
+    time for the same operations printed beside it); beside them the
+    chunked form's operations and scratch bytes (``ssd_bwd_chunked``) and
+    the plan."""
     shape = (B, S, cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_ngroups,
              cfg.ssm_state)
     x, dt_, A, Bm, Cm, D, _ = ssd_inputs(g, *shape, torch.bfloat16)
     args = (x, dt_, A, Bm, Cm, D)
     dy = rand(g, *shape[:4], dtype=torch.bfloat16)
-    p = sm.ssd_bwd_plan(*shape)
+    p = sm.ssd_bwd_plan(*shape, torch.bfloat16)
     what = f"train {cfg.name} {shape}"
     err = hold_ssd_grads(f"ssd_scan_bwd {what}", sm.ssd_scan_bwd(*args, dy),
-                         ref.ssd_scan_bwd(*args, dy, chunk=p.kq))
+                         ssd_oracle(ref, args, dy, p.kq))
     torch.cuda.empty_cache()
     leaves = [t.detach().requires_grad_() for t in args]
     with torch.enable_grad():
@@ -2708,6 +2752,7 @@ def ssd_bwd_row(sm, ref, g, cfg, B, S) -> dict:
     row["fwd_ms"] = kernel_ms(lambda: sm.ssd_scan(*args))
     f32_ms = ops_ / peak_ops(torch.float32) * 1e3
     dev = row["device_ms"]
+    c_ops, c_tc, moved = ssd_bwd_chunked(*shape, p)
     print(f"  {what} bf16: backward {row['ms']:.3f} ms (event), device "
           f"{dev:.3f} ms ({row['bound_ms'] / dev:.2%} of the bound "
           f"{row['bound_ms']:.4f} ms, {row['bound_by']} at "
@@ -2717,8 +2762,14 @@ def ssd_bwd_row(sm, ref, g, cfg, B, S) -> dict:
           f"{nbytes / 1e6:.1f} MB), forward kernel device "
           f"{row['fwd_ms']:.3f} ms, plain backward (chunk {cfg.ssm_chunk}) "
           f"{plain_ms:.3f} ms, max abs err {err:.3g} (oracle at chunk "
-          f"{p.kq}); plan: chunk {p.kq}, {p.chunks} chunks, {p.blocks} "
-          f"blocks, {p.smem} B shared, {p.sm_blocks} an SM")
+          f"{p.kq}, float64); the chunked form: {c_ops / 1e9:.2f} GFLOP "
+          f"({c_tc / 1e9:.2f} on the tensor cores with the splits, "
+          f"{c_tc / dev / 1e9:.1f} TFLOP/s), {moved / 1e6:.1f} MB of scratch "
+          f"moved; plan: chunk {p.kq}, {p.chunks} chunks, heads in "
+          f"clusters of {p.cluster}, {p.blocks} blocks in each chunk kernel "
+          f"(local {p.smem_local} B, gradient {p.smem} B shared, "
+          f"{p.sm_blocks} an SM), {p.scan_threads} scan threads a (sequence,"
+          f" head) each way, {p.scratch / 1e6:.1f} MB of scratch")
     return row
 
 
@@ -3197,9 +3248,9 @@ def run(ops, ref, get_config, host) -> None:
         "wrapper calls over the training runs (each launches the dQ and "
         "the dK/dV kernels; the profiler counted both over one step)")
     counted_by["ssd_scan_bwd"] = (
-        "wrapper calls over the training runs (each launches the chunk "
-        "kernel and the reduction; the profiler counted both over one "
-        "step)")
+        "wrapper calls over the training runs (each launches the local "
+        "states, the scans, the gradient and the reduction kernels; the "
+        "profiler counted all four over one step)")
     launches_by = {k: {p: n[k] for p, n in paths.items() if k in n}
                    for k in replaces}
     out = [dict(name=k, route="cuda", source="src/repro_torch/csrc/"

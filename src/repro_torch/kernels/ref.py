@@ -525,7 +525,9 @@ def ssd_scan_chunked(
 ):
     """Chunked SSD (the Mamba-2 algorithm): a quadratic intra-chunk term
     plus a linear inter-chunk state recurrence.  Equal to :func:`ssd_scan`
-    up to rounding; the CPU path of ``ops.ssd_scan``."""
+    up to rounding; the CPU path of ``ops.ssd_scan``.  Computes in float32,
+    or in float64 for float64 inputs; each input is widened once, so
+    autograd rounds each gradient to a bf16 input's type once."""
     Bb, S0, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     rep = H // G
@@ -540,11 +542,12 @@ def ssd_scan_chunked(
         Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
     S = x.shape[1]
     nc = S // Q
-    xf = x.float().reshape(Bb, nc, Q, H, P)
-    dtf = dt.float().reshape(Bb, nc, Q, H)
-    Bf = Bm.float().repeat_interleave(rep, dim=2).reshape(Bb, nc, Q, H, N)
-    Cf = Cm.float().repeat_interleave(rep, dim=2).reshape(Bb, nc, Q, H, N)
-    Af = A.float()
+    ct = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(ct).reshape(Bb, nc, Q, H, P)
+    dtf = dt.to(ct).reshape(Bb, nc, Q, H)
+    Bf = Bm.to(ct).repeat_interleave(rep, dim=2).reshape(Bb, nc, Q, H, N)
+    Cf = Cm.to(ct).repeat_interleave(rep, dim=2).reshape(Bb, nc, Q, H, N)
+    Af = A.to(ct)
 
     a = dtf * Af[None, None, None, :]  # (B, nc, Q, H) — log decay per step
     a_cum = torch.cumsum(a, dim=2)  # inclusive within-chunk cumulative decay
@@ -566,8 +569,8 @@ def ssd_scan_chunked(
     decay_to_end = torch.exp(a_cum[:, :, -1:, :] - a_cum)  # (B, nc, Q, H)
     S_c = torch.einsum("bcqh,bcqhn,bcqhp->bchpn", decay_to_end * dtf, Bf, xf)
     chunk_decay = torch.exp(a_cum[:, :, -1, :])  # (B, nc, H)
-    h = (torch.zeros((Bb, H, P, N), dtype=torch.float32, device=x.device)
-         if init_state is None else init_state.float())
+    h = (torch.zeros((Bb, H, P, N), dtype=ct, device=x.device)
+         if init_state is None else init_state.to(ct))
     h_prev = []  # the state at each chunk's START
     for c in range(nc):
         h_prev.append(h)
@@ -576,7 +579,7 @@ def ssd_scan_chunked(
     y_off = torch.einsum("bcqhn,bchpn,bcqh->bcqhp", Cf, h_prev,
                          torch.exp(a_cum))
     y = (y_diag + y_off).reshape(Bb, S, H, P)[:, :S0]
-    y = y + x.float()[:, :S0] * D.float()[None, None, :, None]
+    y = y + xf.reshape(Bb, S, H, P)[:, :S0] * D.to(ct)[None, None, :, None]
     y = y.to(x.dtype)
     if return_state:
         return y, h
@@ -682,20 +685,28 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, D, dy, *, init_state=None, dstate=None,
     return (*grads[:6], grads[6] if init is not None else None)
 
 
-def ssd_scan_bwd_tiles(x, dt, A, Bm, Cm, D, dy, *, kq: int, init_state=None,
-                       dstate=None):
-    """A plain model of the backward kernel's decomposition
+def ssd_scan_bwd_tiles(x, dt, A, Bm, Cm, D, dy, *, kq: int,
+                       cluster: int = 1, init_state=None, dstate=None):
+    """A plain model of the backward kernels' decomposition
     (``csrc/ssd_scan_bwd.cu``), in float32: chunks of ``kq`` rows, the
-    last one ragged; pass 1 the state entering each chunk, pass 2 over the
-    chunks in reverse with the state cotangent g: the decay block's M, W
-    and F, dx, per-head partials of dB and dC, d(a) per row and its
-    reverse cumulative sum into ddt, dA and dD gathered chunk by chunk, and
-    g stepped back.  Then the partials of dB and dC summed over the heads
-    of each group in head order, and dA and dD over the sequences.  Equal
-    to :func:`ssd_scan_bwd` up to rounding.  Only the tests call it."""
+    last one ragged.  (1) Each chunk's own states, S_c = sum_j w_j x_j ⊗
+    B_j and T_c = sum_i e^{a_i} dy_i ⊗ C_i, and a_end.  (2) The two scans
+    over the chunks: h_{c+1} = e^{a_end} h_c + S_c from the initial state
+    and g_c = e^{a_end} g_{c+1} + T_c from the final state's cotangent;
+    g_0 is the initial state's gradient.  (3) Each chunk's gradients from
+    h_c and g_{c+1} alone, in any order: the decay block's M, W and F,
+    dx, per-head dB and dC, d(a) per row and its reverse cumulative sum
+    into ddt, and the chunk's dA (term by term, as the kernel takes it)
+    and dD partials.  (4) The per-head dB and
+    dC summed over clusters of ``cluster`` heads (it divides H/G) in rank
+    order, then over each group's clusters in order; dA and dD over the
+    sequences and chunks in order.  Equal to :func:`ssd_scan_bwd` up to
+    rounding.  Only the tests call it."""
     Bb, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     rep = H // G
+    if rep % cluster:
+        raise ValueError(f"cluster {cluster} does not divide H/G = {rep}")
     dev = x.device
     xf, dtf = x.float(), dt.float()
     dyf = (torch.zeros((Bb, S, H, P), device=dev) if dy is None
@@ -710,27 +721,39 @@ def ssd_scan_bwd_tiles(x, dt, A, Bm, Cm, D, dy, *, kq: int, init_state=None,
         ed = torch.exp(a[:, -1:] - a)
         return a, torch.exp(a), ed, ed * dtf[:, c0:c0 + nq], a[:, -1]
 
+    # (1) the chunks' own states.
+    own_s, own_t, ends = [], [], []
+    for c0, nq in chunks:
+        sl = slice(c0, c0 + nq)
+        _, ea, _, w, a_end = decays(c0, nq)
+        own_s.append(torch.einsum("bjh,bjhp,bjhn->bhpn", w, xf[:, sl],
+                                  Bf[:, sl]))
+        own_t.append(torch.einsum("bih,bihp,bihn->bhpn", ea, dyf[:, sl],
+                                  Cf[:, sl]))
+        ends.append(torch.exp(a_end)[..., None, None])
+    # (2) the two scans: hs[c] = h_c, gs[c] = g_{c+1}.
     h = (torch.zeros((Bb, H, P, N), device=dev) if init_state is None
          else init_state.float())
-    starts = []
-    for c0, nq in chunks:  # pass 1
-        starts.append(h)
-        sl = slice(c0, c0 + nq)
-        _, _, _, w, a_end = decays(c0, nq)
-        h = torch.exp(a_end)[..., None, None] * h + torch.einsum(
-            "bjh,bjhp,bjhn->bhpn", w, xf[:, sl], Bf[:, sl])
+    hs = []
+    for c in range(len(chunks)):
+        hs.append(h)
+        h = ends[c] * h + own_s[c]
     g = (torch.zeros((Bb, H, P, N), device=dev) if dstate is None
          else dstate.float())
+    gs = [None] * len(chunks)
+    for c in reversed(range(len(chunks))):
+        gs[c] = g
+        g = ends[c] * g + own_t[c]
+    # (3) each chunk's gradients.
     dx = torch.empty((Bb, S, H, P), device=dev)
     ddt = torch.empty((Bb, S, H), device=dev)
     dBp = torch.empty((Bb, S, H, N), device=dev)
     dCp = torch.empty((Bb, S, H, N), device=dev)
-    dAp = torch.zeros((Bb, H), device=dev)
-    dDp = torch.zeros((Bb, H), device=dev)
-    for c in reversed(range(len(chunks))):  # pass 2
-        c0, nq = chunks[c]
+    dAp = torch.empty((Bb, H, len(chunks)), device=dev)
+    dDp = torch.empty((Bb, H, len(chunks)), device=dev)
+    for c, (c0, nq) in enumerate(chunks):
         sl = slice(c0, c0 + nq)
-        h = starts[c]
+        hc, gc = hs[c], gs[c]
         xc, dyc, bc, cc, dtc = (xf[:, sl], dyf[:, sl], Bf[:, sl], Cf[:, sl],
                                 dtf[:, sl])
         a, ea, ed, w, a_end = decays(c0, nq)
@@ -743,39 +766,55 @@ def ssd_scan_bwd_tiles(x, dt, A, Bm, Cm, D, dy, *, kq: int, init_state=None,
         dm = torch.einsum("bihp,bjhp->bhij", dyc, xc)
         dtj = dtc.permute(0, 2, 1)[:, :, None, :]
         M, W, F_ = cb * L * dtj, dm * L * dtj, dm * cb * L
-        gB = torch.einsum("bhpn,bjhn->bjhp", g, bc)
-        Z = torch.einsum("bihp,bhpn->bihn", dyc, h)
+        gB = torch.einsum("bhpn,bjhn->bjhp", gc, bc)
+        Z = torch.einsum("bihp,bhpn->bihn", dyc, hc)
+        Xg = torch.einsum("bjhp,bhpn->bjhn", xc, gc)
         zc = (cc * Z).sum(-1)  # (B, q, H)
         xgb = (xc * gB).sum(-1)
-        dx[:, sl] = (torch.einsum("bhij,bihp->bjhp", M, dyc)
-                     + Df[:, None] * dyc + w[..., None] * gB)
-        dCp[:, sl] = (torch.einsum("bhij,bjhn->bihn", W, bc)
-                      + ea[..., None] * Z)
+        dx[:, sl] = (w[..., None] * gB
+                     + torch.einsum("bhij,bihp->bjhp", M, dyc)
+                     + Df[:, None] * dyc)
+        dCp[:, sl] = (ea[..., None] * Z
+                      + torch.einsum("bhij,bjhn->bihn", W, bc))
+        dBp[:, sl] = (w[..., None] * Xg
+                      + torch.einsum("bhij,bihn->bjhn", W, cc))
         rowe = (F_ * dtj).sum(-1).permute(0, 2, 1)  # (B, q, H)
         colf = F_.sum(-2).permute(0, 2, 1)
-        gh = (g * h).sum((-1, -2))  # (B, H)
-        Xg = torch.einsum("bjhp,bhpn->bjhn", xc, g)
+        gh = (gc * hc).sum((-1, -2))  # (B, H)
         u = w * xgb
         da = rowe - dtc * colf + ea * zc - u
         da[:, nq - 1] += u.sum(1) + torch.exp(a_end) * gh
         R = torch.flip(torch.cumsum(torch.flip(da, (1,)), 1), (1,))
         ddt[:, sl] = colf + ed * xgb + Af * R
-        dAp += (dtc * R).sum(1)
-        dDp += torch.diagonal(dm, dim1=-2, dim2=-1).sum(-1)
-        dBp[:, sl] = (torch.einsum("bhij,bihn->bjhn", W, cc)
-                      + w[..., None] * Xg)
-        g = torch.exp(a_end)[..., None, None] * g + torch.einsum(
-            "bih,bihp,bihn->bhpn", ea, dyc, cc)
+        # dA = sum_m dt_m R_m = sum_i d(a)_i c_i (c = cumsum(dt)), term by
+        # term: F's share as sum_{j <= i} F_ij dt_j (c_i - c_j), not as the
+        # difference of its row and column sums, which cancels.
+        cdt = torch.cumsum(dtc, 1)  # (B, q, H)
+        ch = cdt.permute(0, 2, 1)
+        cl = cdt[:, -1]
+        dAp[:, :, c] = ((F_ * dtj * (ch[..., :, None] - ch[..., None, :]))
+                        .sum((-1, -2))
+                        + (ea * zc * cdt + u * (cl[:, None] - cdt)).sum(1)
+                        + cl * torch.exp(a_end) * gh)
+        dDp[:, :, c] = torch.diagonal(dm, dim1=-2, dim2=-1).sum(-1)
+    # (4) the fixed-order sums.
+    dBc = torch.zeros((Bb, S, H // cluster, N), device=dev)
+    dCc = torch.zeros((Bb, S, H // cluster, N), device=dev)
+    for r in range(cluster):  # the heads of a cluster, in rank order
+        dBc += dBp.reshape(Bb, S, H // cluster, cluster, N)[:, :, :, r]
+        dCc += dCp.reshape(Bb, S, H // cluster, cluster, N)[:, :, :, r]
+    per = rep // cluster
     dB = torch.zeros((Bb, S, G, N), device=dev)
     dC = torch.zeros((Bb, S, G, N), device=dev)
-    for r in range(rep):  # the heads of each group, in order
-        dB += dBp.reshape(Bb, S, G, rep, N)[:, :, :, r]
-        dC += dCp.reshape(Bb, S, G, rep, N)[:, :, :, r]
+    for k in range(per):  # the clusters of a group, in order
+        dB += dBc.reshape(Bb, S, G, per, N)[:, :, :, k]
+        dC += dCc.reshape(Bb, S, G, per, N)[:, :, :, k]
     dA = torch.zeros((H,), device=dev)
     dD = torch.zeros((H,), device=dev)
-    for b in range(Bb):  # the sequences, in order
-        dA += dAp[b]
-        dD += dDp[b]
+    for b in range(Bb):  # the sequences, then the chunks, in order
+        for c in range(len(chunks)):
+            dA += dAp[b, :, c]
+            dD += dDp[b, :, c]
     return (dx.to(x.dtype), ddt.to(dt.dtype), dA.to(A.dtype),
             dB.to(Bm.dtype), dC.to(Cm.dtype), dD.to(D.dtype),
             g if init_state is not None else None)

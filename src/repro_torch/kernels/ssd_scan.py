@@ -12,11 +12,16 @@ the result depends on the chunk only through rounding).
 
 Training differentiates the call.  The Pallas kernel has no backward (the
 reference trains through ``jax.grad`` of the chunked form); the port's is
-a kernel of its own, ``repro_torch/csrc/ssd_scan_bwd.cu``
-(:func:`ssd_scan_bwd`, cut by :func:`ssd_bwd_plan`).  When a CUDA input
-requires grad under grad mode, :func:`ssd_scan` runs as a
-``torch.autograd.Function`` whose forward is the same kernel and whose
-backward is that kernel; it saves only the inputs.
+its own, ``repro_torch/csrc/ssd_scan_bwd.cu`` (:func:`ssd_scan_bwd`, cut
+by :func:`ssd_bwd_plan`): four kernels a call, parallel over chunks (each
+chunk's own states, the two state scans over the chunks, each chunk's
+gradients from its entry state and its exit state's cotangent with the
+heads of a group in thread-block clusters, a fixed-order reduce), on the
+tensor cores for bf16 calls with every float32 operand split exactly into
+three bf16 pieces.  When a CUDA input requires grad under grad mode,
+:func:`ssd_scan` runs as a ``torch.autograd.Function`` whose forward is
+the same kernel and whose backward is that call; it saves only the
+inputs.
 
 A tensor on the CPU is computed by the plain version,
 :func:`repro_torch.kernels.ref.ssd_scan_chunked` at ``chunk``, which
@@ -47,11 +52,14 @@ SMEM_SM = 228 * 1024  # an SM's shared memory (H100), 1 KB more a block
 _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
              + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 3
              + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 7
-                 + [ctypes.c_longlong] * 4
-                 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 23 + [ctypes.c_int] * 7
+                 + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 2
+                 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
 BWD_THREADS = 256  # kThreads of ssd_scan_bwd.cu
-_BWD_VECS = 10  # kVecs: per-row vectors of the chunk
+_BWD_VECS = 7  # kVecs: per-row vectors of the gradient kernel
+_BWD_LOCAL_VECS = 6  # kLocalVecs: of the local-states kernel
+_BWD_ROW_PARTS = 4  # kRowParts: column tiles of a row's partial sums
+_BWD_F_PARTS = 2 + 4  # kFRowParts + kFColParts: F's row and column sums
 
 
 def _round_up(n: int, m: int) -> int:
@@ -129,42 +137,84 @@ def ssd_plan(B: int, S: int, H: int, P: int, G: int, N: int,
 
 
 class SsdBwdPlan(NamedTuple):
-    """How the backward cuts a call."""
+    """How the backward cuts a call: four kernels, the two chunk kernels
+    over (head, chunk, sequence) blocks."""
     kq: int  # chunk: rows of a tile, 16, 32 or 64
-    threads: int  # threads a block
-    smem: int  # dynamic shared bytes a block
-    sm_blocks: int  # blocks an SM holds by shared memory and threads
-    blocks: int  # blocks of the grid: one a (head, sequence)
-    chunks: int  # chunks a sequence, each a step of both passes
+    cluster: int  # heads a cluster of the gradient kernel (divides H/G)
+    threads: int  # threads a block of the chunk kernels
+    smem_local: int  # dynamic shared bytes of a local-states block
+    smem: int  # dynamic shared bytes of a gradient block
+    sm_blocks: int  # gradient blocks an SM holds by shared memory
+    blocks: int  # blocks of each chunk kernel: B H chunks
+    chunks: int  # chunks a sequence
+    scan_threads: int  # threads of the state scans: a float4 of (P, N) each
+    scratch: int  # bytes of float32 scratch the wrapper allocates
 
 
-def _bwd_smem(kq: int, P: int, N: int) -> int:
-    """Shared bytes of one backward block: ``layout()`` in
-    ``ssd_scan_bwd.cu``, which the launcher checks against this.  Every
-    tile is float32 with an odd row stride: the entry state and its
-    cotangent (P, N); x, dy and g B (kq, P); B, C and one scratch
-    (kq, N); three (kq, kq) blocks; the per-row vectors."""
-    lq, lp, ln = kq | 1, P | 1, N | 1
-    return 4 * (2 * P * ln + 3 * kq * lp + 3 * kq * ln + 3 * kq * lq
-                + _BWD_VECS * kq + 64)
+def _bwd_geo(kq: int, P: int, N: int) -> tuple[int, int, int]:
+    """(rows, P, N) of a chunk kernel's tiles (``geo()`` in
+    ``ssd_scan_bwd.cu``): the chunk at least 32 rows, P and N padded to
+    multiples of 32."""
+    return max(kq, 32), _round_up(P, 32), _round_up(N, 32)
+
+
+def _bwd_smem(kq: int, P: int, N: int, esz: int) -> tuple[int, int]:
+    """Shared bytes of a (local-states, gradient) block: ``local_layout()``
+    and ``grads_layout()`` in ``ssd_scan_bwd.cu``, which the launcher
+    checks against these (``esz``: the inputs' element size).  Row strides
+    are 8 elements past the padded width.  Local: w x and e^a dy (Q, P)
+    (three bf16 pieces each in a bf16 call, float32 in a float32 one); x
+    and dy (Q, P) and B and C (Q, N) in the inputs' type; the per-row
+    vectors.  Gradient: the chunk's entry state h and its exit cotangent
+    g (P, N) (rows max(P, Q): the dC and dB partials reuse them) and M and
+    W (Q, Q), as three bf16 pieces each in a bf16 call, as float32 in a
+    float32 one; x and dy (Q, P) and B and C (Q, N) in the inputs' type; the
+    per-row vectors and the row and column partial sums."""
+    Qp, PP, NP = _bwd_geo(kq, P, N)
+    fsz = 6 if esz == 2 else 4  # bytes of a float32 operand's element
+    local = (fsz * 2 * Qp * (PP + 8) + esz * 2 * Qp * (PP + 8)
+             + esz * 2 * Qp * (NP + 8) + 4 * _BWD_LOCAL_VECS * Qp)
+    grads = (fsz * 2 * max(PP, Qp) * (NP + 8) + esz * 2 * Qp * (PP + 8)
+             + esz * 2 * Qp * (NP + 8) + fsz * 2 * Qp * (Qp + 8)
+             + 4 * ((_BWD_VECS + _BWD_F_PARTS + 2 * _BWD_ROW_PARTS) * Qp
+                    + 32))
+    return local, grads
+
+
+def _bwd_cluster(H: int, G: int) -> int:
+    """The gradient kernel's head cluster: the largest divisor of H/G up
+    to 8 (a portable cluster), so a cluster never straddles two groups."""
+    rep = H // G
+    return max(d for d in range(1, min(rep, 8) + 1) if rep % d == 0)
 
 
 @functools.lru_cache(maxsize=None)
-def ssd_bwd_plan(B: int, S: int, H: int, P: int, G: int,
-                 N: int) -> SsdBwdPlan:
+def ssd_bwd_plan(B: int, S: int, H: int, P: int, G: int, N: int,
+                 dtype: torch.dtype = torch.bfloat16) -> SsdBwdPlan:
     """Cut the backward of a scan of x (B, S, H, P), B and C (B, S, G, N)
-    from the shapes alone (every operand is staged as float32, so the
-    types do not enter).  One block takes a (head, sequence).  The chunk
-    is the largest of 64, 32 and 16 rows whose block leaves room for two
-    an SM (16 at mamba2-780m's N = 128, 32 at hymba-1.5b's N = 16), and no
-    larger than the smallest of them that holds the sequence."""
-    fits = [q for q in (64, 32, 16)
-            if _fit(_bwd_smem(q, P, N), BWD_THREADS) >= 2]
-    kq = min(fits[0] if fits else 16,
-             next((q for q in (16, 32) if S <= q), 64))
-    smem = _bwd_smem(kq, P, N)
-    return SsdBwdPlan(kq, BWD_THREADS, smem, _fit(smem, BWD_THREADS),
-                      B * H, -(-S // kq))
+    in ``dtype`` (which sets only the shared bytes: the inputs' tiles
+    keep their type) from the shapes alone.
+
+    The chunk is 64 rows, or the smallest of 16 and 32 that holds a short
+    sequence.  At 64 the chunk states (B, H, S/64, P, N) float32 are 100
+    MB a buffer at mamba2-780m's training shape and the intra-chunk Q^2
+    work is under half of the products; 128 would halve the scratch but
+    double that work, and its (Q, Q) M and W would not fit in shared
+    memory beside the states.  Both training shapes fill
+    the card with blocks: mamba2 3072, hymba 850.  The gradient kernel's
+    heads form clusters of the largest divisor of H/G up to 8, which cuts
+    the per-head dB and dC partials by that factor."""
+    esz = 2 if dtype == torch.bfloat16 else 4
+    kq = next((q for q in (16, 32) if S <= q), 64)
+    chunks = -(-S // kq)
+    cluster = _bwd_cluster(H, G)
+    local, grads = _bwd_smem(kq, P, N, esz)
+    _, PP, NP = _bwd_geo(kq, P, N)
+    scratch = 4 * (2 * B * H * chunks * PP * NP + 3 * B * H * chunks
+                   + 2 * B * S * (H // cluster) * N)
+    return SsdBwdPlan(kq, cluster, BWD_THREADS, local, grads,
+                      SMEM_SM // (grads + 1024), B * H * chunks, chunks,
+                      PP * NP // 4, scratch)
 
 
 @functools.lru_cache(maxsize=None)
@@ -366,12 +416,16 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     D32 = D.to(torch.float32).contiguous()
     if init_state is not None:
         init_state = init_state.to(torch.float32).contiguous()
-    plan = ssd_bwd_plan(Bb, S, H, P, G, N)
-    states = torch.empty((Bb, H, plan.chunks, P, N), **f32)
-    dBp = torch.empty((Bb, S, H, N), **f32)
-    dCp = torch.empty((Bb, S, H, N), **f32)
-    dAp = torch.empty((Bb, H), **f32)
-    dDp = torch.empty((Bb, H), **f32)
+    plan = ssd_bwd_plan(Bb, S, H, P, G, N, x.dtype)
+    _, PP, NP = _bwd_geo(plan.kq, P, N)
+    nc = plan.chunks
+    st = torch.empty((Bb, H, nc, PP, NP), **f32)
+    ct = torch.empty((Bb, H, nc, PP, NP), **f32)
+    aend = torch.empty((Bb, H, nc), **f32)
+    dBc = torch.empty((Bb, S, H // plan.cluster, N), **f32)
+    dCc = torch.empty((Bb, S, H // plan.cluster, N), **f32)
+    dAp = torch.empty((Bb, H, nc), **f32)
+    dDp = torch.empty((Bb, H, nc), **f32)
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
@@ -379,11 +433,13 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     err = _bwd_launcher()(
         x.data_ptr(), dt.data_ptr(), A32.data_ptr(), D32.data_ptr(),
         Bm.data_ptr(), Cm.data_ptr(), ptr(init_state), dy.data_ptr(),
-        ptr(dstate), states.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
-        dBp.data_ptr(), dCp.data_ptr(), dAp.data_ptr(), dDp.data_ptr(),
-        ptr(dinit), dB.data_ptr(), dC.data_ptr(), dA.data_ptr(),
-        dD.data_ptr(), int(x.dtype == torch.bfloat16), Bb, S, H, P, G, N,
-        x_rs, dt_rs, b_rs, c_rs, plan.kq, plan.smem, stream_ptr(dev))
+        ptr(dstate), st.data_ptr(), ct.data_ptr(), aend.data_ptr(),
+        dx.data_ptr(), ddt.data_ptr(), dBc.data_ptr(), dCc.data_ptr(),
+        dAp.data_ptr(), dDp.data_ptr(), ptr(dinit), dB.data_ptr(),
+        dC.data_ptr(), dA.data_ptr(), dD.data_ptr(),
+        int(x.dtype == torch.bfloat16), Bb, S, H, P, G, N, x_rs, dt_rs, b_rs,
+        c_rs, plan.kq, plan.cluster, plan.smem_local, plan.smem,
+        stream_ptr(dev))
     check_launch("ssd_scan_bwd", err)
     ssd_scan_bwd.launches += 1
     return dx, ddt, dA.to(A.dtype), dB, dC, dD.to(D.dtype), dinit

@@ -22,13 +22,18 @@ against ``ref.ssd_scan_bwd`` (autograd through the plain chunked form) at
 the sweep of ``test_kernels.py``, with and without an initial state and a
 final-state cotangent, from column slices of one tensor as the model
 passes them, every gradient element-wise: f32 within 2e-4 (the scan's
-tolerance), bf16 within 3e-2 and 1e-2 relative l2.  The oracle runs at
-the kernel's own chunk (``ssd_bwd_plan``): at another chunk dA, a sum
-over every token of the batch, differs past 2e-4 by the order of the
-sums alone (``test_torch_ssd_bwd_plan.py::
-test_token_sums_round_with_their_scale``).  Two calls bit-equal, and
-autograd through ``ops.ssd_scan`` runs it.  Imports no JAX: it runs on
-the machine with the card.
+tolerance), bf16 within 3e-2 and 1e-2 relative l2; at its chunk-parallel
+grid's edges (ragged chunks, sequences shorter than a chunk, head
+clusters of 3, 5 and 6, P and N not whole 16-byte rows); a float32 call
+beside a bf16 call of the same values.  The oracle runs at the kernel's
+own chunk (``ssd_bwd_plan``): at another chunk dA, a sum over every
+token of the batch, differs past 2e-4 by the order of the sums alone
+(``test_torch_ssd_bwd_plan.py::test_token_sums_round_with_their_scale``);
+and on inputs widened to float64, since at 64-row chunks the float32
+evaluation's own rounding reaches past 2e-4 on dA
+(``test_the_cards_oracle_is_the_float64_evaluation``).  Two calls
+bit-equal, and autograd through ``ops.ssd_scan`` runs it.  Imports no
+JAX: it runs on the machine with the card.
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_train_cuda.py
 """
@@ -275,6 +280,17 @@ SSD_SHAPES = [(1, 64, 2, 16, 1, 8), (2, 96, 4, 32, 2, 16),
 SSD_NAMES = ("dx", "ddt", "dA", "dB", "dC", "dD", "dinit")
 
 
+def _ssd_oracle(args, dy, kq, init_state=None, dstate=None):
+    """The plain backward (autograd through the chunked form) at the
+    kernel's chunk ``kq``, on the inputs widened to float64."""
+    def wide(t):
+        return None if t is None else t.double()
+
+    return tref.ssd_scan_bwd(*[t.double() for t in args], wide(dy),
+                             chunk=kq, init_state=wide(init_state),
+                             dstate=wide(dstate))
+
+
 def _ssd_inputs(dev, B, S, H, P, G, N, dtype, seed=5):
     """x, B and C as column slices of one (B, S, .) tensor (the model's
     xbc), dt, A, D, an initial state, dy and a final-state cotangent."""
@@ -310,12 +326,12 @@ def test_ssd_backward_kernel(sm90, shape, dtype, with_init, with_dstate):
     before = ssd_scan_bwd.launches
     got = ssd_scan_bwd(*args, dy, **kw)
     assert ssd_scan_bwd.launches == before + 1
-    want = tref.ssd_scan_bwd(*args, dy, chunk=ssd_bwd_plan(*shape).kq, **kw)
+    want = _ssd_oracle(args, dy, ssd_bwd_plan(*shape).kq, **kw)
     for name, a, b, t in zip(SSD_NAMES, got, want, args + (init,)):
         if not with_init and name == "dinit":
             assert a is None and b is None
             continue
-        assert a.shape == t.shape and a.dtype == b.dtype, name
+        assert a.shape == t.shape and a.dtype == t.dtype, name
         assert a.is_contiguous(), name
         err = float((a.float() - b.float()).abs().max())
         torch.testing.assert_close(a.float(), b.float(),
@@ -347,3 +363,60 @@ def test_ssd_backward_is_deterministic_and_autograd_uses_it(sm90, dtype):
     assert ssd_scan_bwd.launches == b0 + 1
     for x, y in zip(grads, a):
         assert torch.equal(x, y)
+
+
+# The chunk-parallel grid's edges (B, S, H, P, G, N): S ragged against the
+# 64-row chunk over two chunks; shorter than one chunk (16 rows, and one
+# ragged 64-row chunk); H/G = 5, 12 and 3, which no cluster of 8 divides
+# (clusters of 5, 6 and 3); P and N not whole 16-byte rows (element-wise
+# staging: 36 and 20 bf16, 30 and 12 float32).
+SSD_EDGES = [(2, 100, 8, 64, 2, 128), (1, 12, 4, 64, 1, 128),
+             (2, 40, 4, 32, 1, 16), (2, 130, 10, 64, 2, 16),
+             (1, 90, 12, 32, 1, 64), (2, 70, 6, 36, 2, 20),
+             (1, 66, 3, 30, 1, 12)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SSD_EDGES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_tile_edges(sm90, shape, dtype):
+    """The new grid at its edges, with an initial state and a final-state
+    cotangent, against the oracle at the kernel's chunk, element-wise at
+    the sweep's tolerances."""
+    B, S, H, P, G, N = shape
+    plan = ssd_bwd_plan(*shape, dtype)
+    assert (H // G) % plan.cluster == 0 and plan.cluster <= 8
+    args, init, dy, dstate = _ssd_inputs(sm90, *shape, dtype)
+    kw = dict(init_state=init, dstate=dstate)
+    got = ssd_scan_bwd(*args, dy, **kw)
+    want = _ssd_oracle(args, dy, plan.kq, **kw)
+    for name, a, b in zip(SSD_NAMES, got, want):
+        err = float((a.float() - b.float()).abs().max())
+        torch.testing.assert_close(a.float(), b.float(),
+                                   msg=f"{name}: max abs err {err:.3g}",
+                                   **SSD_TOL[a.dtype])
+        if a.dtype == torch.bfloat16:
+            rel = float((a.float() - b.float()).norm() / b.float().norm())
+            assert rel <= REL_L2, (name, rel)
+
+
+@pytest.mark.cuda
+def test_ssd_backward_f32_beside_bf16(sm90):
+    """One set of bf16 inputs through the bf16 call (tensor cores, the
+    float32 operands split) and, widened, through the float32 call (CUDA
+    cores): the float32 call within 2e-4 of its oracle, and the two calls'
+    float32 gradients (dA, dD, the initial state's) within 2e-4 of each
+    other, their bf16 ones within the bf16 tolerance."""
+    shape = (2, 200, 8, 64, 1, 128)
+    args, init, dy, dstate = _ssd_inputs(sm90, *shape, torch.bfloat16)
+    kw = dict(init_state=init, dstate=dstate)
+    b16 = ssd_scan_bwd(*args, dy, **kw)
+    wide = [t.float() for t in args]
+    f32 = ssd_scan_bwd(*wide, dy.float(), **kw)
+    want = _ssd_oracle(wide, dy, ssd_bwd_plan(*shape).kq, **kw)
+    for name, a, w, h in zip(SSD_NAMES, f32, want, b16):
+        assert a.dtype == torch.float32, name
+        torch.testing.assert_close(a, w.float(), msg=name,
+                                   **SSD_TOL[torch.float32])
+        torch.testing.assert_close(h.float(), a, msg=name,
+                                   **SSD_TOL[h.dtype])
