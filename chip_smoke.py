@@ -129,7 +129,9 @@
    8 AdamW steps (f32 master, bf16 compute, remat, z-loss; the last two
    with grad_accum=2) on the synthetic stream at 4 x 1024 tokens: losses
    finite and falling, every parameter moved; step ms, tokens/s, the
-   share of 989 TFLOP/s, one profiled step's idle share and kernels,
+   share of 989 TFLOP/s (of ``model_flops``'s count, with the inline
+   6 N T count and its share beside it), one profiled step's idle share
+   and kernels,
    peak memory, and the model's forward and backward kernels' launches
    (zeroed just before, read just after; the backward once a layer and
    micro-step).  Depth cuts at full width (tinyllama 2 layers; mamba2 2
@@ -141,9 +143,25 @@
    child process runs the cut tinyllama through ``run_supervised`` with a
    failure at step 3 under deterministic algorithms: its final state
    bit-equal to an unbroken run's.
-11. Prints the kernels as one JSON line (launches summed over the main
-   path's, the families' and the elastic A/B's serving runs and the
-   training runs, and by path), the card, and last
+11. The production train cell's per-device step on the card: for
+   tinyllama-1.1b and mamba2-780m, the ``train_4k`` cell on the 16 x 16
+   production mesh (pure data parallelism: every mesh axis a data axis,
+   the f32 state ZeRO-sharded), first its dry-run on ``meta`` tensors
+   (``repro_torch.launch.dryrun.run_cell``: FLOPs, bytes and the
+   roofline a device, the argument bytes a device from the spec trees),
+   then ``build_cell``'s own step function on the card at one device's
+   share of the batch (256 rows / 256 devices = 1 x 4096 tokens;
+   ``pick_grad_accum`` gives 1), full width and depth, from
+   ``init_state``'s state on the card and the synthetic stream's batch:
+   one untimed step and CELL_STEPS timed.  Losses finite, every
+   parameter moved, the forward and backward kernels launched once a
+   layer and step; prints the step ms and tokens/s, ``model_flops`` / 256
+   over the step as a share of 989 TFLOP/s, the dry-run's compute_s,
+   memory_s and bound_s and the step's multiple of bound_s, the useful
+   ratio, and the peak memory beside the cell's argument bytes a device.
+12. Prints the kernels as one JSON line (launches summed over the main
+   path's, the families' and the elastic A/B's serving runs, the
+   training runs and the train cell, and by path), the card, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a CUDA device, or without
@@ -268,6 +286,11 @@ HOST_CUTS = ((TRAIN_ARCH, CUT_LAYERS, TRAIN_BATCH, TRAIN_SEQ), SSM_CUT,
 # The scan backward's training shapes: (arch, batch, rows a sequence).
 SSD_BWD_ROWS = ((SSM_TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ),
                 ("hymba-1.5b", 1, 2048 + 128))
+# Phase 11: the production train cell's per-device step (pure data
+# parallelism on the 16 x 16 mesh: one row of 4096 tokens a device).
+CELL_ARCHS = (TRAIN_ARCH, SSM_TRAIN_ARCH)
+CELL_SHAPE = "train_4k"
+CELL_STEPS = 3  # timed, after one untimed
 HOST_THREADS = 4  # of the card machine's 8 cores: the host's cut steps
 
 # The main path's kernels by the profiler's names: the substrings of each
@@ -2789,6 +2812,7 @@ def train_main(kernels, bwds, arch) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
+    from repro_torch.launch.roofline import model_flops_for
     from repro_torch.training import pytree
     from repro_torch.training.data import DataConfig, SyntheticStream
     from repro_torch.training.optim import AdamW, warmup_cosine
@@ -2851,7 +2875,8 @@ def train_main(kernels, bwds, arch) -> dict:
     attn = (12 * TRAIN_BATCH * cfg.num_heads * cfg.resolved_head_dim
             * visible_pairs(TRAIN_SEQ, TRAIN_SEQ, 0) * cfg.num_layers
             if cfg.uses_attention else 0)
-    flops = 6 * n_params * tokens + attn
+    inline = 6 * n_params * tokens + attn
+    flops = model_flops_for(cfg, TRAIN_SEQ, TRAIN_BATCH, "train")
     med = float(np.median(walls))
     print(f"train {arch} ({card()}): full width and depth "
           f"({cfg.num_layers} layers, d_model {cfg.d_model}), f32 master, "
@@ -2861,8 +2886,11 @@ def train_main(kernels, bwds, arch) -> dict:
           + f"; step ms median {med:.1f} ({', '.join(f'{w:.1f}' for w in walls)}"
           f"; grad_accum=2: {', '.join(f'{w:.1f}' for w in accum_walls)};"
           f" step 0 untimed), {tokens / med * 1e3:.0f} tokens/s; "
-          f"6 N T{' + attention' if attn else ''} {flops / 1e12:.2f} TFLOP "
-          f"a step (N {n_params / 1e9:.3f} B without the embedding), "
+          f"model_flops {flops / 1e12:.2f} TFLOP a step (the inline "
+          f"6 N T{' + attention' if attn else ''} with N "
+          f"{n_params / 1e9:.3f} B without the embedding: "
+          f"{inline / 1e12:.2f} TFLOP, "
+          f"{inline / (med / 1e3) / peak_ops(torch.bfloat16):.1%}), "
           f"{flops / (med / 1e3) / peak_ops(torch.bfloat16):.1%} of "
           f"{peak_ops(torch.bfloat16) / 1e12:.0f} TFLOP/s; profiled "
           f"step {prof_step}: wall {prof_wall:.1f} ms, device busy "
@@ -3145,6 +3173,144 @@ def check_training(ref, g, cfgs, kernels, host) -> tuple:
     return rows, calls
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the production train cell's per-device step
+# ---------------------------------------------------------------------------
+def cell_step(kernels, bwds, arch) -> dict:
+    """``arch``'s ``train_4k`` cell on the production mesh: its dry-run on
+    ``meta`` (``run_cell``), then the cell's own step function
+    (``build_cell``'s ``fn``) on the card at one device's share of the
+    batch, at full width and depth from ``init_state``'s state on the
+    card: one untimed step, then CELL_STEPS timed.  Gates: the cell is
+    pure data-parallel with no microbatching, the state's leaves are the
+    cell's stand-ins, every loss finite, every parameter leaf moved, and
+    the model's forward and backward kernels launched once a layer and
+    step (counts zeroed just before, read just after).  Returns the
+    wrapper launches of the run."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import pick_grad_accum, run_cell
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.roofline import model_flops
+    from repro_torch.launch.specs import SHAPE_SPECS
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.training import pytree
+    from repro_torch.training.data import DataConfig, SyntheticStream
+    from repro_torch.training.optim import AdamW
+    from repro_torch.training.train_step import init_state
+
+    cfg = get_config(arch)
+    mesh = make_production_mesh()
+    seq, gbatch, _ = SHAPE_SPECS[CELL_SHAPE]
+    t0 = time.perf_counter()
+    dry = run_cell(arch, CELL_SHAPE, probe=False, verbose=False)
+    dry_s = time.perf_counter() - t0
+    if dry["status"] != "OK" or not dry["dp_only"]:
+        raise AssertionError(f"cell {arch}: {dry['status']} dp_only="
+                             f"{dry.get('dp_only')} {dry.get('error', '')}")
+    accum = pick_grad_accum(cfg, CELL_SHAPE, mesh)
+    rows = gbatch // mesh.size  # pure data parallelism: one device's rows
+    if accum != 1 or rows != 1:
+        raise AssertionError(f"cell {arch}: grad_accum {accum}, {rows} rows")
+    fn, args, _, _, _ = build_cell(cfg, CELL_SHAPE, mesh, grad_accum=accum)
+    state = init_state(cfg, 0, AdamW(lr=1e-4), dtype=torch.float32,
+                       device="cuda")
+    got = [(tuple(t.shape), t.dtype) for t in pytree.leaves(state)]
+    want = [(tuple(t.shape), t.dtype) for t in pytree.leaves(args[0])]
+    if got != want:
+        raise AssertionError(f"cell {arch}: the state is not the cell's")
+    before = [p.detach().clone() for p in pytree.leaves(state.params)]
+    ds = SyntheticStream(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                    global_batch=rows))
+    fns = {**kernels, **bwds}
+    for f in fns.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    for s in range(CELL_STEPS + 1):
+        batch = train_batch(ds, s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = fn(state, batch)
+        torch.cuda.synchronize()
+        if s:
+            walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    calls = {k: f.launches for k, f in fns.items()}
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"cell {arch}: a loss is not finite: {losses}")
+    still = [i for i, (a, b) in enumerate(zip(
+        before, pytree.leaves(state.params))) if torch.equal(a, b)]
+    if still:
+        raise AssertionError(f"cell {arch}: parameter leaves {still} never "
+                             "moved")
+    med = float(np.median(walls))
+    chips = mesh.size
+    per_dev = model_flops(cfg, CELL_SHAPE) / chips
+    t = dry["roofline"]
+    mem = dry["memory"]
+    state_bytes = sum(x.numel() * x.element_size()
+                      for x in pytree.leaves(state))
+    fwd, bwd = (("ssd_scan", "ssd_scan_bwd") if cfg.family == "ssm" else
+                ("flash_attention", "flash_attention_bwd"))
+    print(f"cell {arch} x {CELL_SHAPE} ({card()}): the production mesh "
+          f"{dict(mesh.shape)}, pure data parallelism, grad_accum {accum}: "
+          f"build_cell's step on one device's {rows} x {seq} tokens, full "
+          f"width and depth ({cfg.num_layers} layers), f32 state, bf16 "
+          f"compute, remat saving the tagged products: losses "
+          + ", ".join(f"{x:.4f}" for x in losses)
+          + f"; step ms median {med:.1f} ({', '.join(f'{w:.1f}' for w in walls)};"
+          f" step 0 untimed), {rows * seq / med * 1e3:.0f} tokens/s; "
+          f"model_flops / {chips} = {per_dev / 1e12:.3f} TFLOP a device, "
+          f"{per_dev / (med / 1e3) / peak_ops(torch.bfloat16):.1%} of "
+          f"{peak_ops(torch.bfloat16) / 1e12:.0f} TFLOP/s; dry-run on meta "
+          f"({dry_s:.1f} s) a device: compute_s {t['compute_s'] * 1e3:.2f} "
+          f"ms, memory_s {t['memory_s'] * 1e3:.2f} ms (each kernel's "
+          f"inputs and outputs, the other operations' operands and "
+          f"results), bound_s {t['bound_s'] * 1e3:.2f} ms "
+          f"({t['dominant']}): the step is {med / 1e3 / t['bound_s']:.2f}x "
+          f"bound_s and {med / 1e3 / t['compute_s']:.2f}x compute_s; "
+          f"useful_ratio {t['useful_ratio']:.3f}; peak memory "
+          f"{peak / 1e9:.2f} GB against the cell's "
+          f"{mem['argument_bytes'] / 1e9:.4f} GB of arguments a device: "
+          f"the card holds the whole f32 state ({state_bytes / 1e9:.2f} GB), "
+          f"which ZeRO spreads over {chips} devices in the cell "
+          f"({state_bytes / chips / 1e9:.4f} GB each), "
+          f"{(peak - mem['argument_bytes']) / 1e9:.2f} GB more here; "
+          f"{fwd} / {bwd} launches {calls[fwd]} / {calls[bwd]}")
+    want_bwd = cfg.num_layers * (CELL_STEPS + 1)
+    if calls[fwd] == 0 or calls[bwd] != want_bwd:
+        raise AssertionError(f"cell {arch}: launches {calls}, want "
+                             f"{want_bwd} {bwd}")
+    del state, before
+    gc.collect()
+    torch.cuda.empty_cache()
+    return calls
+
+
+def check_cells(kernels) -> dict:
+    """Phase 11: the production train cell's per-device step of each of
+    CELL_ARCHS.  Returns the runs' wrapper launches summed."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd
+    from repro_torch.models import transformer as T
+
+    bwds = {"flash_attention_bwd": flash_attention_bwd,
+            "ssd_scan_bwd": ssd_scan_bwd}
+    calls = {}
+    try:
+        for arch in CELL_ARCHS:
+            for k, n in cell_step(kernels, bwds, arch).items():
+                calls[k] = calls.get(k, 0) + n
+    finally:
+        from repro_torch.distributed.ctx import set_ctx
+
+        set_ctx(None)  # build_cell's sharding context and remat policy
+        T.set_remat_save_tp(True)
+    return calls
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -3173,7 +3339,7 @@ def main() -> None:
 
 
 def run(ops, ref, get_config, host) -> None:
-    """Phases 2-11 (``main`` builds the kernels and starts the host's
+    """Phases 2-12 (``main`` builds the kernels and starts the host's
     side of phase 10 first)."""
     g = torch.Generator(device="cuda").manual_seed(0)
     cfgs = [get_config(a) for a in ARCHS]
@@ -3223,6 +3389,11 @@ def run(ops, ref, get_config, host) -> None:
     rows.update(bwd_rows)
     paths["train"] = {k: n for k, n in calls.items() if n}
     print(f"training phase took {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    paths["cell"] = {k: n for k, n in check_cells(kernels).items() if n}
+    print(f"train cell phase took {time.perf_counter() - t0:.1f} s")
 
     replaces = {
         "quant_matmul": "src/repro/kernels/quant_matmul.py:102",
@@ -3243,12 +3414,15 @@ def run(ops, ref, get_config, host) -> None:
                   "replays and eager calls" for k in kernels}
     counted_by["paged_decode_attention"] = "wrapper calls over the replay"
     for k in ("flash_attention", "ssd_scan"):
-        counted_by[k] += "; the training runs' eager calls by the wrapper"
+        counted_by[k] += ("; the training runs' and the train cell's eager "
+                          "calls by the wrapper")
     counted_by["flash_attention_bwd"] = (
-        "wrapper calls over the training runs (each launches the dQ and "
-        "the dK/dV kernels; the profiler counted both over one step)")
+        "wrapper calls over the training runs and the train cell (each "
+        "launches the dQ and the dK/dV kernels; the profiler counted both "
+        "over one step)")
     counted_by["ssd_scan_bwd"] = (
-        "wrapper calls over the training runs (each launches the local "
+        "wrapper calls over the training runs and the train cell (each "
+        "launches the local "
         "states, the scans, the gradient and the reduction kernels; the "
         "profiler counted all four over one step)")
     launches_by = {k: {p: n[k] for p, n in paths.items() if k in n}

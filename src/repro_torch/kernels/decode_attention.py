@@ -11,7 +11,7 @@ comment gives the design and what bounds it on the H100 (the cache bytes
 it reads).  :func:`split_plan` decides how a call cuts its keys, from the
 shapes and types alone.
 
-A tensor on the CPU is computed by the plain versions,
+A tensor on the CPU or on ``meta`` is computed by the plain versions,
 :func:`repro_torch.kernels.ref.decode_attention` and
 :func:`~repro_torch.kernels.ref.paged_decode_attention`.  A CUDA tensor
 goes to the kernel, or the call raises: there is no fallback.  ``q`` and
@@ -148,10 +148,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      window: int = 0, softcap: float = 0.0,
                      scale: float = 0.0, prefix: int = 0) -> torch.Tensor:
     """q: (B, H, D); k/v cache: (B, T, KV, D); lengths: (B,) int32."""
-    if q.device.type == "cpu":
-        return ref.decode_attention(q, k_cache, v_cache, lengths,
-                                    window=window, softcap=softcap,
-                                    scale=scale, prefix=prefix)
+    if q.device.type in ref.PLAIN_DEVICES:
+        return ref.as_kernel(ref.decode_attention, q, k_cache, v_cache,
+                             lengths, window=window, softcap=softcap,
+                             scale=scale, prefix=prefix)
     refuse_grad("decode_attention", _SERVES_ONLY, q, k_cache, v_cache)
     B, H, D = q.shape
     _, T, KV, _ = k_cache.shape
@@ -189,10 +189,11 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     ``page_table[b, t]``; lengths: (B,) int32.  On the card an entry
     outside [0, P) that the kernel would read stops it (a device trap),
     rather than being clamped."""
-    if q.device.type == "cpu":
-        return ref.paged_decode_attention(
-            q, k_pages, v_pages, page_table, lengths, window=window,
-            softcap=softcap, scale=scale, prefix=prefix)
+    if q.device.type in ref.PLAIN_DEVICES:
+        return ref.as_kernel(
+            ref.paged_decode_attention, q, k_pages, v_pages, page_table,
+            lengths, window=window, softcap=softcap, scale=scale,
+            prefix=prefix)
     refuse_grad("paged_decode_attention", _SERVES_ONLY, q, k_pages, v_pages)
     B, H, D = q.shape
     P, KV, ps, _ = k_pages.shape

@@ -13,15 +13,17 @@ reference trains through inline ``jnp`` attention); the port's is a kernel
 of its own, ``repro_torch/csrc/flash_attention_bwd.cu``
 (:func:`flash_attention_bwd`, cut by :func:`flash_bwd_plan`): on the
 tensor cores where q, k and v are all bf16, on the CUDA cores where any
-is f32.  When a CUDA input requires grad under grad mode,
+is f32.  When an input requires grad under grad mode,
 :func:`flash_attention` runs as a ``torch.autograd.Function`` whose
 forward is the same kernel, also writing each row's log-sum-exp, and
 whose backward is that kernel.
 
-A tensor on the CPU is computed by the plain version,
-:func:`repro_torch.kernels.ref.flash_attention`, which autograd
-differentiates.  A CUDA tensor goes to the kernels, or the call raises:
-there is no fallback.
+A tensor on the CPU or on ``meta`` is computed by the plain versions,
+:func:`repro_torch.kernels.ref.flash_attention` and
+:func:`~repro_torch.kernels.ref.flash_attention_bwd`, through the same
+Function, each counted by :func:`~repro_torch.kernels.ref.as_kernel` as
+the kernel it stands for.  A CUDA tensor goes to the kernels, or the
+call raises: there is no fallback.
 """
 from __future__ import annotations
 
@@ -266,7 +268,13 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor,
 
 
 def _forward(q, k, v, kw: dict, with_lse: bool):
-    """The forward kernel's launch: (out, lse (B, H, S) float32 or None)."""
+    """The forward kernel's launch: (out, lse (B, H, S) float32 or None).
+    On the CPU and ``meta`` the plain version, lse None (the plain
+    backward does not read it)."""
+    if q.device.type in ref.PLAIN_DEVICES:
+        lse_bytes = 4 * q.shape[0] * q.shape[2] * q.shape[1]
+        return ref.as_kernel(ref.flash_attention, q, k, v, **kw,
+                             extra_bytes=lse_bytes if with_lse else 0), None
     _check("flash_attention", q, k, v)
     B, S, H, D = q.shape
     _, T, KV, _ = k.shape
@@ -314,13 +322,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0, scale: float = 0.0,
                     q_offset: int = 0, prefix: int = 0) -> torch.Tensor:
-    """q: (B, S, H, D); k, v: (B, T, KV, D).  Output like q.  On the card,
-    differentiable through :func:`flash_attention_bwd` when an input
-    requires grad."""
+    """q: (B, S, H, D); k, v: (B, T, KV, D).  Output like q.
+    Differentiable through :func:`flash_attention_bwd` when an input
+    requires grad, on every device."""
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale,
               q_offset=q_offset, prefix=prefix)
-    if q.device.type == "cpu":
-        return ref.flash_attention(q, k, v, **kw)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _Attention.apply(q, k, v, kw)
@@ -334,11 +340,11 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         **kw) -> tuple[torch.Tensor, torch.Tensor]:
     """(out, lse): the forward and each row's log-sum-exp (B, H, S)
     float32 of its capped, masked scores, -inf for a row that sees no key;
-    what the backward reads.  Plain version on the CPU."""
+    what the backward reads.  Plain version on the CPU and ``meta``."""
     kw = dict(dict(causal=True, window=0, softcap=0.0, scale=0.0,
                    q_offset=0, prefix=0), **kw)
-    if q.device.type == "cpu":
-        return ref.flash_attention_lse(q, k, v, **kw)
+    if q.device.type in ref.PLAIN_DEVICES:
+        return ref.as_kernel(ref.flash_attention_lse, q, k, v, **kw)
     return _forward(q, k, v, kw, with_lse=True)
 
 
@@ -350,13 +356,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         prefix: int = 0):
     """(dq, dk, dv) of :func:`flash_attention` for the output gradient
     ``dout``, given its ``out`` and ``lse`` (:func:`flash_attention_lse`);
-    each in its input's type.  On the CPU the plain version: autograd
-    through :func:`repro_torch.kernels.ref.flash_attention` (``out`` and
-    ``lse`` unused)."""
+    each in its input's type.  On the CPU and ``meta`` the plain version:
+    autograd through :func:`repro_torch.kernels.ref.flash_attention`
+    (``out`` and ``lse`` unused)."""
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale,
               q_offset=q_offset, prefix=prefix)
-    if q.device.type == "cpu":
-        return ref.flash_attention_bwd(q, k, v, dout, **kw)
+    if q.device.type in ref.PLAIN_DEVICES:
+        out_lse = (q.numel() * q.element_size()
+                   + 4 * q.shape[0] * q.shape[2] * q.shape[1])
+        return ref.as_kernel(ref.flash_attention_bwd, q, k, v, dout, **kw,
+                             extra_bytes=out_lse)  # the kernel reads both
     _check("flash_attention_bwd", q, k, v)
     B, S, H, D = q.shape
     _, T, KV, _ = k.shape

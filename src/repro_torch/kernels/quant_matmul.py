@@ -9,7 +9,7 @@ their partials through distributed shared memory, so the wrapper
 allocates only the output.  :func:`qmm_plan` cuts a call from its shapes
 alone.
 
-A tensor on the CPU is computed by the plain version,
+A tensor on the CPU or on ``meta`` is computed by the plain version,
 :func:`repro_torch.kernels.ref.quant_matmul`.  A CUDA tensor goes to the
 kernel, or the call raises: there is no fallback.
 """
@@ -105,8 +105,9 @@ def _sms(index) -> int:
 def quant_matmul(x: torch.Tensor, w_q: torch.Tensor, scales: torch.Tensor,
                  *, out_dtype=None) -> torch.Tensor:
     """x: (..., K) f32/bf16; w_q: (K, N) int8; scales: (K/group, N) f32."""
-    if x.device.type == "cpu":
-        return ref.quant_matmul(x, w_q, scales, out_dtype=out_dtype)
+    if x.device.type in ref.PLAIN_DEVICES:
+        return ref.as_kernel(ref.quant_matmul, x, w_q, scales,
+                             out_dtype=out_dtype)
     refuse_grad("quant_matmul", "ROADMAP A9: training runs dense master "
                 "weights; the zoo's quantized variants only serve", x,
                 scales)

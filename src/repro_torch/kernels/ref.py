@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the kernels the port runs on its main path.
 
 These mirror :mod:`repro.kernels.ref` operation for operation and are the
-port's oracles: the CPU path of every kernel wrapper computes with them,
+port's oracles: the CPU and ``meta`` paths of every kernel wrapper compute
+with them,
 and ``chip_smoke.py`` holds each Hopper kernel against them on the card.
 ``paged_decode_attention`` gathers the pages that ``paginate_kv``
 (:mod:`repro_torch.kernels.decode_attention`) lays out.
@@ -23,6 +24,43 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils._pytree import tree_leaves
+
+# The devices whose tensors the kernel wrappers hand to these plain
+# versions: the CPU, and ``meta`` (shapes and types only, as the launch
+# dry-run runs the model; nothing is built or launched).
+PLAIN_DEVICES = ("cpu", "meta")
+
+
+class _KernelIO:
+    """How a byte count of the plain graph (the launch dry-run's) sees a
+    call that is one kernel on the card: inside one (``depth`` > 0) it
+    counts none of the plain version's operations, and ``bytes`` gains
+    the call's tensor arguments and results once each, as the kernel
+    reads and writes them."""
+
+    depth = 0
+    bytes = 0
+
+
+KERNEL_IO = _KernelIO()
+
+
+def as_kernel(fn, *args, extra_bytes: int = 0, **kw):
+    """``fn(*args, **kw)``, a kernel's plain version, counted in
+    :data:`KERNEL_IO` as the kernel: ``extra_bytes`` are what the kernel
+    also reads or writes and the plain version does not take or return
+    (the attention's row log-sum-exp)."""
+    KERNEL_IO.depth += 1
+    try:
+        out = fn(*args, **kw)
+    finally:
+        KERNEL_IO.depth -= 1
+    if not KERNEL_IO.depth:
+        KERNEL_IO.bytes += extra_bytes + sum(
+            t.numel() * t.element_size() for t in tree_leaves((args, kw, out))
+            if isinstance(t, torch.Tensor))
+    return out
 
 NEG_INF = -2.3819763e38  # close to bf16 min; avoids NaN from (-inf) - (-inf)
 

@@ -18,15 +18,17 @@ chunk's own states, the two state scans over the chunks, each chunk's
 gradients from its entry state and its exit state's cotangent with the
 heads of a group in thread-block clusters, a fixed-order reduce), on the
 tensor cores for bf16 calls with every float32 operand split exactly into
-three bf16 pieces.  When a CUDA input requires grad under grad mode,
+three bf16 pieces.  When an input requires grad under grad mode,
 :func:`ssd_scan` runs as a ``torch.autograd.Function`` whose forward is
 the same kernel and whose backward is that call; it saves only the
 inputs.
 
-A tensor on the CPU is computed by the plain version,
-:func:`repro_torch.kernels.ref.ssd_scan_chunked` at ``chunk``, which
-autograd differentiates.  A CUDA tensor goes to the kernels, or the call
-raises: there is no fallback.  ``x``, ``dt``, ``Bm`` and ``Cm`` share one
+A tensor on the CPU or on ``meta`` is computed by the plain versions at
+``chunk``, :func:`repro_torch.kernels.ref.ssd_scan_chunked` and
+:func:`~repro_torch.kernels.ref.ssd_scan_bwd`, through the same
+Function, each counted by :func:`~repro_torch.kernels.ref.as_kernel` as
+the kernel it stands for.  A CUDA tensor goes to the kernels, or the
+call raises: there is no fallback.  ``x``, ``dt``, ``Bm`` and ``Cm`` share one
 type, float32 or bfloat16; ``A``, ``D`` and ``init_state`` are taken as
 float32.
 """
@@ -287,8 +289,15 @@ def _check(name: str, x, dt, A, Bm, Cm, D, init_state) -> None:
                          f"P={P}, N={N}")
 
 
-def _forward(x, dt, A, Bm, Cm, D, init_state, return_state: bool):
-    """The forward kernel's launch: (y, final state float32 or None)."""
+def _forward(x, dt, A, Bm, Cm, D, init_state, return_state: bool,
+             chunk: int):
+    """The forward kernel's launch: (y, final state float32 or None).  On
+    the CPU and ``meta`` the plain version at ``chunk``."""
+    if x.device.type in ref.PLAIN_DEVICES:
+        out = ref.as_kernel(ref.ssd_scan_chunked, x, dt, A, Bm, Cm, D,
+                            chunk=chunk, init_state=init_state,
+                            return_state=return_state)
+        return out if return_state else (out, None)
     _check("ssd_scan", x, dt, A, Bm, Cm, D, init_state)
     Bb, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
@@ -327,18 +336,20 @@ class _Scan(torch.autograd.Function):
     """The forward kernel, and the backward kernel as its gradient."""
 
     @staticmethod
-    def forward(ctx, x, dt, A, Bm, Cm, D, init_state, return_state):
-        y, state = _forward(x, dt, A, Bm, Cm, D, init_state, return_state)
+    def forward(ctx, x, dt, A, Bm, Cm, D, init_state, return_state, chunk):
+        y, state = _forward(x, dt, A, Bm, Cm, D, init_state, return_state,
+                            chunk)
         ctx.save_for_backward(x, dt, A, Bm, Cm, D, init_state)
         ctx.set_materialize_grads(False)
+        ctx.chunk = chunk
         return (y, state) if return_state else y
 
     @staticmethod
     def backward(ctx, dy, dstate=None):
         x, dt, A, Bm, Cm, D, init_state = ctx.saved_tensors
         grads = ssd_scan_bwd(x, dt, A, Bm, Cm, D, dy, init_state=init_state,
-                             dstate=dstate)
-        return (*grads, None)
+                             dstate=dstate, chunk=ctx.chunk)
+        return (*grads, None, None)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -346,18 +357,16 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              init_state: Optional[torch.Tensor] = None,
              return_state: bool = False, chunk: int = 256):
     """x: (B, S, H, P); dt: (B, S, H); A, D: (H,); Bm, Cm: (B, S, G, N);
-    init_state: (B, H, P, N).  Returns y like x [, final state f32].  On
-    the card, differentiable through :func:`ssd_scan_bwd` when an input
-    requires grad."""
-    if x.device.type == "cpu":
-        return ref.ssd_scan_chunked(x, dt, A, Bm, Cm, D, chunk=chunk,
-                                    init_state=init_state,
-                                    return_state=return_state)
+    init_state: (B, H, P, N).  Returns y like x [, final state f32].
+    Differentiable through :func:`ssd_scan_bwd` when an input requires
+    grad, on every device."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (x, dt, A, Bm, Cm, D, init_state)):
-        return _Scan.apply(x, dt, A, Bm, Cm, D, init_state, return_state)
-    y, state = _forward(x, dt, A, Bm, Cm, D, init_state, return_state)
+        return _Scan.apply(x, dt, A, Bm, Cm, D, init_state, return_state,
+                           chunk)
+    y, state = _forward(x, dt, A, Bm, Cm, D, init_state, return_state,
+                        chunk)
     return (y, state) if return_state else y
 
 
@@ -375,10 +384,10 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     None for an absent ``init_state``.  On the CPU the plain version:
     autograd through :func:`repro_torch.kernels.ref.ssd_scan_chunked` at
     ``chunk``."""
-    if x.device.type == "cpu":
-        return ref.ssd_scan_bwd(x, dt, A, Bm, Cm, D, dy,
-                                init_state=init_state, dstate=dstate,
-                                chunk=chunk)
+    if x.device.type in ref.PLAIN_DEVICES:
+        return ref.as_kernel(ref.ssd_scan_bwd, x, dt, A, Bm, Cm, D, dy,
+                             init_state=init_state, dstate=dstate,
+                             chunk=chunk)
     _check("ssd_scan_bwd", x, dt, A, Bm, Cm, D, init_state)
     Bb, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]

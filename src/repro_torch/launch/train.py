@@ -6,9 +6,11 @@ a card raises) through :func:`~repro_torch.distributed.fault_tolerance.run_super
 warmup-cosine AdamW, remat, optional gradient accumulation and int8
 gradient compression, checkpoints every ``--ckpt-every`` steps, and
 injected node failures at ``--fail-at`` steps that the supervisor
-recovers from.  The reference's full-config path lowers and compiles the
-train step against a production mesh (``repro.launch.dryrun``); it has
-no port yet (ROADMAP A12), so without ``--reduced`` the launcher raises.
+recovers from.  Without ``--reduced`` the launcher takes the full config's
+path, as the reference's does: the ``train_4k`` cell's dry-run on the
+production mesh (:func:`repro_torch.launch.dryrun.run_cell`, the step run
+on ``meta`` tensors and priced against one H100's roofline; no device
+is touched).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \
         --reduced --steps 50 --device cpu
@@ -51,10 +53,14 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     if not args.reduced:
-        raise NotImplementedError(
-            "the full-config path lowers and compiles the train step for a "
-            "production mesh (the reference's launch.dryrun); it has no port "
-            "yet (ROADMAP A12): pass --reduced")
+        # Full-config path: delegate to the dry-run cell.
+        from repro_torch.launch.dryrun import run_cell
+
+        result = run_cell(args.arch, "train_4k", probe=False)
+        if result["status"] != "OK":
+            raise SystemExit(f"train_4k cell of {args.arch}: "
+                             f"{result['status']}")
+        return
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=True)

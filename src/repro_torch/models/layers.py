@@ -272,8 +272,13 @@ def attention_decode_q(cfg: ModelConfig, lp: dict, x: torch.Tensor, kq, ks,
 # ---------------------------------------------------------------------------
 # Dense FFN
 # ---------------------------------------------------------------------------
+def mlp_hidden(cfg: ModelConfig, x: torch.Tensor, wg, wu) -> torch.Tensor:
+    """The gated MLP's hidden activations, before its down projection."""
+    return act_fn(mm(x, wg), cfg.act) * mm(x, wu)
+
+
 def mlp(cfg: ModelConfig, x: torch.Tensor, wg, wu, wd) -> torch.Tensor:
-    return mm(act_fn(mm(x, wg), cfg.act) * mm(x, wu), wd)
+    return mm(mlp_hidden(cfg, x, wg, wu), wd)
 
 
 # ---------------------------------------------------------------------------

@@ -12,9 +12,28 @@ too: :func:`loss_fn` (sequence-chunked cross entropy with z-loss, each
 chunk recomputed in the backward) and ``remat=True`` (each block
 recomputed in the backward), both through ``torch.utils.checkpoint``
 where the reference uses ``jax.checkpoint``.
+
+Remat keeps what the reference's policy keeps: with
+:func:`set_remat_save_tp` on (the default), the five products the
+reference names ``"tp_out"`` (the attention and hybrid output
+projections, the SSM's ``ssm_out``, the MLP's down projection, the MoE
+FFN's output) are kept across the checkpoint, and everything else in the
+block is recomputed.  A tagged product goes through :func:`_tp_out`: in a
+remat's forward it keeps the product, and in the recomputation it hands
+the kept one back in order, so a projection is not multiplied again while
+its backward still gets the inputs it saves.  Only :func:`_tp_out` looks
+at the remat's state, a thread-local set by the checkpoint's two
+contexts; no dispatch mode sees the block's other operations.  The
+recomputation stops once the backward has every tensor it saves, so a
+product that only feeds the block's output is not rerun with or without
+the kept products, as the reference's recomputation drops it as dead
+code.  The reference's ``set_scan_unroll`` has no counterpart: the port
+loops over the layers in Python, so a layer is never a scan body that a
+cost count would see once.
 """
 from __future__ import annotations
 
+import threading
 from typing import Any, Dict, Tuple
 
 import numpy as np
@@ -25,6 +44,81 @@ from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
 PyTree = Any
+
+# Save exactly the reference's "tp_out" products across the remat
+# boundary (its row-parallel outputs, each the result of a model-axis
+# all-reduce there).  Costs about 2 L B S D bf16 of residency, so the
+# launcher turns it off for the largest tenant, as the reference's does.
+REMAT_SAVE_TP: bool = True
+# The remat context of this thread (a _Kept, or None): the forward runs on
+# the caller's thread and its recomputation on the backward's.
+_REMAT = threading.local()
+
+
+def set_remat_save_tp(on: bool) -> None:
+    global REMAT_SAVE_TP
+    REMAT_SAVE_TP = on
+
+
+class _Kept:
+    """One remat call's tagged products: its forward appends each
+    (``load`` False), its recomputation reads them back in order (``load``
+    True; from the first again on every recomputation)."""
+
+    def __init__(self, kept: list, load: bool):
+        self.kept, self.load, self.i = kept, load, 0
+
+    def __enter__(self):
+        self.prev, _REMAT.ctx, self.i = getattr(_REMAT, "ctx", None), self, 0
+
+    def __exit__(self, *exc):
+        _REMAT.ctx = self.prev
+
+
+def _kept_contexts():
+    kept: list = []
+    return _Kept(kept, False), _Kept(kept, True)
+
+
+class _KeptMM(torch.autograd.Function):
+    """``x @ w`` that saves its inputs, as the matmul's backward needs;
+    given the product already (``out[0]``), it multiplies nothing."""
+
+    @staticmethod
+    def forward(ctx, x, w, out):
+        ctx.save_for_backward(x, w)
+        return x @ w if out[0] is None else out[0].detach()
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = g @ w.mT if ctx.needs_input_grad[0] else None
+        gw = (x.reshape(-1, x.shape[-1]).mT @ g.reshape(-1, g.shape[-1])
+              if ctx.needs_input_grad[1] else None)
+        return gx, gw, None
+
+
+def _tp_out(x, w=None):
+    """The tagged product ``x @ w`` (``x`` itself where ``w`` is None),
+    kept across the remat it runs in, if any."""
+    ctx = getattr(_REMAT, "ctx", None)
+    if ctx is None:
+        return x if w is None else L.mm(x, w)
+    if ctx.load:
+        out = ctx.kept[ctx.i]
+        ctx.i += 1
+        return out if w is None else _KeptMM.apply(x, w, [out])
+    out = x if w is None else _KeptMM.apply(x, w, [None])
+    ctx.kept.append(out.detach())
+    return out
+
+
+def _remat(fn, *args):
+    """``fn(*args)`` recomputed in the backward, keeping the tagged
+    products when :data:`REMAT_SAVE_TP` is on."""
+    kw = dict(context_fn=_kept_contexts) if REMAT_SAVE_TP else {}
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False, **kw)
 
 # ---------------------------------------------------------------------------
 # Initialization
@@ -225,10 +319,11 @@ def _ffn(cfg: ModelConfig, h, lp, moe_impl: str):
     where the config has one."""
     if cfg.is_moe:
         x2 = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
-        return h + L.moe_ffn(cfg, lp, x2, impl=moe_impl)
+        return h + _tp_out(L.moe_ffn(cfg, lp, x2, impl=moe_impl))
     if cfg.d_ff:
         x2 = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
-        ff = L.mlp(cfg, x2, lp["wg"], lp["wu"], lp["wd"])
+        ff = _tp_out(L.mlp_hidden(cfg, x2, lp["wg"], lp["wu"]),
+                     lp["wd"])
         if cfg.post_norm:
             ff = L.rms_norm(ff, lp["post_ln2"], cfg.norm_eps)
         h = h + ff
@@ -239,7 +334,7 @@ def _fuse(cfg: ModelConfig, lp, attn_raw, ssm_raw):
     """The hybrid block's mix: each branch normed, averaged, projected."""
     fused = 0.5 * (L.rms_norm(attn_raw, lp["fuse_na"], cfg.norm_eps)
                    + L.rms_norm(ssm_raw, lp["fuse_ns"], cfg.norm_eps))
-    return L.mm(fused, lp["wo"])
+    return _tp_out(fused, lp["wo"])
 
 
 def _block_prefill(cfg: ModelConfig, h, lp, window: int, positions, *,
@@ -255,8 +350,8 @@ def _block_prefill(cfg: ModelConfig, h, lp, window: int, positions, *,
         y, *leaves = out if collect_cache else (out,)
         cache.update(zip(("state", "conv"), leaves))
         if not hybrid:  # pure SSM (mamba2)
-            return (_ffn(cfg, h + L.mm(y, lp["ssm_out"]), lp, moe_impl),
-                    cache)
+            return (_ffn(cfg, h + _tp_out(y, lp["ssm_out"]), lp,
+                         moe_impl), cache)
     attn_raw, k, v = L.attention_prefill(
         cfg, lp, x, positions, window, prefix=cfg.num_meta_tokens)
     if collect_cache:
@@ -264,7 +359,7 @@ def _block_prefill(cfg: ModelConfig, h, lp, window: int, positions, *,
     if cfg.family == "hybrid":
         return _ffn(cfg, h + _fuse(cfg, lp, attn_raw, y), lp,
                     moe_impl), cache
-    attn = L.mm(attn_raw, lp["wo"])
+    attn = _tp_out(attn_raw, lp["wo"])
     if cfg.post_norm:
         attn = L.rms_norm(attn, lp["post_ln1"], cfg.norm_eps)
     return _ffn(cfg, h + attn, lp, moe_impl), cache
@@ -361,8 +456,9 @@ def _hidden(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
             moe_impl: str, remat: bool) -> torch.Tensor:
     """Hidden states after the last block, before the final norm: every
     block over the whole sequence, no cache built.  ``remat=True`` keeps
-    only each block's input for the backward and recomputes the block
-    there (the reference's ``jax.checkpoint`` over its layer scan)."""
+    each block's input (and, with :data:`REMAT_SAVE_TP`, its tagged
+    products) for the backward and recomputes the rest of the block there
+    (the reference's ``jax.checkpoint`` over its layer scan)."""
     h = _frontend(cfg, params, batch)
     positions = torch.arange(h.shape[1], device=h.device)
     for i, window in enumerate(_layer_windows(cfg)):
@@ -371,8 +467,7 @@ def _hidden(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
                                   moe_impl=moe_impl, collect_cache=False)[0]
 
         lp = _layer(params["layers"], i)
-        h = (checkpoint(block, h, lp, use_reentrant=False,
-                        preserve_rng_state=False) if remat else block(h, lp))
+        h = _remat(block, h, lp) if remat else block(h, lp)
     return h
 
 

@@ -53,7 +53,9 @@ class AdamW:
         if self.clip_norm:
             scale = torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0)
             flat_g = [g * scale for g in flat_g]
-        step = int(state.step) + 1
+        # A meta step (the launch dry-run's) has no value: step 1's rate
+        # stands in, and only shapes and types come out.
+        step = 1 if state.step.is_meta else int(state.step) + 1
         lr = self.lr(step) if callable(self.lr) else self.lr
         b1, b2 = self.b1, self.b2
         new_p, new_m, new_v = [], [], []
@@ -73,7 +75,8 @@ class AdamW:
             new_v.append(v)
         metrics = {"grad_norm": gnorm, "lr": lr}
         return (pytree.unflatten(structure, new_p),
-                AdamWState(torch.tensor(step, dtype=torch.int32),
+                AdamWState(torch.tensor(step, dtype=torch.int32,
+                                        device=state.step.device),
                            pytree.unflatten(structure, new_m),
                            pytree.unflatten(structure, new_v)), metrics)
 

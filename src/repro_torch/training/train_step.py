@@ -17,6 +17,8 @@ import torch
 
 from repro_torch.distributed.compression import (CompressionState,
                                                  compress_grads)
+from repro_torch.distributed.ctx import hint
+from repro_torch.distributed.sharding import spec_map
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.training import pytree
@@ -39,6 +41,17 @@ def init_state(cfg: ModelConfig, seed: int, optimizer: AdamW,
     accumulator."""
     params = T.init_params(cfg, seed, dtype, device=device)
     return state_from_params(params, optimizer, compression)
+
+
+def abstract_state(cfg: ModelConfig, optimizer: AdamW, dtype=torch.float32,
+                   compression: bool = False) -> TrainState:
+    """The state's shapes and types on the ``meta`` device, leaf for leaf
+    the reference's ``jax.eval_shape`` of ``init_state``: nothing is
+    allocated."""
+    params = T.abstract_params(cfg, dtype)
+    state = state_from_params(params, optimizer, compression)
+    return state._replace(opt=state.opt._replace(
+        step=state.opt.step.to("meta")))
 
 
 def state_from_params(params: PyTree, optimizer: AdamW,
@@ -69,19 +82,27 @@ def make_train_step(
     to the f32 leaves.  ``batch`` maps names to tensors on the params'
     device (``tokens``, ``labels``, and ``patch_embeds`` for the vision
     stub).  ``grad_accum`` splits the batch into that many micro-slices,
-    one backward each, gradients and loss averaged."""
-    if zero_specs is not None:
-        raise NotImplementedError(
-            "zero_specs (ZeRO-2/FSDP sharding of the compute copy and the "
-            "gradients) only constrains a step whose parameters are "
-            "sharded across cards: ROADMAP A13")
+    one backward each, gradients and loss averaged.
+
+    ``zero_specs`` (a tree of partitions matching params, the launch
+    cell's) names the data-sharded layout of the compute copy and the
+    gradients, as the reference's ZeRO-2/FSDP constraints do.  On one
+    process they are layout hints that return their input, by
+    :func:`repro_torch.distributed.ctx.hint`'s rule; a step whose state
+    is placed on a device mesh of more than one device raises (ROADMAP
+    A13)."""
+
+    def _constrain(tree):
+        if zero_specs is None:
+            return tree
+        return spec_map(lambda spec, x: hint(x, *spec), zero_specs, tree)
 
     def cast(params):
         if compute_dtype is None:
             return params
-        return pytree.tree_map(
+        return _constrain(pytree.tree_map(
             lambda p: p.to(compute_dtype)
-            if p.dtype == torch.float32 and p.ndim >= 2 else p, params)
+            if p.dtype == torch.float32 and p.ndim >= 2 else p, params))
 
     def value_and_grad(params, batch):
         flat, structure = pytree.flatten(params)
@@ -92,7 +113,8 @@ def make_train_step(
                 moe_impl=moe_impl, remat=remat, z_loss=z_loss)
             grads = torch.autograd.grad(loss, leaves)
         metrics = {k: v.detach() for k, v in metrics.items()}
-        return loss.detach(), metrics, pytree.unflatten(structure, grads)
+        return (loss.detach(), metrics,
+                _constrain(pytree.unflatten(structure, grads)))
 
     def compute_grads(params, batch):
         if grad_accum == 1:
@@ -115,6 +137,10 @@ def make_train_step(
         return loss, {"loss": loss}, grads
 
     def train_step(state: TrainState, batch):
+        if zero_specs is not None and _placed(state.params):
+            raise NotImplementedError(
+                "zero_specs on a state placed across devices (ZeRO-2/FSDP "
+                "constraints of a sharded step): ROADMAP A13")
         with torch.no_grad():
             loss, metrics, grads = compute_grads(state.params, batch)
             comp = state.comp
@@ -127,3 +153,10 @@ def make_train_step(
         return TrainState(params, opt, comp), metrics
 
     return train_step
+
+
+def _placed(params: PyTree) -> bool:
+    """Whether a leaf is a ``DTensor`` on a mesh of more than one
+    device."""
+    return any(getattr(p, "device_mesh", None) is not None
+               and p.device_mesh.size() > 1 for p in pytree.leaves(params))

@@ -29,7 +29,7 @@ print(" ".join(names))
 # The modules of the sharded loader, the elastic mesh and the cluster
 # tier; of training, checkpoints and supervised restarts; of the
 # distributed remainder (elastic resharding, the sharding context, the
-# launch specs and meshes).
+# launch specs and meshes); of the launch dry-run and roofline.
 SLICE = ("repro_torch.distributed.sharding",
          "repro_torch.distributed.fault_tolerance",
          "repro_torch.serving.sharded_loader", "repro_torch.serving.elastic",
@@ -41,7 +41,8 @@ SLICE = ("repro_torch.distributed.sharding",
          "repro_torch.distributed.compression",
          "repro_torch.launch.train", "repro_torch.distributed.elastic",
          "repro_torch.distributed.ctx", "repro_torch.launch.specs",
-         "repro_torch.launch.mesh")
+         "repro_torch.launch.mesh", "repro_torch.launch.roofline",
+         "repro_torch.launch.steps", "repro_torch.launch.dryrun")
 
 
 def test_port_imports_neither_jax_nor_repro():
@@ -56,13 +57,14 @@ def test_port_imports_neither_jax_nor_repro():
 
 
 def test_smoke_and_training_example_import_neither_jax_nor_repro():
-    """``chip_smoke.py`` and ``examples/torch_train_small_lm.py`` name no
-    JAX module and nothing of the JAX package."""
+    """``chip_smoke.py`` and every ``examples/torch_*.py`` name no JAX
+    module and nothing of the JAX package."""
     import ast
 
     root = SRC.parent
-    for path in (root / "chip_smoke.py",
-                 root / "examples" / "torch_train_small_lm.py"):
+    examples = sorted((root / "examples").glob("torch_*.py"))
+    assert len(examples) >= 5
+    for path in (root / "chip_smoke.py", *examples):
         names = set()
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):

@@ -416,23 +416,84 @@ def test_conv1d_step_promotes_the_buffer_like_the_reference():
 
 
 def test_wrappers_refuse_non_cpu_non_cuda_tensors():
-    """Only a CPU tensor takes the plain version; anything else goes to
-    the kernel's checks, which refuse a device that is not CUDA."""
-    q = torch.zeros((1, 2, 2, 8), device="meta")
-    with pytest.raises(ValueError):
+    """A tensor on a device that is neither a plain one (the CPU,
+    ``meta``) nor CUDA goes to the kernel's checks, which refuse it:
+    nothing falls back to the plain version there."""
+
+    class Elsewhere(torch.Tensor):
+        @property
+        def device(self):
+            return torch.device("xpu")
+
+    def m(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype,
+                           device="meta").as_subclass(Elsewhere)
+
+    assert "xpu" not in tref.PLAIN_DEVICES
+    q = m(1, 2, 2, 8)
+    with pytest.raises(ValueError, match="CUDA"):
         ops.flash_attention(q, q, q)
-    with pytest.raises(ValueError):
-        ops.decode_attention(q[:, 0], q, q,
-                             torch.ones(1, dtype=torch.int32, device="meta"))
-    with pytest.raises(ValueError):
-        ops.quant_matmul(torch.zeros((2, 8), device="meta"),
-                         torch.zeros((8, 4), dtype=torch.int8, device="meta"),
-                         torch.zeros((1, 4), device="meta"))
-    m = functools.partial(torch.zeros, device="meta")
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.decode_attention(q[:, 0], q, q, m(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.quant_matmul(m(2, 8), m(8, 4, dtype=torch.int8), m(1, 4))
+    with pytest.raises(ValueError, match="CUDA"):
         ops.paged_decode_attention(
-            m((1, 2, 8)), m((2, 2, 4, 8)), m((2, 2, 4, 8)),
-            m((1, 2), dtype=torch.int32), m(1, dtype=torch.int32))
-    with pytest.raises(ValueError):
-        ops.ssd_scan(m((1, 4, 2, 8)), m((1, 4, 2)), m(2), m((1, 4, 1, 4)),
-                     m((1, 4, 1, 4)), m(2))
+            m(1, 2, 8), m(2, 2, 4, 8), m(2, 2, 4, 8),
+            m(1, 2, dtype=torch.int32), m(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.ssd_scan(m(1, 4, 2, 8), m(1, 4, 2), m(2), m(1, 4, 1, 4),
+                     m(1, 4, 1, 4), m(2))
+
+
+def test_meta_calls_take_the_plain_version_and_build_nothing(monkeypatch):
+    """Only a CUDA tensor reaches a kernel: a ``meta`` tensor, like a CPU
+    one, takes the plain version, which gives the shapes and types the
+    plain version gives on the CPU; nothing is built or launched."""
+    from repro_torch.kernels import build
+
+    def no_build(*a, **k):
+        raise AssertionError("a meta call built a kernel")
+
+    monkeypatch.setattr(build, "library", no_build)
+    monkeypatch.setattr(build, "build_all", no_build)
+    rng = np.random.default_rng(19)
+
+    def pair(*shape, dtype=torch.float32):
+        t = torch.from_numpy(rand(rng, *shape)).to(dtype)
+        return t, t.to("meta")
+
+    def same(fn, *args, **kw):
+        want = fn(*(a[0] for a in args), **kw)
+        got = fn(*(a[1] for a in args), **kw)
+        want = want if isinstance(want, tuple) else (want,)
+        got = got if isinstance(got, tuple) else (got,)
+        assert [g if g is None else (g.device.type, g.shape, g.dtype)
+                for g in got] == [w if w is None else
+                                  ("meta", w.shape, w.dtype) for w in want]
+
+    q, k = pair(2, 16, 4, 8), pair(2, 16, 2, 8)
+    counts = {n: getattr(ops, n).launches for n in (
+        "flash_attention", "decode_attention", "paged_decode_attention",
+        "quant_matmul", "ssd_scan")}
+    same(ops.flash_attention, q, k, k, window=4, softcap=5.0)
+    same(ops.flash_attention, pair(2, 16, 4, 8, dtype=torch.bfloat16),
+         k, k)
+    lens = (torch.tensor([5, 16], dtype=torch.int32),) * 2
+    lens = (lens[0], lens[1].to("meta"))
+    same(ops.decode_attention, pair(2, 4, 8), k, k, lens)
+    kp, vp, table = ops.paginate_kv(k[0], k[0], lens[0], 8)
+    same(ops.paged_decode_attention, pair(2, 4, 8), (kp, kp.to("meta")),
+         (vp, vp.to("meta")), (table, table.to("meta")), lens)
+    wq, ws = tref.quantize_weights(torch.from_numpy(rand(rng, 64, 16)),
+                                   bits=8, group=32)
+    same(ops.quant_matmul, pair(3, 64), (wq, wq.to("meta")),
+         (ws, ws.to("meta")))
+    x, dt = pair(1, 32, 2, 8), pair(1, 32, 2)
+    A, Bm, D = pair(2), pair(1, 32, 1, 4), pair(2)
+    same(ops.ssd_scan, x, dt, A, Bm, Bm, D, return_state=True, chunk=16)
+    out, lse = tref.flash_attention_lse(q[0], k[0], k[0])
+    same(ops.flash_attention_bwd, q, k, k, (out, out.to("meta")), q,
+         (lse, lse.to("meta")))
+    same(ops.ssd_scan_bwd, x, dt, A, Bm, Bm, D, x, chunk=16)
+    assert counts == {n: getattr(ops, n).launches for n in counts}

@@ -7,6 +7,7 @@ import sys
 from pathlib import Path
 
 import numpy as np
+import pytest
 import torch
 
 from repro_torch.configs import ARCH_NAMES, get_config
@@ -113,11 +114,31 @@ def test_train_launcher_recovers_from_a_failure(tmp_path):
 
 
 def test_train_launcher_full_config_and_missing_card_raise(tmp_path):
-    """Without ``--reduced`` the launcher names ROADMAP A12; the default
-    device without a card names the cause."""
-    out = _train_cli("--steps", "1", tmp_path=tmp_path)
-    assert out.returncode != 0 and "ROADMAP A12" in out.stderr
+    """Without ``--reduced`` the launcher runs the ``train_4k`` cell's
+    dry-run on ``meta`` tensors (no device) and prints its line with the
+    H100 roofline terms; the default device without a card names the
+    cause."""
+    out = _train_cli("--arch", "tinyllama-1.1b", "--steps", "1",
+                     tmp_path=tmp_path)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "tinyllama-1.1b × train_4k: OK" in out.stdout
+    assert "compute=" in out.stdout and "memory=" in out.stdout
     if not torch.cuda.is_available():
         out = _train_cli("--reduced", "--steps", "1", tmp_path=tmp_path)
         assert out.returncode != 0
         assert "no CUDA device is available" in out.stderr
+
+
+def test_train_launcher_full_config_fails_unless_the_cell_is_ok(monkeypatch):
+    """A ``train_4k`` cell that comes back FAIL or SKIP ends the
+    full-config launcher with a non-zero exit naming the status."""
+    import pytest
+
+    from repro_torch.launch import dryrun, train
+
+    for status in ("FAIL", "SKIP(full-attn)"):
+        monkeypatch.setattr(dryrun, "run_cell",
+                            lambda *a, status=status, **k: {"status": status})
+        with pytest.raises(SystemExit) as e:
+            train.main(["--arch", "tinyllama-1.1b"])
+        assert e.value.code not in (0, None) and status in str(e.value.code)
