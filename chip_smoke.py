@@ -159,10 +159,31 @@
    over the step as a share of 989 TFLOP/s, the dry-run's compute_s,
    memory_s and bound_s and the step's multiple of bound_s, the useful
    ratio, and the peak memory beside the cell's argument bytes a device.
-12. Prints the kernels as one JSON line (launches summed over the main
+12. Tenants placed across ranks.  First, in this process, tinyllama-1.1b's
+   8-bit down projection (K = 5632, groups of 128) cut on K into the 8
+   shards an 8-card mesh gives (704 rows, odd shards starting inside a
+   group, their scales regrouped as a placed call regroups them), each
+   shard's kernel output summed in rank order, against one unsharded
+   kernel call at 2e-4.  Then PLACED_RANKS processes spawned on the one
+   card (gloo on CUDA tensors: NCCL refuses two ranks on one device)
+   build full-width tinyllama-1.1b and mamba2-780m (16- and 8-bit zoos)
+   on a sharded mesh of PLACED_RANKS devices, which places every leaf as
+   a ``DTensor`` split across the ranks: rank 0's engine serves
+   PLACED_REQUESTS batches while the other ranks repeat its calls; then
+   every rank places each variant (the bytes each rank holds, counted by
+   its blocks and by the allocator, within 6% of
+   ``weight_shard_fraction``), runs its prefill on a fixed batch and on
+   the served prompts, and a timed ``generate``.  Rank 0 holds every
+   output to one rank's run of the same weights on the card by PERF.md
+   section 2's rule (ids equal unless a bf16 evaluation's logits are
+   past 3e-2); every rank launched every kernel of the path (counts
+   zeroed before the serving run, read after the timed runs) at its
+   local shapes (its share of the query and KV heads).  Prints each
+   rank's ``generate`` walls beside the card.
+13. Prints the kernels as one JSON line (launches summed over the main
    path's, the families' and the elastic A/B's serving runs, the
-   training runs and the train cell, and by path), the card, and last
-   ``{"ok": true, "device": {...}}``.
+   training runs, the train cell and the placed run, and by path), the
+   card, and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a CUDA device, or without
 the repository's ``src/repro_torch`` beside this file, it exits non-zero
@@ -292,6 +313,20 @@ CELL_ARCHS = (TRAIN_ARCH, SSM_TRAIN_ARCH)
 CELL_SHAPE = "train_4k"
 CELL_STEPS = 3  # timed, after one untimed
 HOST_THREADS = 4  # of the card machine's 8 cores: the host's cut steps
+
+# Phase 12: tenants placed across ranks.  PLACED_RANKS processes share the
+# one card (NCCL refuses two ranks on one device, so gloo carries the
+# collectives, on CUDA tensors), a (1, PLACED_RANKS) mesh; rank 0's engine
+# serves PLACED_REQUESTS batches of PLACED_BATCH (batch, prompt length),
+# alternating the tenants; then every rank runs each tenant's variants.
+PLACED_RANKS = 2
+PLACED_ARCHS = ("tinyllama-1.1b", "mamba2-780m")
+PLACED_REQUESTS = 4
+PLACED_BATCH = (2, 8)
+PLACED_BYTES_TOL = 0.06  # tests/test_elastic_serving.py's placement check
+# tinyllama's row-parallel down projection (K = d_ff 5632, groups of 128)
+# cut as an 8-card mesh cuts it: 704 rows a shard, 5.5 groups.
+QMM_SHARDS = 8
 
 # The main path's kernels by the profiler's names: the substrings of each
 # wrapper's kernel (the decode kernels' split pass, dense or paged).
@@ -3311,6 +3346,277 @@ def check_cells(kernels) -> dict:
     return calls
 
 
+def check_qmm_shards(ops, ref, g) -> None:
+    """tinyllama-1.1b's 8-bit down projection (K = 5632, groups of 128)
+    cut on K into the QMM_SHARDS shards an 8-card mesh gives, as a placed
+    row-parallel call cuts it: each shard's kernel call on its own rows,
+    its scales regrouped where it starts or ends inside a group
+    (``placed.shard_scales``), the f32 outputs summed in rank order,
+    against one unsharded kernel call at QMM_TOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.placed import shard_scales
+
+    cfg = get_config("tinyllama-1.1b")
+    K, N = cfg.d_ff, cfg.d_model
+    q, s = ops.quantize_weights(rand(g, K, N, scale=K ** -0.5), bits=8,
+                                group=128)
+    rows = K // QMM_SHARDS
+    for M in (MAX_BATCH, MAX_BATCH * MAX_PROMPT):
+        x = rand(g, M, K)
+        whole = ops.quant_matmul(x, q, s, out_dtype=torch.float32)
+        y, groups = 0, []
+        for r in range(QMM_SHARDS):
+            lo = r * rows
+            sr = shard_scales(s, K, lo, rows)
+            groups.append(rows // sr.shape[0])
+            y = y + ops.quant_matmul(x[:, lo:lo + rows].contiguous(),
+                                     q[lo:lo + rows].contiguous(), sr,
+                                     out_dtype=torch.float32)
+        err = compare(f"quant_matmul {QMM_SHARDS} row shards M={M}", y,
+                      whole, QMM_TOL, QMM_TOL)
+        plain = compare(f"quant_matmul {QMM_SHARDS} row shards M={M} vs "
+                        "plain", y, ref.quant_matmul(x, q, s), QMM_TOL,
+                        QMM_TOL)
+        print(f"placed: quant_matmul K={K} N={N} M={M} in {QMM_SHARDS} row "
+              f"shards of {rows} (groups of {sorted(set(groups))} rows a "
+              f"shard) summed: max abs err {err:.3g} vs one call, "
+              f"{plain:.3g} vs plain")
+
+
+def placed_rank(rank: int, root: str, world: int) -> None:
+    """One rank of phase 12 (a spawned process): the group over gloo
+    (file rendezvous under ``root``), then :func:`placed_run`; rank 0
+    writes its result to ``root``/result.json."""
+    import datetime
+    import faulthandler
+
+    import torch.distributed as dist
+
+    faulthandler.enable()  # a rank that crashes says where
+    sys.path.insert(0, str(SRC))
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    dist.init_process_group("gloo", init_method=f"file://{root}/rdzv",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=600))
+    try:
+        out = placed_run(rank, world)
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        Path(root, "result.json").write_text(json.dumps(out))
+
+
+def placed_run(rank: int, world: int) -> dict:
+    """Phase 12 on one rank: the placed server (rank 0 leads, the others
+    repeat its calls), then each tenant's variants placed and run on every
+    rank, with the served prompts again; rank 0 holds them to one rank's
+    run of the same weights (PERF.md section 2's rule, :func:`held`)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels import ops, placed
+    from repro_torch.models import transformer as T
+    from repro_torch.quant.quantize import params_nbytes, tree_map
+    from repro_torch.serving import api
+    from repro_torch.serving.server import EdgeServer, _generate_tokens
+
+    names = ("quant_matmul", "decode_attention", "flash_attention",
+             "ssd_scan")
+    t0 = time.perf_counter()
+    srv = EdgeServer.build(api.ServingConfig(
+        tenants=tuple(api.TenantSpec(a, reduced=False)
+                      for a in PLACED_ARCHS),
+        loader=api.LoaderSpec(sharded=True, mesh_shape=(world,)),
+        kv_headroom_shape=(PLACED_BATCH[0], PLACED_BATCH[1] + MAX_NEW)),
+        device="cuda")
+    build_s = time.perf_counter() - t0
+    for k in names:
+        getattr(ops, k).launches = 0
+    placed.local_shapes.clear()
+    served = []
+    if srv.is_worker:
+        srv.run_worker()
+    else:
+        rng = np.random.default_rng(12)
+        for i in range(PLACED_REQUESTS):
+            app = PLACED_ARCHS[i % len(PLACED_ARCHS)]
+            prompts = rng.integers(0, srv.tenants[app].cfg.vocab_size,
+                                   PLACED_BATCH).astype(np.int32)
+            r = srv.serve(app, prompts, max_new=MAX_NEW,
+                          now_ms=2000.0 * i)
+            if r.failed:
+                raise AssertionError(f"placed: request {i} ({app}) failed")
+            served.append((app, prompts, r.bits, r.tokens, r.latency_s))
+            print(f"placed: served {app} {r.bits}-bit in "
+                  f"{r.latency_s:.2f} s", flush=True)
+        srv.close()
+    # Every rank alone from here: each tenant's variants placed and run on
+    # a fixed batch and on the served prompts.
+    box = [[(a, p, b) for a, p, b, _, _ in served]]
+    dist.broadcast_object_list(box, src=0)
+    fixed = np.random.default_rng(13).integers(
+        0, 32000, PLACED_BATCH).astype(np.int32)
+    mesh = SH.LogicalMesh({"data": 1, "model": world})
+
+    def run_placed(tr, p):
+        with torch.no_grad():
+            logits, _ = T.prefill(
+                tr.cfg, tr.device_params,
+                {"tokens": torch.as_tensor(p, device="cuda")},
+                max_len=p.shape[1] + MAX_NEW)
+        return SH.whole(logits).float().cpu()
+
+    runs, again = [], []
+    for app in PLACED_ARCHS:
+        tr = srv.tenants[app]
+        frac = SH.weight_shard_fraction(tr.cfg, mesh)
+        p = fixed % tr.cfg.vocab_size
+        tr.set_variant(None)  # each variant's bytes from an empty rank
+        for v in tr.zoo.variants:
+            tr.set_variant(v)
+            nb = tr.rank_bytes()
+            total = params_nbytes(tr.host[v.bits])
+            for r, (local, staged) in enumerate(nb):
+                for what, b in (("blocks", local), ("allocated", staged)):
+                    if abs(b / total / frac - 1) > PLACED_BYTES_TOL:
+                        raise AssertionError(
+                            f"placed: {app} {v.bits}-bit rank {r} {what} "
+                            f"{b} B = {b / total:.4f} of {total} B, "
+                            f"weight_shard_fraction {frac:.4f}")
+            logits = run_placed(tr, p)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ids = tr.generate(p, MAX_NEW)
+            wall = time.perf_counter() - t1
+            if rank == 0:
+                print(f"placed: {app} {v.bits}-bit generate {wall:.2f} s",
+                      flush=True)
+            runs.append((app, v.bits, p, logits, ids, wall,
+                         [b / total / frac for b, _ in nb],
+                         [a and a / total / frac for _, a in nb]))
+            again += [(i, run_placed(tr, sp))
+                      for i, (a, sp, b) in enumerate(box[0])
+                      if a == app and b == v.bits]
+    counts = {k: getattr(ops, k).launches for k in names}
+    shapes = sorted(placed.local_shapes)
+    every = [None] * world
+    dist.all_gather_object(every, (counts, shapes, [r[5] for r in runs]))
+    if rank:
+        return {}
+    # Rank 0: one rank's run of the same weights on the card (its kernel
+    # launches are the comparison's, not the placed path's).
+    out = {"build_s": build_s, "ranks": [
+        {"launches": c, "shapes": sh, "generate_s": w}
+        for c, sh, w in every], "runs": []}
+    single = {}
+
+    def one_rank(app, bits, f32=False):
+        if (app, bits, f32) not in single:
+            single.clear()
+            single[(app, bits, f32)] = tree_map(
+                lambda _, t: t.to("cuda", torch.float32 if f32 and
+                                  t.is_floating_point() else t.dtype),
+                srv.tenants[app].host[bits])
+        return single[(app, bits, f32)]
+
+    def prefill(app, params, p):
+        with torch.no_grad():
+            return T.prefill(srv.tenants[app].cfg, params,
+                             {"tokens": torch.as_tensor(p, device="cuda")},
+                             max_len=p.shape[1] + MAX_NEW)[0].float().cpu()
+
+    def held(app, bits, p, logits, ids) -> dict:
+        """PERF.md section 2's rule: logits within bf16's 3e-2 relative l2
+        of one rank's, or, past it, no further than 2x one rank's from the
+        f32 evaluation of the same weights; ids equal, except where the
+        logits are past 3e-2 (a bf16 evaluation's rounding, which can
+        move a greedy token: their share equal is recorded)."""
+        want_ids = _generate_tokens(
+            srv.tenants[app].cfg, one_rank(app, bits),
+            torch.as_tensor(p, device="cuda"), max_new=MAX_NEW,
+            max_len=p.shape[1] + MAX_NEW).cpu().numpy()
+        one = prefill(app, one_rank(app, bits), p)
+        err = rel_l2(logits, one)
+        rec = dict(app=app, bits=bits, logits_rel_l2=err,
+                   ids_equal=float((ids == want_ids).mean()))
+        if err > TOL[torch.bfloat16]:
+            f32 = prefill(app, one_rank(app, bits, f32=True), p)
+            rec.update(f32_rel_l2=rel_l2(logits, f32),
+                       one_rank_f32_rel_l2=rel_l2(one, f32))
+            if not rec["f32_rel_l2"] <= 2 * rec["one_rank_f32_rel_l2"]:
+                raise AssertionError(f"placed: {app} {bits}-bit prefill "
+                                     f"logits {rec}")
+        elif rec["ids_equal"] < 1:
+            raise AssertionError(f"placed: {app} {bits}-bit ids "
+                                 f"{ids.tolist()} vs one rank's "
+                                 f"{want_ids.tolist()}")
+        return rec
+
+    for i, logits in again:
+        app, p, bits, tokens, lat = served[i]
+        out["runs"].append(dict(held(app, bits, p, logits, tokens),
+                                served_s=lat))
+    for app, bits, p, logits, ids, wall, blocks, alloc in runs:
+        out["runs"].append(dict(held(app, bits, p, logits, ids),
+                                generate_s=wall,
+                                block_bytes_over_fraction=blocks,
+                                allocated_bytes_over_fraction=alloc))
+    return out
+
+
+def check_placed(world: int = PLACED_RANKS) -> dict:
+    """Phase 12: ``world`` ranks spawned on the one card run
+    :func:`placed_rank`; holds what they report: every kernel of the path
+    launched on every rank, at the local shapes of the rank's heads.
+    Returns the launches summed over the ranks."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import get_config
+
+    print(f"placed: {world} ranks on {card()}, collectives over gloo on "
+          "CUDA tensors (NCCL refuses two ranks on one device)")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as root:
+        mp.start_processes(placed_rank, args=(root, world), nprocs=world,
+                           start_method="spawn")
+        out = json.loads(Path(root, "result.json").read_text())
+    print(f"placed: servers built in {out['build_s']:.1f} s")
+    heads = {}
+    for a in PLACED_ARCHS:
+        cfg = get_config(a)
+        heads[a] = ((cfg.num_heads // world, cfg.num_kv_heads // world)
+                    if cfg.num_heads else
+                    (cfg.ssm_d_inner // cfg.ssm_head_dim // world, None))
+    q_heads = {heads[a][0] for a in PLACED_ARCHS}
+    kv_heads = {heads[a][1] for a in PLACED_ARCHS} - {None}
+    total = {}
+    for r, rk in enumerate(out["ranks"]):
+        for k, n in rk["launches"].items():
+            if n == 0:
+                raise AssertionError(f"placed: rank {r} never launched {k}")
+            total[k] = total.get(k, 0) + n
+        for name, *dims in rk["shapes"]:
+            if name in ("flash_attention", "decode_attention"):
+                qh = dims[0][2 if name == "flash_attention" else 1]
+                if qh not in q_heads or dims[1][2] not in kv_heads:
+                    raise AssertionError(f"placed: rank {r} {name} at "
+                                         f"{dims}: not a rank's heads")
+            elif name == "ssd_scan" and dims[0][2] not in q_heads:
+                raise AssertionError(f"placed: rank {r} ssd_scan at {dims}")
+        print(f"placed: rank {r} launches {rk['launches']}; generate walls "
+              f"{', '.join(f'{w:.2f}' for w in rk['generate_s'])} s "
+              f"({card()})")
+        print(f"placed: rank {r} local shapes: " + "; ".join(
+            f"{name} {dims}" for name, *dims in rk["shapes"]))
+    for run in out["runs"]:
+        print("placed: " + json.dumps(run))
+    return total
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -3339,7 +3645,7 @@ def main() -> None:
 
 
 def run(ops, ref, get_config, host) -> None:
-    """Phases 2-12 (``main`` builds the kernels and starts the host's
+    """Phases 2-13 (``main`` builds the kernels and starts the host's
     side of phase 10 first)."""
     g = torch.Generator(device="cuda").manual_seed(0)
     cfgs = [get_config(a) for a in ARCHS]
@@ -3394,6 +3700,12 @@ def run(ops, ref, get_config, host) -> None:
     t0 = time.perf_counter()
     paths["cell"] = {k: n for k, n in check_cells(kernels).items() if n}
     print(f"train cell phase took {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    check_qmm_shards(ops, ref, g)
+    paths["placed"] = check_placed()
+    print(f"placed phase took {time.perf_counter() - t0:.1f} s")
 
     replaces = {
         "quant_matmul": "src/repro/kernels/quant_matmul.py:102",
@@ -3416,6 +3728,9 @@ def run(ops, ref, get_config, host) -> None:
     for k in ("flash_attention", "ssd_scan"):
         counted_by[k] += ("; the training runs' and the train cell's eager "
                           "calls by the wrapper")
+    for k in kernels:
+        counted_by[k] += ("; the placed run's eager calls by the wrapper, "
+                          "summed over its ranks")
     counted_by["flash_attention_bwd"] = (
         "wrapper calls over the training runs and the train cell (each "
         "launches the dQ and the dK/dV kernels; the profiler counted both "

@@ -2,18 +2,22 @@
 
 Port of :mod:`repro.distributed.ctx`.  The reference's layers call
 ``hint`` to emit ``with_sharding_constraint`` on activations under a mesh
-context that the launcher installs.  PyTorch has no sharding constraint
-on a plain tensor, and the port's layers call no hint, so :func:`hint`
-returns its input unchanged, also when the context is enabled.  The
-context (:class:`ShardCtx`, :func:`set_ctx`, :func:`get_ctx`) keeps the
-reference's names, but nothing in the port reads its fields: a context
-is a frozen value that a launcher may install and read back, and it
-changes no computation.
+context that the launcher installs.  The port's layers call :func:`hint`
+at the same places.  On a plain tensor it returns its input unchanged,
+also when a context is enabled: PyTorch has no sharding constraint on a
+plain tensor.  On a ``DTensor`` (a tenant placed across ranks, which
+installs a context while it serves, :func:`installed`) it redistributes
+the tensor to the layout the reference constrains it to.
 """
 from __future__ import annotations
 
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Optional, Tuple
+
+from torch.distributed.tensor import Replicate, Shard
+
+from repro_torch.distributed import sharding as SH
 
 
 @dataclass(frozen=True)
@@ -41,8 +45,45 @@ def get_ctx() -> ShardCtx:
     return _CTX
 
 
+@contextmanager
+def installed(ctx: ShardCtx):
+    """``ctx`` installed for the block, the previous context after it."""
+    global _CTX
+    prev, _CTX = _CTX, ctx
+    try:
+        yield ctx
+    finally:
+        _CTX = prev
+
+
 def hint(x, *dims: Optional[str]):
-    """``x`` itself: each entry of ``dims`` ("dp", "model" or None a dim)
-    names the layout the reference would constrain ``x`` to, which a
-    plain PyTorch tensor cannot carry."""
-    return x
+    """Constrain ``x``: each entry of ``dims`` is "dp", "model" or None a
+    dim.  A plain tensor, or any tensor without an enabled context, comes
+    back as it is.  A ``DTensor`` is redistributed so that each "model"
+    dim is split over the model axis and each "dp" dim over the data
+    axes, where it divides them evenly, and every other mesh dim is
+    replicated (a partial sum is reduced).  The reference lets XLA split a
+    "model" dim unevenly (padding the last shards); ``DTensor`` would leave
+    ranks empty instead, so a dim that does not divide stays replicated,
+    and the layer that reads it takes its part locally (grouped-query
+    attention with fewer KV heads than ranks,
+    :func:`repro_torch.models.layers.kv_for_ranks`)."""
+    ctx = _CTX
+    if not ctx.enabled or not SH.is_placed(x):
+        return x
+    mesh = x.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    out = [Replicate()] * mesh.ndim
+    for d, (n, want) in enumerate(zip(x.shape, dims)):
+        axes = ((ctx.model_axis,) if want == "model"
+                else ctx.dp_axes if want == "dp" else ())
+        axes = tuple(a for a in axes if a in names)
+        size = 1
+        for a in axes:
+            size *= mesh.size(names.index(a))
+        if size > 1 and n % size == 0:
+            for a in axes:
+                out[names.index(a)] = Shard(d)
+    if tuple(out) == tuple(x.placements):
+        return x
+    return SH.redistribute(x, out)

@@ -4,9 +4,10 @@ Port of :mod:`repro.distributed.elastic`.  A pod drops out, or capacity
 frees up: the job goes on over the new topology.  Two paths:
 
 * :func:`reshard`: live state onto a new ``DeviceMesh``, each leaf by the
-  partitions of a spec tree (``DTensor.redistribute`` for a leaf already
-  on that mesh, a gather and ``distribute_tensor`` for one on another
-  mesh, ``distribute_tensor`` for a plain tensor);
+  partitions of a spec tree (:func:`repro_torch.distributed.sharding.
+  redistribute`, the process group's own collectives, for a leaf already
+  on that mesh, a gather by the same and ``distribute_tensor`` for one on
+  another mesh, ``distribute_tensor`` for a plain tensor);
 * ``checkpoint.restore(..., shardings=)``: the cold path after a full
   restart.
 

@@ -13,7 +13,11 @@ allocated (llama4-scout at full width is 107.8 B parameters), and return
 trees of the same structure.  :func:`named` turns a spec tree into
 ``DTensor`` placements on a ``DeviceMesh``.  The rules only read
 ``mesh.shape[name]``, so a :class:`LogicalMesh` serves them without
-devices.
+devices.  :func:`place_tree` places a serving tree on a ``DeviceMesh``
+with each rank copying only its own slice to its device, and
+:func:`rank_nbytes` reports the bytes each rank then holds.  A placed
+tensor changes its layout through :func:`redistribute` (:func:`whole`,
+:func:`summed`), which runs the process group's own collectives.
 
 Scheme (Megatron-style tensor parallelism on the ``model`` axis):
 column-parallel in-projections, row-parallel out-projections, experts
@@ -33,6 +37,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple, Optional, Tuple, Union
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.training import pytree
@@ -313,17 +318,82 @@ class NamedSharding(NamedTuple):
 
     def place(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` as a ``DTensor`` on this mesh with these placements: a
-        ``DTensor`` of this mesh is redistributed, one of another mesh
-        gathered whole first, a plain tensor split (every rank of the
-        mesh calls it, with the same value)."""
+        ``DTensor`` of this mesh is redistributed (:func:`redistribute`),
+        one of another mesh gathered whole first (:func:`whole`), a plain
+        tensor split (every rank of the mesh calls it, with the same
+        value)."""
         from torch.distributed.tensor import distribute_tensor
 
-        if hasattr(t, "redistribute"):  # a DTensor
+        if is_placed(t):
             if t.device_mesh == self.mesh:
-                return t.redistribute(self.mesh, list(self.placements))
-            t = t.full_tensor()
+                return redistribute(t, self.placements)
+            t = whole(t)
         return distribute_tensor(t.to(self.mesh.device_type), self.mesh,
                                  list(self.placements))
+
+
+def is_placed(t) -> bool:
+    """Whether ``t`` is a ``DTensor`` (a leaf or an activation placed
+    across ranks)."""
+    return isinstance(t, DTensor)
+
+
+def as_dtensor(t, mesh):
+    """``t``, a plain tensor taken as replicated on ``mesh``; a
+    ``DTensor`` or None as it is."""
+    if t is None or isinstance(t, DTensor):
+        return t
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def redistribute(x, target) -> torch.Tensor:
+    """``x`` (a ``DTensor``) redistributed to the placements ``target``
+    with the process group's own collectives: a split gathered
+    (``all_gather_into_tensor``), a partial sum reduced (``all_reduce``),
+    then any split of a whole taken locally.  ``DTensor.redistribute``
+    gathers through the functional all-gather, which crashes on gloo with
+    CUDA tensors (torch 2.11; two ranks sharing one card, where NCCL
+    refuses to run), so every gather of a placed tensor comes here.  The
+    functional all-reduce works, and ``DTensor`` still uses it where an
+    operation reduces a partial sum on its own."""
+    import torch.distributed as dist
+
+    mesh = x.device_mesh
+    cur = list(x.placements)
+    local = x.to_local()
+    for i, (p, q) in enumerate(zip(cur, target)):
+        group = mesh.get_group(i)
+        if p.is_shard() and p != q:
+            n = mesh.size(i)
+            moved = local.movedim(p.dim, 0).contiguous()
+            out = moved.new_empty((n * moved.shape[0],) + moved.shape[1:])
+            dist.all_gather_into_tensor(out, moved, group=group)
+            local = out.movedim(0, p.dim)
+            cur[i] = Replicate()
+        elif p.is_partial() and p != q:
+            local = local.clone()
+            dist.all_reduce(local, group=group)
+            cur[i] = Replicate()
+    x = DTensor.from_local(local.contiguous(), mesh, cur, run_check=False,
+                           shape=x.shape, stride=x.stride())
+    if tuple(cur) != tuple(target):  # splits of a whole: local slices
+        x = x.redistribute(mesh, tuple(target))
+    return x
+
+
+def whole(x) -> torch.Tensor:
+    """A placed tensor gathered whole on every rank, as a plain tensor."""
+    return redistribute(x, [Replicate()] * x.device_mesh.ndim).to_local()
+
+
+def summed(y, dtype) -> torch.Tensor:
+    """A row-parallel product's float32 partial sums (``Partial()``)
+    added over the ranks (an all-reduce), then rounded once to ``dtype``:
+    each rank's partial rounded to bf16 before the sum would round twice
+    where one card's product rounds once."""
+    pl = [Replicate() if p.is_partial() else p for p in y.placements]
+    return redistribute(y, pl).to(dtype)
 
 
 def placements(mesh, spec: Spec) -> tuple:
@@ -331,22 +401,107 @@ def placements(mesh, spec: Spec) -> tuple:
     mesh dim whose axis the spec puts on tensor dim ``d``, ``Replicate()``
     elsewhere.  An entry of several axes must name them in the mesh's
     order (the first the major one, as in the reference), the order in
-    which ``DTensor`` splits a dim over several mesh dims."""
-    from torch.distributed.tensor import Replicate, Shard
-
+    which ``DTensor`` splits a dim over several mesh dims.  An axis the
+    mesh does not have splits nothing (a serving mesh of one data shard
+    has no data axis, :func:`logical`)."""
     names = tuple(mesh.mesh_dim_names)
     out = [Replicate()] * len(names)
     for d, entry in enumerate(spec):
         if entry is None:
             continue
         axes = entry if isinstance(entry, tuple) else (entry,)
-        idx = [names.index(a) for a in axes]
+        idx = [names.index(a) for a in axes if a in names]
         if idx != sorted(idx):
             raise ValueError(f"spec {spec}: axes {axes} of dim {d} are not "
                              f"in the mesh's order {names}")
         for i in idx:
             out[i] = Shard(d)
     return tuple(out)
+
+
+def logical(mesh) -> "LogicalMesh":
+    """The :class:`LogicalMesh` of a ``DeviceMesh`` (its dims by name),
+    which the spec rules read; a mesh without a data axis (a serving mesh
+    of one data shard) has a data axis of 1 there."""
+    return LogicalMesh({"data": 1,
+                        **dict(zip(mesh.mesh_dim_names, mesh.shape))})
+
+
+def _local_box(shape: Tuple[int, ...], mesh, placements_: tuple):
+    """(offsets, sizes) of this rank's block of a leaf of ``shape`` split
+    evenly by ``placements_``: each mesh dim in order splits what the ones
+    before it left, as ``DTensor`` does."""
+    off, size = [0] * len(shape), list(shape)
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(placements_):
+        if p.is_shard():
+            d = p.dim
+            if size[d] % mesh.size(i):
+                raise ValueError(f"dim {d} of {shape} does not split "
+                                 f"evenly over mesh dim {i}")
+            size[d] //= mesh.size(i)
+            off[d] += coord[i] * size[d]
+    return off, size
+
+
+def place(t: torch.Tensor, mesh, spec: Spec, device=None,
+          non_blocking: bool = False) -> torch.Tensor:
+    """``t`` (on the host) as a ``DTensor`` on ``mesh`` with partition
+    ``spec``, made from this rank's slice alone: only that slice is copied
+    to ``device`` (the mesh's device type by default), and no collective
+    runs.  :meth:`NamedSharding.place` moves the whole leaf to the device
+    and scatters it from rank 0 instead."""
+    pl = placements(mesh, spec)
+    off, size = _local_box(tuple(t.shape), mesh, pl)
+    local = t
+    for d, (o, n) in enumerate(zip(off, size)):
+        if n != t.shape[d]:
+            local = local.narrow(d, o, n)
+    local = local.to(device or mesh.device_type, non_blocking=non_blocking)
+    return DTensor.from_local(local.contiguous(), mesh, pl, run_check=False,
+                              shape=t.shape, stride=t.contiguous().stride())
+
+
+def place_tree(tree: PyTree, mesh, spec_tree: PyTree, device=None,
+               non_blocking: bool = False) -> PyTree:
+    """Every leaf of ``tree`` placed by :func:`place` with the partition of
+    ``spec_tree`` at the same place."""
+    return spec_map(lambda spec, t: place(t, mesh, spec, device,
+                                          non_blocking), spec_tree, tree)
+
+
+def zeros_placed(shape: Tuple[int, ...], dtype, mesh, spec: Spec,
+                 device=None) -> torch.Tensor:
+    """A zeroed ``DTensor`` of ``shape`` with partition ``spec``: each
+    rank allocates its own block only."""
+    pl = placements(mesh, spec)
+    _, size = _local_box(tuple(shape), mesh, pl)
+    local = torch.zeros(size, dtype=dtype,
+                        device=device or mesh.device_type)
+    return DTensor.from_local(local, mesh, pl, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
+
+
+def local_nbytes(tree: PyTree) -> int:
+    """Bytes this rank holds of ``tree``: a ``DTensor`` leaf's local
+    block, a plain leaf whole."""
+    total = 0
+    for leaf in pytree.leaves(tree):
+        local = leaf.to_local() if hasattr(leaf, "to_local") else leaf
+        total += local.numel() * local.element_size()
+    return total
+
+
+def rank_nbytes(tree: PyTree, group=None) -> list:
+    """:func:`local_nbytes` of every rank of ``group`` (the default
+    process group), in rank order; every rank calls it."""
+    import torch.distributed as dist
+
+    out = [None] * dist.get_world_size(group)
+    dist.all_gather_object(out, local_nbytes(tree), group=group)
+    return out
 
 
 def named(mesh, spec_tree: PyTree) -> PyTree:

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import placed, ref
 from repro_torch.kernels.build import (check_launch, launcher,
                                       refuse_grad, stream_ptr)
 
@@ -147,7 +147,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, lengths: torch.Tensor, *,
                      window: int = 0, softcap: float = 0.0,
                      scale: float = 0.0, prefix: int = 0) -> torch.Tensor:
-    """q: (B, H, D); k/v cache: (B, T, KV, D); lengths: (B,) int32."""
+    """q: (B, H, D); k/v cache: (B, T, KV, D); lengths: (B,) int32.  A
+    ``DTensor`` q runs each rank's heads (:mod:`.placed`)."""
+    if placed.is_placed(q):
+        return placed.decode_attention(
+            decode_attention, q, k_cache, v_cache, lengths,
+            dict(window=window, softcap=softcap, scale=scale, prefix=prefix))
     if q.device.type in ref.PLAIN_DEVICES:
         return ref.as_kernel(ref.decode_attention, q, k_cache, v_cache,
                              lengths, window=window, softcap=softcap,

@@ -35,7 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import placed, ref
 from repro_torch.kernels.build import check_launch, launcher, stream_ptr
 
 _TYPES = (torch.float32, torch.bfloat16)
@@ -324,9 +324,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_offset: int = 0, prefix: int = 0) -> torch.Tensor:
     """q: (B, S, H, D); k, v: (B, T, KV, D).  Output like q.
     Differentiable through :func:`flash_attention_bwd` when an input
-    requires grad, on every device."""
+    requires grad, on every device.  A ``DTensor`` q runs each rank's
+    heads (:mod:`.placed`; serving only)."""
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale,
               q_offset=q_offset, prefix=prefix)
+    if placed.is_placed(q):
+        return placed.flash_attention(flash_attention, q, k, v, kw)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _Attention.apply(q, k, v, kw)

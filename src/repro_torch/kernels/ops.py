@@ -24,7 +24,7 @@ kernels refuse a gradient on the card.
 """
 from __future__ import annotations
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import placed, ref
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   paged_decode_attention,
                                                   paginate_kv, split_plan)
@@ -36,9 +36,18 @@ from repro_torch.kernels.ssd_scan import (ssd_bwd_plan, ssd_plan, ssd_scan,
                                           ssd_scan_bwd)
 
 quantize_weights = ref.quantize_weights
-ssd_step = ref.ssd_step
 causal_conv1d = ref.causal_conv1d
 causal_conv1d_step = ref.causal_conv1d_step
+
+
+
+def ssd_step(x, dt, A, Bm, Cm, D, state):
+    """The scan's decode step, :func:`repro_torch.kernels.ref.ssd_step`.
+    A ``DTensor`` x runs each rank's heads (:mod:`.placed`)."""
+    if placed.is_placed(x):
+        return placed.ssd_step(ssd_step, x, dt, A, Bm, Cm, D, state)
+    return ref.ssd_step(x, dt, A, Bm, Cm, D, state)
+
 
 __all__ = ["causal_conv1d", "causal_conv1d_step", "decode_attention",
            "flash_attention", "flash_attention_bwd", "flash_bwd_plan",

@@ -22,7 +22,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import placed, ref
 from repro_torch.kernels.build import (check_launch, launcher,
                                       refuse_grad, stream_ptr)
 
@@ -104,7 +104,10 @@ def _sms(index) -> int:
 
 def quant_matmul(x: torch.Tensor, w_q: torch.Tensor, scales: torch.Tensor,
                  *, out_dtype=None) -> torch.Tensor:
-    """x: (..., K) f32/bf16; w_q: (K, N) int8; scales: (K/group, N) f32."""
+    """x: (..., K) f32/bf16; w_q: (K, N) int8; scales: (K/group, N) f32.
+    A ``DTensor`` weight runs each rank's block (:mod:`.placed`)."""
+    if placed.is_placed(w_q):
+        return placed.quant_matmul(quant_matmul, x, w_q, scales, out_dtype)
     if x.device.type in ref.PLAIN_DEVICES:
         return ref.as_kernel(ref.quant_matmul, x, w_q, scales,
                              out_dtype=out_dtype)

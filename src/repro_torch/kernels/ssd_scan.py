@@ -40,7 +40,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import placed, ref
 from repro_torch.kernels.build import check_launch, launcher, stream_ptr
 
 _TYPES = (torch.float32, torch.bfloat16)
@@ -359,7 +359,11 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """x: (B, S, H, P); dt: (B, S, H); A, D: (H,); Bm, Cm: (B, S, G, N);
     init_state: (B, H, P, N).  Returns y like x [, final state f32].
     Differentiable through :func:`ssd_scan_bwd` when an input requires
-    grad, on every device."""
+    grad, on every device.  A ``DTensor`` x runs each rank's heads
+    (:mod:`.placed`; serving only)."""
+    if placed.is_placed(x):
+        return placed.ssd_scan(ssd_scan, x, dt, A, Bm, Cm, D, init_state,
+                               return_state, chunk)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (x, dt, A, Bm, Cm, D, init_state)):

@@ -9,14 +9,24 @@ onto a :class:`~repro_torch.serving.api.ServingConfig` field and
         --budget-mb 6
 
 Real tenants run on ``--device`` (default ``cuda``; asking for it without
-a card raises).  ``--sharded-mesh`` serves from a logical mesh: weights
-are accounted per chip under per-device budgets, on one card.
+a card raises).  ``--sharded-mesh`` serves from a mesh, weights accounted
+per chip under per-device budgets: on one card the mesh is logical; on a
+machine with as many cards as the mesh has devices the launcher starts
+one rank a card (NCCL carries the tensors, gloo rank 0's calls), places
+every tenant across them, and rank 0 serves and prints.  ``--nproc N``
+starts N ranks on any device, e.g. on gloo CPU ranks:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --nproc 2 --sharded-mesh 2 --requests 8
 """
 from __future__ import annotations
 
 import argparse
+import math
+import tempfile
 
 import numpy as np
+import torch
 
 from repro_torch.core.policies import available_policies
 from repro_torch.serving import Batcher, Request
@@ -43,8 +53,47 @@ def main() -> None:
                     "per-device budgets")
     ap.add_argument("--device", default="cuda",
                     help="device real tenants run on ('cuda' or 'cpu')")
+    ap.add_argument("--nproc", type=int, default=None,
+                    help="ranks to start, one a device of the mesh "
+                    "(default: the mesh's size on a CUDA machine with "
+                    "that many cards, else 1)")
     args = ap.parse_args()
+    n = math.prod(args.sharded_mesh or (1,))
+    nproc = args.nproc
+    if nproc is None:
+        nproc = (n if n > 1 and not args.sim and args.device == "cuda"
+                 and torch.cuda.device_count() >= n else 1)
+    if nproc == 1:
+        serve(args)
+        return
+    if nproc != n:
+        ap.error(f"--nproc {nproc} ranks for a mesh of {n} devices: give "
+                 "--sharded-mesh with one device a rank")
+    import torch.multiprocessing as mp
 
+    with tempfile.TemporaryDirectory() as root:
+        mp.start_processes(_rank, args=(args, nproc, f"file://{root}/rdzv"),
+                           nprocs=nproc, start_method="spawn")
+
+
+def _rank(rank: int, args, world: int, init: str) -> None:
+    """One rank of a placed server: NCCL for a card's tensors (gloo for
+    the CPU's), the server built on every rank, rank 0 serving."""
+    import torch.distributed as dist
+
+    cuda = args.device == "cuda"
+    if cuda:
+        torch.cuda.set_device(rank)
+    dist.init_process_group("nccl" if cuda else "gloo", init_method=init,
+                            rank=rank, world_size=world)
+    try:
+        serve(args)
+    finally:
+        dist.destroy_process_group()
+
+
+def serve(args) -> None:
+    """Build the server and, on its one controller, serve the trace."""
     rng = np.random.default_rng(args.seed)
     server = EdgeServer.build(ServingConfig(
         tenants=tuple(TenantSpec(n) for n in args.tenants),
@@ -56,10 +105,16 @@ def main() -> None:
                            mesh_shape=tuple(args.sharded_mesh))
                 if args.sharded_mesh else LoaderSpec()),
         executor="sim" if args.sim else "real"), device=args.device)
+    if server.is_worker:  # a placed server's other ranks
+        server.run_worker()
+        return
     if server.manager.state.devices is not None:
         led = server.manager.state.devices
         print(f"mesh: {led.n_devices} chips x "
-              f"{led.budgets_mb[0]:.2f}MB device budget")
+              f"{led.budgets_mb[0]:.2f}MB device budget"
+              + (f", placed on {nproc} ranks"
+                 if (nproc := math.prod(args.sharded_mesh)) > 1
+                 and server.physical_mesh is not None else ""))
     cfgs = {}
     for name in args.tenants:
         cfgs[name] = server.tenants[name].cfg

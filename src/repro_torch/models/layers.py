@@ -11,13 +11,24 @@ write (``uniform_pos``) and the int8 KV cache (``quantize_kv``,
 Pallas kernel, and are plain PyTorch here on every device; so are the
 MoE FFN's expert products (einsums over the dequantized expert stacks in
 the reference too), its router going through ``mm``.
+
+A tenant placed across ranks passes ``DTensor`` parameters through the
+same functions: ``hint`` places activations where the reference's hints
+do, the kernel wrappers run each rank's block (:mod:`repro_torch.kernels.
+placed`), and a handful of helpers here keep the placed path to the
+process group's own collectives (:func:`replicated`, :func:`embed_rows`,
+:func:`kv_for_ranks`, :func:`write_rows`, ``mm``'s
+:func:`repro_torch.kernels.placed.matmul`).  On plain tensors each is the
+computation it always was.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ops
+from repro_torch.distributed.ctx import get_ctx, hint
+from repro_torch.distributed.sharding import is_placed
+from repro_torch.kernels import ops, placed
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.config import ModelConfig
 from repro_torch.quant.quantize import dequantize_leaf, is_quantized
@@ -31,7 +42,51 @@ def mm(x: torch.Tensor, w) -> torch.Tensor:
     """x @ w for dense or quantized ({"q","s"}) 2-D weights."""
     if is_quantized(w):
         return ops.quant_matmul(x, w["q"], w["s"], out_dtype=x.dtype)
+    if is_placed(w):
+        return placed.matmul(x, w)
     return x @ w
+
+
+def embed_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``.  A placed table split on its rows (the vocabulary)
+    is read as Megatron's vocabulary-parallel embedding does: each rank
+    looks up the ids in its own rows, zeros for the others, and the
+    result is their partial sum (``DTensor`` reduces it where it is
+    read), so the table is never gathered."""
+    if not is_placed(table):
+        return table[ids.long()]
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = table.device_mesh
+    split = [p.is_shard(0) for p in table.placements]
+    rows = table.shape[0]
+    lo = 0
+    for i, s in enumerate(split):
+        if s:
+            rows //= mesh.size(i)
+            lo += mesh.get_coordinate()[i] * rows
+
+    def local(t):
+        j = ids.long() - lo
+        ok = (j >= 0) & (j < t.shape[0])
+        out = t[j.clamp(0, t.shape[0] - 1)]
+        return torch.where(ok[..., None], out, torch.zeros_like(out))
+
+    out = [Partial() if s else p for s, p in zip(split, table.placements)]
+    return local_map(local, out_placements=out,
+                     in_placements=(table.placements,),
+                     device_mesh=mesh)(table)
+
+
+def replicated(t: torch.Tensor) -> torch.Tensor:
+    """A placed activation made whole on every rank (kept a ``DTensor``,
+    replicated but for a batch split): a split gathered, where its parts
+    are read across the split, and a row-parallel product's partial sums
+    added (an all-reduce, where the reference's partitioner puts one), so
+    that the residual stream stays replicated.  A plain tensor comes back
+    as it is."""
+    return hint(t, "dp", *([None] * (t.ndim - 1)))
 
 
 def dense_w(w) -> torch.Tensor:
@@ -98,14 +153,46 @@ def _qkv(cfg: ModelConfig, lp: dict, x: torch.Tensor, positions):
     """Projected, normed and rotated q, k, v: (B, S, H|KV, hd)."""
     B, S, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    q = mm(x, lp["wq"]).reshape(B, S, H, hd)
-    k = mm(x, lp["wk"]).reshape(B, S, KV, hd)
-    v = mm(x, lp["wv"]).reshape(B, S, KV, hd)
+    q = _split_heads(mm(x, lp["wq"]), H, hd)
+    k = _split_heads(mm(x, lp["wk"]), KV, hd)
+    v = _split_heads(mm(x, lp["wv"]), KV, hd)
     if cfg.qk_norm:
         q = rms_norm(q, lp["q_norm"], cfg.norm_eps)
         k = rms_norm(k, lp["k_norm"], cfg.norm_eps)
     return (rope(q, positions, cfg.rope_theta),
-            rope(k, positions, cfg.rope_theta), v)
+            kv_for_ranks(rope(k, positions, cfg.rope_theta)),
+            kv_for_ranks(v))
+
+
+def _split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """(B, S, n * hd) -> (B, S, n, hd), split on the heads over the model
+    axis where it is placed.  A placed projection whose heads do not
+    divide the axis is gathered first: ``DTensor`` splits no head."""
+    B, S, _ = t.shape
+    if is_placed(t) and n % get_ctx().model_size:
+        t = hint(t, "dp", None, None)
+    return hint(t.reshape(B, S, n, hd), "dp", None, "model", None)
+
+
+def kv_for_ranks(k):
+    """k or v (B, S, KV, hd) of a tenant placed across ranks, split on
+    its KV heads over the model axis, each rank the KV heads its own query
+    heads read.  Where the axis has more ranks than there are KV heads,
+    each head is first repeated up to the axis' size, as the reference
+    repeats k and v before its sharded attention; the decode cache then
+    holds that many heads (:func:`repro_torch.models.transformer.
+    placed_cache`).  A plain tensor comes back as it is."""
+    if not is_placed(k):
+        return k
+    m, KV = get_ctx().model_size, k.shape[2]
+    if m > KV:
+        if m % KV:
+            raise NotImplementedError(
+                f"{KV} KV heads over a model axis of {m} ranks")
+        B, S, _, hd = k.shape
+        k = k.unsqueeze(3).expand(B, S, KV, m // KV, hd).reshape(
+            B, S, m, hd)
+    return hint(k, "dp", None, "model", None)
 
 
 def attention_prefill(cfg: ModelConfig, lp: dict, x: torch.Tensor,
@@ -146,14 +233,25 @@ def attention_decode(cfg: ModelConfig, lp: dict, x: torch.Tensor,
         write_token(k_cache, k[:, 0], lengths)
         write_token(v_cache, v[:, 0], lengths)
         return out.reshape(B, 1, -1)
-    bidx = torch.arange(B, device=x.device)
-    pos = lengths.long()
-    k_cache[bidx, pos] = k[:, 0].to(k_cache.dtype)
-    v_cache[bidx, pos] = v[:, 0].to(v_cache.dtype)
+    write_rows((k_cache, v_cache), (k[:, 0], v[:, 0]), lengths)
     out = ops.decode_attention(
         q[:, 0].contiguous(), k_cache, v_cache, lengths + 1, window=window,
         softcap=cfg.attn_logit_softcap, scale=cfg.attn_scale, prefix=prefix)
     return out.reshape(B, 1, -1)
+
+
+def write_rows(caches, fresh, lengths: torch.Tensor) -> None:
+    """Write each row's ``fresh`` (B, ...) into each of ``caches``
+    (B, T, ...) at its own ``lengths`` position, in the cache's type, in
+    place.  A placed cache (split on its heads, as ``fresh`` is by then)
+    is written through each rank's block: ``DTensor`` takes no indexed
+    write."""
+    rows = (torch.arange(lengths.shape[0], device=lengths.device),
+            lengths.long())
+    for cache, f in zip(caches, fresh):
+        if is_placed(cache):
+            cache, f = cache.to_local(), f.to_local()
+        cache[rows] = f.to(cache.dtype)
 
 
 def write_token(cache: torch.Tensor, fresh: torch.Tensor,
@@ -274,7 +372,8 @@ def attention_decode_q(cfg: ModelConfig, lp: dict, x: torch.Tensor, kq, ks,
 # ---------------------------------------------------------------------------
 def mlp_hidden(cfg: ModelConfig, x: torch.Tensor, wg, wu) -> torch.Tensor:
     """The gated MLP's hidden activations, before its down projection."""
-    return act_fn(mm(x, wg), cfg.act) * mm(x, wu)
+    h = act_fn(mm(x, wg), cfg.act) * mm(x, wu)
+    return hint(h, *(["dp"] + [None] * (h.ndim - 2) + ["model"]))
 
 
 def mlp(cfg: ModelConfig, x: torch.Tensor, wg, wu, wd) -> torch.Tensor:
@@ -294,7 +393,8 @@ def moe_ffn(cfg: ModelConfig, lp: dict, x: torch.Tensor,
     shapes, no host sync, so a CUDA graph captures it.  ``"ragged"`` sorts
     the routed slots by expert and runs each expert on its contiguous
     group; the group sizes are read on the host, so it raises under a
-    CUDA graph capture.  ``"local"`` is the reference's expert-local
+    CUDA graph capture (on ``meta`` they are an even split,
+    :func:`_group_sizes`).  ``"local"`` is the reference's expert-local
     ``shard_map`` on one device: each expert takes at most ``cap`` of its
     slots, the last ones in slot order, and the shared expert joins its
     f32 sum."""
@@ -346,7 +446,7 @@ def _moe_ragged(cfg, lp, xt, topi, topv):
     order = torch.argsort(flat_e, stable=True)
     tok_of = order // K
     xs = xt[tok_of]
-    sizes = torch.bincount(flat_e, minlength=cfg.num_experts).tolist()
+    sizes = _group_sizes(flat_e, cfg.num_experts)
     wg, wu, wd = (dense_w(lp[n]) for n in ("we_g", "we_u", "we_d"))
     ys = torch.cat([_expert(cfg, seg, wg[e], wu[e], wd[e])
                     for e, seg in enumerate(torch.split(xs, sizes))
@@ -354,6 +454,19 @@ def _moe_ragged(cfg, lp, xt, topi, topv):
     ys = ys * topv.reshape(-1)[order][:, None].to(ys.dtype)
     return torch.zeros((T, xt.shape[1]), dtype=ys.dtype,
                        device=xt.device).index_add_(0, tok_of, ys)
+
+
+def _group_sizes(flat_e: torch.Tensor, E: int) -> list:
+    """Routed slots a expert, read on the host.  A ``meta`` routing has no
+    values (the launch dry-run, which compiles no graph as the reference's
+    ``ragged_dot`` does over traced sizes): its slots are split evenly
+    over the experts, the first ``n % E`` one more.  The sizes sum to the
+    slots either way, so each expert product's FLOPs over all experts,
+    2 * slots * D * F, are exact whatever the split."""
+    if flat_e.device.type == "meta":
+        n = flat_e.numel()
+        return [n // E + (e < n % E) for e in range(E)]
+    return torch.bincount(flat_e, minlength=E).tolist()
 
 
 def _moe_local(cfg, lp, xt, topi, topv):
@@ -408,19 +521,23 @@ def ssm_prefill(cfg: ModelConfig, lp: dict, x: torch.Tensor, *,
     B, S, _ = x.shape
     di, nh = _ssm_dims(cfg, hybrid)
     G, N, W = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_conv_width
-    zxbcdt = mm(x, lp["ssm_in"])
+    # Placed: the projection's sections are of unequal widths, so it is
+    # gathered whole; the conv runs on each rank's channels, and the
+    # scan on its heads.
+    zxbcdt = replicated(mm(x, lp["ssm_in"]))
     z = zxbcdt[..., :di]
     xbc_pre = zxbcdt[..., di: 2 * di + 2 * G * N]
     dt_raw = zxbcdt[..., 2 * di + 2 * G * N:]
-    xbc = ops.causal_conv1d(xbc_pre, lp["conv_w"], lp["conv_b"],
-                            init=init_conv)
+    xbc = replicated(ops.causal_conv1d(xbc_pre, lp["conv_w"],
+                                       lp["conv_b"], init=init_conv))
     # Column slices of xbc: the scan reads them in place (row-strided).
     xs = xbc[..., :di]
     Bm = xbc[..., di: di + G * N].reshape(B, S, G, N)
     Cm = xbc[..., di + G * N:].reshape(B, S, G, N)
     dt = softplus(dt_raw.float() + lp["dt_bias"].float())
     A = -torch.exp(lp["A_log"].float())
-    xh = xs.reshape(B, S, nh, cfg.ssm_head_dim)
+    xh = hint(xs.reshape(B, S, nh, cfg.ssm_head_dim),
+              "dp", None, "model", None)
     out = ops.ssd_scan(xh, dt.to(xh.dtype), A, Bm, Cm, lp["D_skip"],
                        init_state=init_state, return_state=return_state,
                        chunk=cfg.ssm_chunk)
@@ -453,18 +570,24 @@ def ssm_decode(cfg: ModelConfig, lp: dict, x: torch.Tensor,
     B = x.shape[0]
     di, nh = _ssm_dims(cfg, hybrid)
     G, N = cfg.ssm_ngroups, cfg.ssm_state
-    zxbcdt = mm(x[:, 0, :], lp["ssm_in"])
+    # Placed: as in the prefill; the depthwise step on each rank's
+    # channels, as the cache's conv buffer is split.
+    zxbcdt = replicated(mm(x[:, 0, :], lp["ssm_in"]))
     z = zxbcdt[..., :di]
-    xbc = zxbcdt[..., di: 2 * di + 2 * G * N]
+    xbc = hint(zxbcdt[..., di: 2 * di + 2 * G * N], "dp", "model")
     dt_raw = zxbcdt[..., 2 * di + 2 * G * N:]
     xbc_act, new_conv = ops.causal_conv1d_step(
-        xbc, lp["conv_w"], lp["conv_b"], conv_buf)
+        xbc, hint(lp["conv_w"], None, "model"), lp["conv_b"],
+        hint(conv_buf, "dp", None, "model"))
+    xbc_act = replicated(xbc_act)
     xs = xbc_act[..., :di]
     Bm = xbc_act[..., di: di + G * N].reshape(B, G, N)
     Cm = xbc_act[..., di + G * N:].reshape(B, G, N)
     dt = softplus(dt_raw.float() + lp["dt_bias"].float())
     A = -torch.exp(lp["A_log"].float())
     xh = xs.reshape(B, nh, cfg.ssm_head_dim)
-    y, new_state = ops.ssd_step(xh, dt, A, Bm, Cm, lp["D_skip"], state)
+    # Placed: on each rank's heads, as the cache's state is split.
+    y, new_state = ops.ssd_step(hint(xh, "dp", "model", None), dt, A, Bm,
+                                Cm, lp["D_skip"], state)
     y = _gated_norm(cfg, lp, y.reshape(B, di), z)
     return y[:, None, :], new_state, new_conv

@@ -30,16 +30,26 @@ the kept products, as the reference's recomputation drops it as dead
 code.  The reference's ``set_scan_unroll`` has no counterpart: the port
 loops over the layers in Python, so a layer is never a scan body that a
 cost count would see once.
+
+:func:`prefill` and :func:`decode_step` also take a tree placed across
+ranks (``DTensor`` leaves, a tenant on a mesh of one rank a device): they
+install the mesh's sharding context, so the layers' hints place the
+activations, build the decode cache split by ``cache_specs``
+(:func:`placed_cache`), and every rank takes the whole logits' greedy
+ids.  The int8 cache and the deferred decode are not placed.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import ctx as CTX
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
@@ -103,7 +113,7 @@ def _tp_out(x, w=None):
     kept across the remat it runs in, if any."""
     ctx = getattr(_REMAT, "ctx", None)
     if ctx is None:
-        return x if w is None else L.mm(x, w)
+        return L.replicated(x if w is None else L.mm(x, w))
     if ctx.load:
         out = ctx.kept[ctx.i]
         ctx.i += 1
@@ -301,6 +311,111 @@ def abstract_cache(cfg: ModelConfig, batch: int, max_len: int,
     return init_cache(cfg, batch, max_len, dtype, quantized, device="meta")
 
 
+# ---------------------------------------------------------------------------
+# Tenants placed across ranks (parameters as DTensors)
+# ---------------------------------------------------------------------------
+def placed_mesh(params):
+    """The ``DeviceMesh`` of a tree placed across ranks, else None."""
+    return getattr(params["final_norm"], "device_mesh", None)
+
+
+@contextlib.contextmanager
+def _placed_run(params):
+    """For a placed tree: plain tensors taken as replicated, and the
+    sharding context of its mesh installed, so that the layers' hints
+    place activations as the reference's do.  Nothing otherwise."""
+    mesh = placed_mesh(params)
+    if mesh is None:
+        yield None
+        return
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    size = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    ctx = CTX.ShardCtx(model_size=size.get("model", 1),
+                       dp_size=size.get("data", 1), enabled=True)
+    with implicit_replication(), CTX.installed(ctx):
+        yield mesh
+
+
+def placement_gaps(cfg: ModelConfig, model_size: Optional[int] = None
+                   ) -> list:
+    """What serving ``cfg`` placed across ranks needs that the placed path
+    lacks, in words (empty: it serves placed).  The placed path runs the
+    dense, gated-MLP and Mamba-2 blocks on one codebook of text.  On a
+    model axis of ``model_size`` ranks (None: any axis) it splits query
+    heads, KV heads (or repeats them up to the axis) and scan heads
+    evenly, and B and C where their groups divide the axis or there is
+    one group.  Placing a tree's leaves needs none of it: the partition
+    rules replicate what does not divide."""
+    m = model_size
+    gaps = []
+    if cfg.num_experts:
+        gaps.append(f"{cfg.num_experts} experts")
+    if cfg.num_codebooks > 1:
+        gaps.append(f"{cfg.num_codebooks} codebooks")
+    if cfg.frontend != "none":
+        gaps.append(f"the {cfg.frontend} frontend")
+    if cfg.num_meta_tokens:
+        gaps.append(f"{cfg.num_meta_tokens} meta tokens")
+    if cfg.family == "hybrid":
+        gaps.append("hybrid blocks")
+    if m is None:
+        return gaps
+    if cfg.uses_attention:
+        H, KV = cfg.num_heads, cfg.num_kv_heads
+        if H % m:
+            gaps.append(f"{H} query heads over {m} ranks")
+        if KV % m and m % KV:
+            gaps.append(f"{KV} KV heads over {m} ranks")
+    if cfg.ssm_state:
+        nh, G = cfg.ssm_nheads, cfg.ssm_ngroups
+        if nh % m:
+            gaps.append(f"{nh} scan heads over {m} ranks")
+        if G > 1 and G % m:
+            gaps.append(f"{G} scan groups over {m} ranks")
+    return gaps
+
+
+def check_placeable(cfg: ModelConfig, model_size: Optional[int] = None,
+                    who: str = "") -> None:
+    """Raise ``NotImplementedError`` naming :func:`placement_gaps`, if
+    any."""
+    gaps = placement_gaps(cfg, model_size)
+    if gaps:
+        ranks = "ranks" if model_size is None else f"{model_size} ranks"
+        raise NotImplementedError(
+            f"{who or cfg.name}: serving {cfg.name} placed across {ranks} "
+            f"needs what the placed path lacks ({'; '.join(gaps)}); see "
+            "ROADMAP A13")
+
+
+def placed_cache(cfg: ModelConfig, mesh, batch: int, max_len: int,
+                 dtype=torch.bfloat16, quantized: bool = False,
+                 device=None) -> PyTree:
+    """A zeroed decode cache on ``mesh``, each leaf a ``DTensor`` laid out
+    by :func:`repro_torch.distributed.sharding.cache_specs`, each rank
+    allocating its own block.  Where the model axis has more ranks than
+    the config has KV heads, the cache holds one head a rank, each KV
+    head repeated (:func:`repro_torch.models.layers.kv_for_ranks`).
+    ``lengths`` stays a plain tensor that every rank holds."""
+    m = dict(zip(mesh.mesh_dim_names, mesh.shape)).get("model", 1)
+    check_placeable(cfg, m)
+    shapes = cache_shapes(cfg, batch, max_len, dtype, quantized)
+    for name in ("k", "v", "k_scale", "v_scale"):
+        if name in shapes:
+            shape, dt = shapes[name]
+            kv = max(shape[3], m)
+            shapes[name] = (shape[:3] + (kv,) + shape[4:], dt)
+    abstract = {n: torch.empty(sh, dtype=dt, device="meta")
+                for n, (sh, dt) in shapes.items()}
+    specs = SH.cache_specs(cfg, abstract, SH.logical(mesh))
+    out = {n: SH.zeros_placed(sh, dt, mesh, specs[n], device)
+           for n, (sh, dt) in shapes.items() if n != "lengths"}
+    sh, dt = shapes["lengths"]
+    out["lengths"] = torch.zeros(sh, dtype=dt, device=device)
+    return out
+
+
 def _layer_windows(cfg: ModelConfig) -> Tuple[int, ...]:
     return tuple(cfg.window_for_kind(k) for k in cfg.layer_kinds())
 
@@ -382,7 +497,7 @@ def _block_decode(cfg: ModelConfig, h, lp, window: int, cache, i: int,
         cache["state"][i].copy_(state)
         cache["conv"][i].copy_(conv)
         if not hybrid:
-            return _ffn(cfg, h + L.mm(y, lp["ssm_out"]), lp, moe_impl)
+            return _ffn(cfg, h + _tp_out(y, lp["ssm_out"]), lp, moe_impl)
         attn_raw = L.attention_decode(
             cfg, lp, x, cache["k"][i], cache["v"][i], lengths, window,
             prefix=cfg.num_meta_tokens, uniform_pos=uniform_pos)
@@ -398,7 +513,7 @@ def _block_decode(cfg: ModelConfig, h, lp, window: int, cache, i: int,
         attn_raw = L.attention_decode(
             cfg, lp, x, cache["k"][i], cache["v"][i], lengths, window,
             prefix=cfg.num_meta_tokens, uniform_pos=uniform_pos)
-    attn = L.mm(attn_raw, lp["wo"])
+    attn = _tp_out(attn_raw, lp["wo"])
     if cfg.post_norm:
         attn = L.rms_norm(attn, lp["post_ln1"], cfg.norm_eps)
     return _ffn(cfg, h + attn, lp, moe_impl)
@@ -412,9 +527,9 @@ def embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor
     """tokens: (B, S) int, or (B, S, Kcb) for multi-codebook audio."""
     emb = params["embed"]  # (Kcb, Vp, D)
     if cfg.num_codebooks == 1:
-        h = emb[0][tokens.long()]
+        h = L.embed_rows(emb[0], tokens)
     else:
-        h = sum(emb[i][tokens[..., i].long()]
+        h = sum(L.embed_rows(emb[i], tokens[..., i])
                 for i in range(cfg.num_codebooks))
     if cfg.emb_scale:
         # The scale rounded to h's type, as the reference rounds it; a CPU
@@ -559,11 +674,26 @@ def prefill(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
     if quantize_cache and cfg.family == "hybrid":
         raise ValueError(f"{cfg.name}: a hybrid model's cache stays in "
                          "cache_dtype; it has no int8 layout")
-    h = _frontend(cfg, params, batch)
+    if quantize_cache and placed_mesh(params) is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the int8 KV cache of a tenant placed across ranks "
+            "is not ported; see ROADMAP A13")
+    with _placed_run(params) as mesh:
+        return _prefill(cfg, params, batch, max_len, mesh, moe_impl,
+                        cache_dtype, quantize_cache)
+
+
+def _prefill(cfg, params, batch, max_len, mesh, moe_impl, cache_dtype,
+             quantize_cache):
+    h = L.hint(_frontend(cfg, params, batch), "dp", None, None)
     B, S = h.shape[0], h.shape[1]
     positions = torch.arange(S, device=h.device)
-    cache = init_cache(cfg, B, max_len, cache_dtype, quantized=quantize_cache,
-                       device=h.device)
+    if mesh is None:
+        cache = init_cache(cfg, B, max_len, cache_dtype,
+                           quantized=quantize_cache, device=h.device)
+    else:
+        cache = placed_cache(cfg, mesh, B, max_len, cache_dtype,
+                             quantized=quantize_cache, device=h.device)
     for i, window in enumerate(_layer_windows(cfg)):
         h, leaves = _block_prefill(cfg, h, _layer(params["layers"], i),
                                    window, positions, moe_impl=moe_impl)
@@ -594,19 +724,27 @@ def decode_step(cfg: ModelConfig, params, cache: PyTree,
     the same position, as in the reference's lowered serve step) reads
     the cache through the deferred path and writes the fresh token at
     ``lengths[0]``; an int8 cache always does."""
+    if uniform_pos and placed_mesh(params) is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the deferred (uniform_pos) decode of a tenant "
+            "placed across ranks is not ported; see ROADMAP A13")
     tok = tokens[:, None] if cfg.num_codebooks == 1 else tokens[:, None, :]
-    h = embed_tokens(cfg, params, tok)  # (B, 1, D)
-    lengths = cache["lengths"]
-    for i, window in enumerate(_layer_windows(cfg)):
-        h = _block_decode(cfg, h, _layer(params["layers"], i), window,
-                          cache, i, lengths, uniform_pos, moe_impl)
-    new_cache = dict(cache, lengths=lengths + 1)
-    logits = lm_logits(cfg, params, h)[:, 0]
+    with _placed_run(params):
+        h = L.hint(embed_tokens(cfg, params, tok), "dp", None, None)
+        lengths = cache["lengths"]
+        for i, window in enumerate(_layer_windows(cfg)):
+            h = _block_decode(cfg, h, _layer(params["layers"], i), window,
+                              cache, i, lengths, uniform_pos, moe_impl)
+        new_cache = dict(cache, lengths=lengths + 1)
+        logits = lm_logits(cfg, params, h)[:, 0]
     return logits, new_cache
 
 
 def greedy_token(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
-    """logits (B, Kcb, Vp) -> next token ids (B,) or (B, Kcb), int32."""
+    """logits (B, Kcb, Vp) -> next token ids (B,) or (B, Kcb), int32.
+    Placed logits are gathered first: every rank takes the whole ids."""
+    if L.is_placed(logits):
+        logits = SH.whole(logits)
     col = torch.arange(logits.shape[-1], device=logits.device)
     masked = torch.where(col < cfg.vocab_size, logits,
                          torch.full_like(logits, float("-inf")))

@@ -19,9 +19,23 @@ and they and the pool go with the variant they read; it keeps the
 runtime served by the engine charges it to the tenant: before a capture
 it reserves the key's eager peak, after it the measured pool; when the
 budget has no room for the growth the batch runs eagerly instead.
+
+A sharded mesh is placed across ranks when the process runs under a
+``torch.distributed`` group with a rank for each device of the mesh (one
+process per card): every tenant's leaves become ``DTensor``s split by the
+serving partition rules, each rank copying only its own slice, and every
+kernel runs on each rank's local block.  Rank 0 is the one controller (its
+engine times service by wall clock, so the ranks' engines would decide
+differently): its runtimes send each ``set_variant``, ``generate``,
+``hold_graphs`` and ``reshard_device_params`` to the other ranks
+(:class:`RankControl`), which build the same tenants and only repeat those
+calls (:meth:`EdgeServer.run_worker`).  A placed tenant serves eagerly: no
+CUDA graph captures its collectives, and it charges no graph pool.
 """
 from __future__ import annotations
 
+import contextlib
+import datetime
 import threading
 import time
 from collections import OrderedDict
@@ -30,6 +44,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import actions as RA
 from repro_torch.core.manager import EdgeMultiAI
@@ -144,6 +159,67 @@ def capture(fn, device: torch.device, pool, warm_up: bool = True):
     return graph, out
 
 
+def process_group_size() -> Optional[int]:
+    """Ranks of the default ``torch.distributed`` group, None without one."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return None
+
+
+class RankControl:
+    """Rank 0's calls of its placed runtimes, repeated on every other rank.
+
+    Each call is sent (app, method, arguments) over a gloo group of its own
+    before rank 0 runs it, under one lock: the other ranks run the calls in
+    the order rank 0 did, so that their collectives meet.  The loader's
+    thread and the serving thread both call through it; the lock also keeps
+    their collectives apart.  The group waits a day for a call: a worker
+    rank idles as long as the server does."""
+
+    def __init__(self):
+        self.rank = dist.get_rank()
+        self.group = dist.new_group(backend="gloo",
+                                    timeout=datetime.timedelta(days=1))
+        self._lock = threading.RLock()
+        self._busy = threading.local()
+
+    @property
+    def leads(self) -> bool:
+        return self.rank == 0
+
+    @contextlib.contextmanager
+    def on_ranks(self, app: str, method: str, *args):
+        """Around a runtime method's body: on rank 0 (outside another
+        call) the call is sent to the other ranks first; anywhere else a
+        plain block."""
+        if not self.leads or getattr(self._busy, "on", False):
+            yield
+            return
+        with self._lock:
+            self._busy.on = True
+            try:
+                dist.broadcast_object_list([(app, method, args)], src=0,
+                                           group=self.group)
+                yield
+            finally:
+                self._busy.on = False
+
+    def serve(self, tenants: Dict[str, Any]) -> None:
+        """A worker rank: run rank 0's calls until it stops."""
+        while True:
+            box = [None]
+            dist.broadcast_object_list(box, src=0, group=self.group)
+            if box[0] is None:
+                return
+            app, method, args = box[0]
+            getattr(tenants[app], method)(*args)
+
+    def stop(self) -> None:
+        """Rank 0: release the workers."""
+        with self._lock:
+            dist.broadcast_object_list([None], src=0, group=self.group)
+
+
 @dataclass
 class _Graph:
     """One captured ``generate``: its static prompt buffer and tokens, and
@@ -229,6 +305,60 @@ class TenantRuntime:
         # charged pool to ``mb`` MB, or returns False when a rise does not
         # fit the budget.  None (a runtime used on its own): no charge.
         self.pool_ledger = None
+        # Placement across ranks (attach_mesh): the DeviceMesh, the spec
+        # trees a variant, and the control that repeats calls on the
+        # other ranks.  None: one device.
+        self.mesh = None
+        self._specs: Dict[int, Any] = {}
+        self.ctl: Optional[RankControl] = None
+        # Device bytes the last placed set_variant allocated on this rank
+        # (the card's allocator count; None off the card or off a mesh).
+        self.staged_bytes: Optional[int] = None
+
+    def _on_ranks(self, method: str, *args):
+        if self.ctl is None:
+            return contextlib.nullcontext()
+        return self.ctl.on_ranks(self.name, method, *args)
+
+    def attach_mesh(self, mesh, ctl: Optional[RankControl] = None) -> None:
+        """Place every variant on ``mesh`` (a ``DeviceMesh`` over the
+        ranks, one per device) by the serving partition rules; a variant
+        already resident is placed now.  A config with a feature the
+        placed path lacks raises (:meth:`check_placeable`); head counts
+        the axis cannot split raise where the tenant serves (at the
+        server's ``start``, and in a placed prefill)."""
+        self.check_placeable()
+        self.mesh, self.ctl = mesh, ctl
+        self._specs.clear()
+        if self.loaded_bits is not None:
+            bits, self.loaded_bits = self.loaded_bits, None
+            self.set_variant(self.zoo.by_bits(bits))
+
+    def check_placeable(self, model_size: Optional[int] = None) -> None:
+        """Raise ``NotImplementedError`` where serving the config placed
+        needs what the placed path lacks, on a model axis of
+        ``model_size`` ranks if given
+        (:func:`repro_torch.models.transformer.placement_gaps`)."""
+        T.check_placeable(self.cfg, model_size, self.name)
+
+    def _spec_tree(self, bits: int):
+        specs = self._specs.get(bits)
+        if specs is None:
+            from repro_torch.distributed import sharding as SH
+            specs = self._specs[bits] = SH.param_specs(
+                self.cfg, self.host[bits], SH.logical(self.mesh),
+                fsdp=False)
+        return specs
+
+    def _stage(self, host_tree, bits: int):
+        """``host_tree`` on the device: whole, or on a mesh each rank's
+        slice of every leaf."""
+        if self.mesh is None:
+            return tree_map(lambda _, t: t.to(self.device,
+                                              non_blocking=True), host_tree)
+        from repro_torch.distributed import sharding as SH
+        return SH.place_tree(host_tree, self.mesh, self._spec_tree(bits),
+                             self.device, non_blocking=True)
 
     # -- loader callback target -------------------------------------------
     def set_variant(self, variant: Optional[ModelVariant]) -> None:
@@ -239,36 +369,41 @@ class TenantRuntime:
         synchronized before the new params are published: ``generate``
         on the serving thread never reads a tensor whose copy is still in
         flight.  Publishing drops the graphs of the old variant, and their
-        pool's memory goes back to the card."""
-        if variant is not None and variant.bits == self.loaded_bits:
-            return
-        params = None
-        if variant is not None:
-            host_tree = self.host[variant.bits]
-            stream = self._copy_stream
-            if stream is None:
-                params = tree_map(lambda _, t: t.to(self.device), host_tree)
-            else:
-                stream.wait_stream(torch.cuda.default_stream(self.device))
-                with torch.cuda.stream(stream):
-                    params = tree_map(
-                        lambda _, t: t.to(self.device, non_blocking=True),
-                        host_tree)
-                stream.synchronize()
-        with self._lock:
-            self.device_params = params
-            self.loaded_bits = None if variant is None else variant.bits
-            self._warm = False
-            # The engine's ledger clears the charge with the variant.
-            self.pool_mb = 0.0
-            self._drop_graphs()
+        pool's memory goes back to the card.  On a mesh each rank copies
+        only its slice of each leaf."""
+        with self._on_ranks("set_variant", variant):
+            if variant is not None and variant.bits == self.loaded_bits:
+                return
+            params = None
+            if variant is not None:
+                host_tree = self.host[variant.bits]
+                stream = self._copy_stream
+                if stream is None:
+                    params = self._stage(host_tree, variant.bits)
+                else:
+                    base = torch.cuda.memory_allocated(self.device)
+                    stream.wait_stream(
+                        torch.cuda.default_stream(self.device))
+                    with torch.cuda.stream(stream):
+                        params = self._stage(host_tree, variant.bits)
+                    stream.synchronize()
+                    if self.mesh is not None:
+                        self.staged_bytes = (torch.cuda.memory_allocated(
+                            self.device) - base)
+            with self._lock:
+                self.device_params = params
+                self.loaded_bits = None if variant is None else variant.bits
+                self._warm = False
+                # The engine's ledger clears the charge with the variant.
+                self.pool_mb = 0.0
+                self._drop_graphs()
 
     def hold_graphs(self, hold: bool) -> None:
         """The loader's call when a load of another variant is staged
         (``hold``): drop every graph and give the pool back to the card
         now, as the ledger drops its charge, and serve eagerly until the
         load commits or is cancelled (``hold`` False)."""
-        with self._lock:
+        with self._on_ranks("hold_graphs", hold), self._lock:
             self._held = hold
             if hold:
                 self.pool_mb = 0.0
@@ -276,9 +411,34 @@ class TenantRuntime:
 
     def reshard_device_params(self) -> None:
         """Elastic recovery hook: re-place the resident variant's buffers
-        after the ledger's layout changed.  A no-op: the port serves a
-        logical mesh from one card and places no shards across cards
-        (``EdgeServer._attach_physical_mesh``)."""
+        on the attached mesh (``distributed.elastic.reshard``) after the
+        ledger's layout changed, as the reference does.  The mesh and the
+        variant's spec tree are fixed, so every leaf already has its
+        placements and nothing moves; a leaf whose layout did differ
+        would move through the process group's own collectives
+        (:func:`repro_torch.distributed.sharding.redistribute`).  A no-op
+        off a mesh, or when nothing is loaded."""
+        with self._on_ranks("reshard_device_params"):
+            if self.mesh is None or self.loaded_bits is None:
+                return
+            from repro_torch.distributed.elastic import reshard
+            with self._lock:
+                self.device_params = reshard(
+                    self.device_params, self._spec_tree(self.loaded_bits),
+                    self.mesh)
+
+    def rank_bytes(self) -> List[Tuple[int, Optional[int]]]:
+        """(bytes of the resident variant's blocks, :attr:`staged_bytes`)
+        of every rank of a placed tenant, in rank order (every rank takes
+        part); of this process alone off a mesh."""
+        with self._on_ranks("rank_bytes"):
+            from repro_torch.distributed import sharding as SH
+            mine = (SH.local_nbytes(self.device_params), self.staged_bytes)
+            if self.mesh is None:
+                return [mine]
+            out: List[Any] = [None] * dist.get_world_size()
+            dist.all_gather_object(out, mine)
+            return out
 
     def _drop_graphs(self) -> None:
         """Drop every graph and give the pool back to the card (the old
@@ -300,8 +460,13 @@ class TenantRuntime:
         also runs eagerly); the CPU, and a batch with extra modality
         inputs (as in the reference), run the eager loop.  Returns host
         numpy, which waits for the device: the engine's wall-clock
-        service time covers the whole computation."""
-        with self._lock, torch.inference_mode():
+        service time covers the whole computation.  A tenant placed on a
+        mesh runs the eager loop on every rank."""
+        # DTensor views refuse inference mode (no version counter).
+        grad_off = (torch.no_grad if self.mesh is not None
+                    else torch.inference_mode)
+        with (self._on_ranks("generate", prompts, max_new, extra),
+              self._lock, grad_off()):
             assert self.device_params is not None, f"{self.name}: not loaded"
             params = self.device_params
             dev = self.device
@@ -315,7 +480,8 @@ class TenantRuntime:
                     max_new=max_new, max_len=S + max_new,
                     extra=extra_t).cpu().numpy()
 
-            if dev.type != "cuda" or extra or self._held:
+            if (dev.type != "cuda" or extra or self._held
+                    or self.mesh is not None):
                 return run()
             key = (self.loaded_bits, prompts.shape[0], S, max_new,
                    S + max_new)
@@ -476,6 +642,9 @@ class EdgeServer:
         # and chip-up rebalances on the engine clock.
         self.fault = fault
         self.elastic = None  # type: Optional["ElasticController"]
+        # Placement across ranks (start(), under a process group).
+        self.physical_mesh = None
+        self.control: Optional[RankControl] = None
         # Engine fast-path knobs (see ServingEngine): audit level and
         # event-scheduling mode.  scheduler="indexed" also memoizes the
         # per-tenant prediction triggers here (the predictors' forward
@@ -613,24 +782,69 @@ class EdgeServer:
             self.engine.elastic = ctrl
 
     def _attach_physical_mesh(self) -> None:
-        """Physical placement of the logical mesh, by the reference's rule:
-        skipped when the process has fewer cards than the mesh asks for
-        (sim builds, the CPU, one card), and the ledger stays the
-        accounting authority either way.  The port places no
-        tensor-parallel shards across cards, so real CUDA tenants on a
-        mesh that the process's cards could hold raise rather than
+        """Physical placement of the logical mesh, by the reference's rule
+        translated to processes: with a ``torch.distributed`` group of one
+        rank a device of the mesh, every real tenant is placed on a
+        ``DeviceMesh`` of the model axis over the ranks (the device type
+        its tenants run on; one data shard), rank 0 leading
+        (:class:`RankControl`).  Without a group the
+        mesh stays logical (sim builds, the CPU, one card), and the ledger
+        keeps the accounts either way.  Real CUDA tenants on a mesh that
+        the process's cards could hold, with no group, raise rather than
         serve from one card."""
         n = 1
         for s in self.sharded_mesh:
             n *= s
+        real = [tr for tr in self.tenants.values()
+                if hasattr(tr, "attach_mesh")]
+        world = process_group_size()
+        if n > 1 and real and world is not None:
+            if world != n:
+                raise ValueError(
+                    f"a mesh of {n} devices {self.sharded_mesh} under a "
+                    f"process group of {world} ranks: start one rank a "
+                    "device")
+            if len(self.sharded_mesh) == 2 and self.sharded_mesh[0] > 1:
+                raise NotImplementedError(
+                    f"placing a mesh of {self.sharded_mesh[0]} data shards "
+                    "across ranks is not ported; see ROADMAP A13")
+            for tr in real:  # before any rank builds a group
+                tr.check_placeable(n)
+            from repro_torch.launch.mesh import make_mesh
+            # One data shard: a mesh of the model axis alone (DTensor's
+            # rules would split tensors over a data dim of size 1).
+            self.physical_mesh = make_mesh((n,), ("model",),
+                                           real[0].device.type)
+            self.control = RankControl()
+            for tr in real:
+                tr.attach_mesh(self.physical_mesh, self.control)
+            return
         cuda = [name for name, tr in self.tenants.items()
                 if getattr(getattr(tr, "device", None), "type", None)
                 == "cuda"]
         if n > 1 and cuda and torch.cuda.device_count() >= n:
-            raise NotImplementedError(
-                f"tensor-parallel placement of {', '.join(cuda)} across "
-                f"{n} cards (mesh {self.sharded_mesh}) is not ported; see "
-                "ROADMAP A13")
+            raise RuntimeError(
+                f"placing {', '.join(cuda)} across {n} cards (mesh "
+                f"{self.sharded_mesh}) needs one process a card under a "
+                "torch.distributed group: start them with `python -m "
+                f"repro_torch.launch.serve --sharded-mesh {n} --device "
+                "cuda`, or initialise the group in each and build the "
+                "server on every rank")
+
+    @property
+    def is_worker(self) -> bool:
+        """A rank other than 0 of a placed server: it runs
+        :meth:`run_worker`, not the engine."""
+        return self.control is not None and not self.control.leads
+
+    def run_worker(self) -> None:
+        """On a rank other than 0: repeat rank 0's calls of the placed
+        tenants until rank 0's :meth:`close`."""
+        if not self.is_worker:
+            raise RuntimeError("run_worker: not a worker rank of a placed "
+                               "server")
+        self.control.serve(self.tenants)
+        self._detach_control()
 
     def _reshard_tenant(self, app: str) -> None:
         """Elastic-plan hook: re-place a tenant's resident buffers after
@@ -707,9 +921,21 @@ class EdgeServer:
                 v.size_mb, n, fracs[app]))
 
     def close(self) -> None:
-        """Drain and shut down the background staging worker."""
+        """Drain and shut down the background staging worker; rank 0 of a
+        placed server then releases the other ranks."""
         if self.loader is not None:
             self.loader.close()
+        if self.control is not None and self.control.leads:
+            self.control.stop()
+            self._detach_control()
+
+    def _detach_control(self) -> None:
+        """The runtimes stay placed, and from here on each rank's calls
+        run on that rank alone (every rank calls them, as at start)."""
+        for tr in self.tenants.values():
+            if getattr(tr, "ctl", None) is self.control:
+                tr.ctl = None
+        self.control = None
 
     # ------------------------------------------------------------------
     def _predict_time(self, name: str, predictor) -> float:

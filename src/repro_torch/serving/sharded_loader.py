@@ -39,9 +39,11 @@ Physical staging: per-shard ops ride worker-per-device pools (the
 class's single staging channel, so device mutations keep landing in
 accounting order.  The default per-shard op is a no-op hook, and the
 per-device workers touch no CUDA state: ``TenantRuntime.set_variant``
-moves whole variants at commit, on the card through the base channel's
-pinned host → copy-stream path.  The mesh is logical: the port places no
-tensor-parallel shards across cards (ROADMAP A13).
+moves the variant at commit, on the card through the base channel's
+pinned host → copy-stream path.  Without a process group the mesh is
+logical and the variant moves whole to the one card; on a mesh placed
+across ranks (one a device) each rank stages only its own shard's bytes
+of every leaf (``distributed.sharding.place_tree``).
 """
 from __future__ import annotations
 

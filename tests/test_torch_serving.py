@@ -200,28 +200,63 @@ class _CardTenant(tapi.SimTenant):
     device = torch.device("cuda")
 
 
-@pytest.mark.parametrize("cards,mesh,raises", [
-    (4, (4,), True), (8, (2, 4), True), (1, (4,), False), (3, (4,), False),
-    (4, (1,), False)])
+class _PlaceableCardTenant(_CardTenant):
+    """A card tenant that records the mesh it is placed on."""
+    placed_on = None
+
+    def check_placeable(self, model_size=None):
+        pass
+
+    def attach_mesh(self, mesh, ctl=None):
+        self.placed_on = mesh
+
+
+@pytest.mark.parametrize("cards,mesh,world,expect", [
+    (4, (4,), None, "raise"), (8, (2, 4), None, "raise"),
+    (1, (4,), None, "logical"), (3, (4,), None, "logical"),
+    (4, (1,), None, "logical"), (4, (4,), 4, "place"),
+    (8, (1, 8), 8, "place"), (1, (2,), 2, "place"),
+    (4, (4,), 2, "mismatch"), (8, (2, 4), 8, "data")])
 def test_multi_card_mesh_raises_rather_than_serving_from_one_card(
-        monkeypatch, cards, mesh, raises):
-    """A sharded mesh that the process's cards could hold, with tenants on
-    the card, needs tensor-parallel placement across the cards, which the
-    port lacks: ``start`` raises naming the ROADMAP item.  With fewer
-    cards than the mesh (one H100 and a (4,) mesh) placement is skipped,
-    as the reference skips it, and the ledger keeps the accounts."""
+        monkeypatch, cards, mesh, world, expect):
+    """The reference's placement rule, translated to processes: under a
+    ``torch.distributed`` group with a rank for each device of the mesh
+    every real tenant is placed on a ``DeviceMesh`` of the model axis,
+    rank 0 leading (a mesh of several data shards is not placed yet); without a group the mesh stays logical (one H100 and a (4,)
+    mesh), and the ledger keeps the accounts either way.  Tenants on the
+    card, a mesh the process's cards could hold and no group: ``start``
+    raises, saying how to start one process a card, rather than serve
+    from one card.  A group of another size than the mesh is refused."""
     from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as LM
+    from repro_torch.serving import server as S
 
     monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.setattr(S, "process_group_size", lambda: world)
+    monkeypatch.setattr(LM, "make_mesh",
+                        lambda shape, axes, device: (shape, axes, device))
+    monkeypatch.setattr(S, "RankControl", lambda: "control")
     srv = TServer(budget_mb=1.0, sharded_mesh=mesh, device="cpu")
-    srv.register_tenant("tinyllama-1.1b", _CardTenant(
-        "tinyllama-1.1b", get_config("tinyllama-1.1b", reduced=True)))
-    if raises:
-        with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+    tenant = _PlaceableCardTenant(
+        "tinyllama-1.1b", get_config("tinyllama-1.1b", reduced=True))
+    srv.register_tenant("tinyllama-1.1b", tenant)
+    errors = {"raise": (RuntimeError, "one process a card"),
+              "mismatch": (ValueError, "one rank a device"),
+              "data": (NotImplementedError, "data shards")}
+    if expect in errors:
+        err, match = errors[expect]
+        with pytest.raises(err, match=match):
             srv.start()
         return
     srv.start()
     assert srv.manager.state.devices.n_devices == int(np.prod(mesh))
+    if expect == "place":  # one data shard: the model axis alone
+        assert tenant.placed_on == ((mesh[-1],), ("model",), "cuda")
+        assert srv.physical_mesh == tenant.placed_on
+        assert srv.control == "control"
+        srv.control = None  # a stub: nothing to release
+    else:
+        assert tenant.placed_on is None and srv.physical_mesh is None
     srv.close()
 
 
