@@ -139,7 +139,8 @@
    meta tokens; gemma2 2 layers, 1 x 4200) take one step on the card and
    on the host from the same weights: loss, gradient norm, gradients and
    params held to PERF.md section 2's bf16 rule (the host's steps run in
-   a child process started before phase 2, beside the card's phases).  A
+   a child process started before phase 2, beside the card's phases;
+   these checks run after phase 13, when the child is done).  A
    child process runs the cut tinyllama through ``run_supervised`` with a
    failure at step 3 under deterministic algorithms: its final state
    bit-equal to an unbroken run's.
@@ -147,7 +148,8 @@
    tinyllama-1.1b and mamba2-780m, the ``train_4k`` cell on the 16 x 16
    production mesh (pure data parallelism: every mesh axis a data axis,
    the f32 state ZeRO-sharded), first its dry-run on ``meta`` tensors
-   (``repro_torch.launch.dryrun.run_cell``: FLOPs, bytes and the
+   (``repro_torch.launch.dryrun.run_cell(placed=False)``, the unplaced
+   program the card runs here: FLOPs, bytes and the
    roofline a device, the argument bytes a device from the spec trees),
    then ``build_cell``'s own step function on the card at one device's
    share of the batch (256 rows / 256 devices = 1 x 4096 tokens;
@@ -180,10 +182,31 @@
    zeroed before the serving run, read after the timed runs) at its
    local shapes (its share of the query and KV heads).  Prints each
    rank's ``generate`` walls beside the card.
-13. Prints the kernels as one JSON line (launches summed over the main
+13. ZeRO data-parallel training on a placed state: ZERO_RANKS processes
+   spawned on the one card (gloo on CUDA tensors) place tinyllama-1.1b's
+   and mamba2-780m's f32 states at full width and depth (seed 0) on a
+   ("data",) mesh with ``place_state`` and train them with
+   ``make_train_step`` (bf16 compute, remat, z-loss 1e-4), each rank on
+   its own row of ZERO_SEQ tokens: one untimed step, then ZERO_STEPS
+   timed.  Each rank's state bytes within 1% of the spec tree's a
+   device; every rank launched the four training kernels through their
+   wrappers (counts zeroed before the first model, read after the last
+   timed step); step 1's loss, gradient norm and, leaf by leaf, its
+   gradient (the first moment), params and update held to one process's
+   plain step on the whole batch from the same weights by PERF.md
+   section 2's bf16 rule, each leaf whole (each rank in turn runs the
+   plain step and sums its blocks' squares; one all-reduce adds the
+   ranks' sums).  Prints each rank's step seconds, bytes a step by
+   collective kind and the time in gloo.
+14. Prints the kernels as one JSON line (launches summed over the main
    path's, the families' and the elastic A/B's serving runs, the
-   training runs, the train cell and the placed run, and by path), the
-   card, and last ``{"ok": true, "device": {...}}``.
+   training runs, the train cell, the placed run and the ZeRO run, and
+   by path), the card, and last ``{"ok": true, "device": {...}}``.
+
+The host's side of the checks of phases 4 to 8 (their plain versions on
+the host and the comparisons) runs on a worker thread beside the card's
+work (``HostChecks``); the ends of phases 7 and 8 wait for it and print
+its lines in order.
 
 Any failure raises and exits non-zero; without a CUDA device, or without
 the repository's ``src/repro_torch`` beside this file, it exits non-zero
@@ -197,6 +220,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -312,6 +336,7 @@ SSD_BWD_ROWS = ((SSM_TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ),
 CELL_ARCHS = (TRAIN_ARCH, SSM_TRAIN_ARCH)
 CELL_SHAPE = "train_4k"
 CELL_STEPS = 3  # timed, after one untimed
+HOST_NICE = 10  # the worker thread of phases 4-8's host checks
 HOST_THREADS = 4  # of the card machine's 8 cores: the host's cut steps
 
 # Phase 12: tenants placed across ranks.  PLACED_RANKS processes share the
@@ -327,6 +352,17 @@ PLACED_BYTES_TOL = 0.06  # tests/test_elastic_serving.py's placement check
 # tinyllama's row-parallel down projection (K = d_ff 5632, groups of 128)
 # cut as an 8-card mesh cuts it: 704 rows a shard, 5.5 groups.
 QMM_SHARDS = 8
+# Phase 13: ZeRO data-parallel training on a placed state.  ZERO_RANKS
+# processes share the one card (gloo on CUDA tensors), a ("data",) mesh;
+# each of ZERO_ARCHS at full width and depth trains on ZERO_SEQ tokens a
+# rank (one row), one untimed step then ZERO_STEPS timed, the first held
+# to one process's plain step on the whole batch.
+ZERO_RANKS = 2
+ZERO_ARCHS = (TRAIN_ARCH, SSM_TRAIN_ARCH)
+ZERO_SEQ = 1024
+ZERO_STEPS = 2
+ZERO_BYTES_TOL = 0.01  # a rank's state bytes against its spec tree's
+ZERO_WELL = 0.1  # |gradient| / its leaf's rms above which Adam's step holds
 
 # The main path's kernels by the profiler's names: the substrings of each
 # wrapper's kernel (the decode kernels' split pass, dense or paged).
@@ -368,7 +404,8 @@ def time_ms(fn, iters: int = 50, warmup: int = 3) -> float:
 
 
 def compare(what: str, got, want, rtol: float, atol: float) -> float:
-    torch.cuda.synchronize()
+    if got.is_cuda or want.is_cuda:
+        torch.cuda.synchronize()
     got, want = got.float(), want.float()
     if got.shape != want.shape or not torch.isfinite(got).all():
         raise AssertionError(f"{what}: shape {tuple(got.shape)} vs "
@@ -1232,6 +1269,63 @@ def evict_all(srv) -> None:
         tr.pool_ledger = None
 
 
+class HostChecks:
+    """The host's side of the card-against-host checks of phases 4 to 8,
+    run on one worker thread while this thread drives the card on.  A job
+    (the plain version on the host and its comparison: it returns its
+    line or raises) is queued with the card's results already copied to
+    the host; :meth:`join` prints the lines in the order the jobs were
+    queued and raises the first failure.  Jobs run under
+    ``inference_mode`` (grad mode is a thread's own) at nice HOST_NICE,
+    so that the thread driving the card keeps its core."""
+
+    def __init__(self):
+        self.pool, self.jobs = None, []
+
+    @staticmethod
+    def _lower() -> None:
+        os.setpriority(os.PRIO_PROCESS, threading.get_native_id(), HOST_NICE)
+
+    def submit(self, fn, *args) -> None:
+        from concurrent.futures import ThreadPoolExecutor
+
+        if self.pool is None:
+            self.pool = ThreadPoolExecutor(1, initializer=self._lower)
+
+        def job():
+            with torch.inference_mode():
+                return fn(*args)
+        self.jobs.append(self.pool.submit(job))
+
+    def join(self, what: str) -> None:
+        t0 = time.perf_counter()
+        jobs, self.jobs = self.jobs, []
+        try:
+            for job in jobs:
+                print(job.result())
+        finally:
+            for job in jobs:
+                job.cancel()
+        print(f"{what}: waited {time.perf_counter() - t0:.1f} s for the "
+              f"host's side of {len(jobs)} checks")
+
+    def cancel(self) -> None:
+        for job in self.jobs:
+            job.cancel()
+
+
+HOST_CHECKS = HostChecks()
+
+
+def this_thread(fn, other):
+    """``fn`` on the calling thread and ``other`` on any other: a module
+    function swapped for a card check while HOST_CHECKS' worker may run
+    the same model on the host."""
+    me = threading.get_ident()
+    return lambda *a, **kw: (fn if threading.get_ident() == me
+                             else other)(*a, **kw)
+
+
 def hold_to_host(what: str, got, plain, host_params, bits: int) -> str:
     """The card's result ``got`` (moved to the host) against ``plain(
     host_params)``, the same function through the plain versions on the
@@ -1268,8 +1362,9 @@ def hold_to_host(what: str, got, plain, host_params, bits: int) -> str:
 def check_outputs(tr) -> None:
     """The served model on the card against the plain versions on the
     host, for a small prompt batch: prefill logits (relative L2 error) and,
-    for the 8-bit variant, greedy tokens; then, per variant, a full batch's
-    ``generate`` eagerly and as a graph (:func:`check_graph`)."""
+    for the 8-bit variant, greedy tokens (the host's side queued on
+    HOST_CHECKS, :func:`outputs_on_host`); then, per variant, a full
+    batch's ``generate`` eagerly and as a graph (:func:`check_graph`)."""
     from repro_torch.models import transformer as T
     from repro_torch.serving.server import _generate_tokens
 
@@ -1282,25 +1377,32 @@ def check_outputs(tr) -> None:
         with torch.inference_mode():
             got, _ = T.prefill(cfg, tr.device_params, {"tokens": dev_tok},
                                max_len=12)
-            line = hold_to_host(
-                f"check {cfg.name} {bits}-bit: prefill logits", got.cpu(),
-                lambda params: T.prefill(
-                    cfg, params, {"tokens": torch.from_numpy(prompts)},
-                    max_len=12)[0], tr.host[bits], bits)
-            if bits == 8:
-                ids = _generate_tokens(cfg, tr.device_params, dev_tok,
-                                       max_new=4, max_len=12).cpu()
-                ids_ref = _generate_tokens(cfg, tr.host[bits],
-                                           torch.from_numpy(prompts),
-                                           max_new=4, max_len=12)
-                if not torch.equal(ids, ids_ref):
-                    raise AssertionError(f"{cfg.name}: greedy ids differ: "
-                                         f"{ids.tolist()} vs "
-                                         f"{ids_ref.tolist()}")
-                line += f"; greedy ids {ids.tolist()} equal"
-        print(line)
+            ids = (_generate_tokens(cfg, tr.device_params, dev_tok,
+                                    max_new=4, max_len=12).cpu()
+                   if bits == 8 else None)
+        HOST_CHECKS.submit(outputs_on_host, cfg, tr.host[bits], bits,
+                           torch.from_numpy(prompts), got.cpu(), ids)
         check_graph(tr, bits)
     tr.set_variant(None)
+
+
+def outputs_on_host(cfg, host_params, bits, tokens, got, ids) -> str:
+    """The host's side of :func:`check_outputs` for one variant."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.server import _generate_tokens
+
+    line = hold_to_host(
+        f"check {cfg.name} {bits}-bit: prefill logits", got,
+        lambda params: T.prefill(cfg, params, {"tokens": tokens},
+                                 max_len=12)[0], host_params, bits)
+    if ids is not None:
+        ids_ref = _generate_tokens(cfg, host_params, tokens, max_new=4,
+                                   max_len=12)
+        if not torch.equal(ids, ids_ref):
+            raise AssertionError(f"{cfg.name}: greedy ids differ: "
+                                 f"{ids.tolist()} vs {ids_ref.tolist()}")
+        line += f"; greedy ids {ids.tolist()} equal"
+    return line
 
 
 def unprofiled_walls(fn) -> list:
@@ -1537,7 +1639,7 @@ def replay(srv, ops, ref) -> tuple:
         def run(fn):
             cache = {n: t.clone() for n, t in cache0.items()}
             logits, out, ids = logits0, [], []
-            ops.decode_attention = fn
+            ops.decode_attention = this_thread(fn, dense_fn)
             try:
                 with torch.inference_mode():
                     for _ in range(REPLAY_STEPS):
@@ -1760,9 +1862,9 @@ def check_cache_layouts(srv) -> None:
 
 def check_cache_layout(tr, bits: int, mode: str, kw: dict,
                        prompts) -> None:
-    """One tenant and cache layout of :func:`check_cache_layouts`."""
-    from repro_torch.quant.quantize import tree_map
-
+    """One tenant and cache layout of :func:`check_cache_layouts`: the
+    card's run here, the host's side queued on HOST_CHECKS
+    (:func:`cache_layout_on_host`)."""
     cfg = tr.cfg
     t0 = time.perf_counter()
     got, ids, states = card_decode(cfg, tr.device_params, prompts.cuda(),
@@ -1770,9 +1872,18 @@ def check_cache_layout(tr, bits: int, mode: str, kw: dict,
     t_card = time.perf_counter() - t0
     if not torch.isfinite(got).all():
         raise AssertionError(f"{cfg.name} {mode}: non-finite logits")
+    HOST_CHECKS.submit(cache_layout_on_host, cfg, tr.host[bits], bits, mode,
+                       kw, prompts, got, ids, states, t_card)
+
+
+def cache_layout_on_host(cfg, host_params, bits: int, mode: str, kw: dict,
+                         prompts, got, ids, states, t_card: float) -> str:
+    """The host's side of :func:`check_cache_layout`."""
+    from repro_torch.quant.quantize import tree_map
+
     t0 = time.perf_counter()
     want, host_ids, cache, written = host_decode(
-        cfg, tr.host[bits], prompts, ids, states, **kw)
+        cfg, host_params, prompts, ids, states, **kw)
     t_host = time.perf_counter() - t0
     # The prefill's whole cache, then the token each step wrote (the
     # card's at the step's own position).
@@ -1799,7 +1910,7 @@ def check_cache_layout(tr, bits: int, mode: str, kw: dict,
         # evaluated in f32 on the host.
         exact, *_ = host_decode(
             cfg, tree_map(lambda _, t: t.float() if
-                          t.is_floating_point() else t, tr.host[16]),
+                          t.is_floating_point() else t, host_params),
             prompts, ids, states, **kw)
         card_err = [rel_l2(g, e) for g, e in zip(got, exact)]
         plain_err = [rel_l2(w, e) for w, e in zip(want, exact)]
@@ -1812,7 +1923,7 @@ def check_cache_layout(tr, bits: int, mode: str, kw: dict,
             raise AssertionError(line)
     else:
         line += f" (tol {TOL[torch.bfloat16]})"
-    print(line)
+    return line
 
 
 # ---------------------------------------------------------------------------
@@ -1821,7 +1932,8 @@ def check_cache_layout(tr, bits: int, mode: str, kw: dict,
 def check_forward(srv, kernels) -> None:
     """For each tenant, both variants on the card at once: ``forward`` of
     FORWARD_BATCH prompts, every position's logits held to ``forward``
-    through the plain versions on the host (:func:`hold_to_host`), its
+    through the plain versions on the host (:func:`hold_to_host`, queued
+    on HOST_CHECKS), its
     last position to the card's ``prefill`` logits for the same prompts
     (relative l2 within 2e-4 at 8 bits, 3e-2 at 16: the two card paths
     agree), the path's kernels launched by it; then ``fidelity`` of the
@@ -1844,10 +1956,11 @@ def check_forward(srv, kernels) -> None:
                     fn.launches = 0
                 full = T.forward(cfg, params[bits], batch)
                 calls = {k: fn.launches for k, fn in kernels.items()}
-                line += " " + hold_to_host(
+                HOST_CHECKS.submit(
+                    hold_to_host, f"forward {name} {FORWARD_BATCH}: "
                     f"{bits}-bit logits against the host's", full.cpu(),
-                    lambda p: T.forward(cfg, p, {"tokens": host_tokens}),
-                    tr.host[bits], bits)
+                    lambda p, cfg=cfg, tokens=host_tokens: T.forward(
+                        cfg, p, {"tokens": tokens}), tr.host[bits], bits)
                 last, _ = T.prefill(cfg, params[bits], batch,
                                     max_len=FORWARD_BATCH[1])
                 want = (FORWARD_BATCH[0], FORWARD_BATCH[1],
@@ -1859,8 +1972,8 @@ def check_forward(srv, kernels) -> None:
                 need = (["quant_matmul"] * (bits == 8)
                         + (["flash_attention"] if cfg.uses_attention
                            else ["ssd_scan"]))
-                line += (f", last position vs the card's prefill rel L2 "
-                         f"{rel:.3g} (tol {tol:g}), calls {calls};")
+                line += (f" {bits}-bit: last position vs the card's prefill "
+                         f"rel L2 {rel:.3g} (tol {tol:g}), calls {calls};")
                 if rel > tol or not all(calls[k] for k in need):
                     raise AssertionError(line)
             fid = fidelity(cfg, params[16], params[8], batch, T.forward)
@@ -1903,7 +2016,8 @@ def serve_families(kernels) -> dict:
     Every request served, the budget held at every event with the pools
     counted, each tenant's charge equal to its pool after every batch and
     above its level before a capture; then eviction (pools back to 0),
-    and per tenant and variant the host checks and ``check_graph``."""
+    and per tenant and variant the host checks (queued on HOST_CHECKS,
+    joined at the end) and ``check_graph``."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving.server import pool_bytes
@@ -1969,21 +2083,27 @@ def serve_families(kernels) -> dict:
         if launches[name] <= 0 or calls[name] <= 0:
             raise AssertionError(f"{name} was not launched by the families")
     evict_all(srv)
+    # hymba's long prompt first: its host side is the longest of the
+    # queue that the card's checks below run beside.
+    t0 = time.perf_counter()
+    check_hymba_long(srv.tenants["hymba-1.5b"])
+    print(f"hymba long prefill on the card in {time.perf_counter() - t0:.1f}"
+          " s")
     for name in FAMILY_ARCHS:
         t0 = time.perf_counter()
         check_family_outputs(srv.tenants[name])
-        print(f"checked {name} in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    check_hymba_long(srv.tenants["hymba-1.5b"])
-    print(f"hymba long prefill checked in {time.perf_counter() - t0:.1f} s")
+        print(f"checked {name} on the card in "
+              f"{time.perf_counter() - t0:.1f} s")
+    HOST_CHECKS.join("families")
     return {k: launches[k] for k in kernels}
 
 
 def check_family_outputs(tr) -> None:
     """Per variant: the card's prefill logits and one decode step's logits
     (from the card's cache) held to the host's plain versions by
-    ``hold_to_host``; then ``check_graph``.  (No host run of the whole
-    greedy loop: at olmoe's size each host pass takes seconds.)"""
+    ``hold_to_host`` (queued on HOST_CHECKS, :func:`family_outputs_on_host`);
+    then ``check_graph``.  (No host run of the whole greedy loop: at
+    olmoe's size each host pass takes seconds.)"""
     from repro_torch.models import transformer as T
 
     cfg = tr.cfg
@@ -1999,20 +2119,28 @@ def check_family_outputs(tr) -> None:
             tok = T.greedy_token(cfg, logits)
             before = {n: t.to("cpu", copy=True) for n, t in cache.items()}
             step, _ = T.decode_step(cfg, tr.device_params, cache, tok)
-            lines = [hold_to_host(
-                f"check {cfg.name} {bits}-bit: prefill logits", logits.cpu(),
-                lambda p: T.prefill(cfg, p, {"tokens": host_tok},
-                                    max_len=12)[0], tr.host[bits], bits),
-                hold_to_host(
-                    "decode-step logits from the card's cache", step.cpu(),
-                    lambda p: T.decode_step(
-                        cfg, p, {n: t.clone() for n, t in before.items()},
-                        tok.cpu())[0], tr.host[bits], bits)]
-        print("; ".join(lines))
-        del cache, before
+        HOST_CHECKS.submit(family_outputs_on_host, cfg, tr.host[bits], bits,
+                           host_tok, logits.cpu(), before, tok.cpu(),
+                           step.cpu())
+        del cache, logits, step
         check_graph(tr, bits)
     tr.set_variant(None)
     torch.cuda.empty_cache()
+
+
+def family_outputs_on_host(cfg, host_params, bits, tokens, logits, before,
+                           tok, step) -> str:
+    """The host's side of :func:`check_family_outputs` for one variant."""
+    from repro_torch.models import transformer as T
+
+    return "; ".join([
+        hold_to_host(f"check {cfg.name} {bits}-bit: prefill logits", logits,
+                     lambda p: T.prefill(cfg, p, {"tokens": tokens},
+                                         max_len=12)[0], host_params, bits),
+        hold_to_host("decode-step logits from the card's cache", step,
+                     lambda p: T.decode_step(
+                         cfg, p, {n: t.clone() for n, t in before.items()},
+                         tok)[0], host_params, bits)])
 
 
 def check_hymba_long(tr) -> None:
@@ -2023,7 +2151,8 @@ def check_hymba_long(tr) -> None:
     l2 within 2e-4; the same forward on the card with the prefix dropped
     from the attention must miss there by more than that, so the check
     cannot pass a kernel that ignores the prefix.  The card's prefill
-    logits equal its forward's last position."""
+    logits equal its forward's last position.  The host's forward and the
+    comparisons are queued on HOST_CHECKS (:func:`hymba_long_on_host`)."""
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
 
@@ -2036,18 +2165,30 @@ def check_hymba_long(tr) -> None:
         card = T.forward(cfg, tr.device_params, {"tokens": tokens.cuda()})
         last, _ = T.prefill(cfg, tr.device_params, {"tokens": tokens.cuda()},
                             max_len=HYMBA_LONG)
-        ops.flash_attention = lambda *a, prefix=0, **kw: flash(*a, **kw)
+        ops.flash_attention = this_thread(
+            lambda *a, prefix=0, **kw: flash(*a, **kw), flash)
         try:
             blind = T.forward(cfg, tr.device_params,
                               {"tokens": tokens.cuda()})[0].cpu()
         finally:
             ops.flash_attention = flash
-        t0 = time.perf_counter()
-        host = T.forward(cfg, tr.host[8], {"tokens": tokens})[0]
-        t_host = time.perf_counter() - t0
+        rel_last = rel_l2(card[:, -1].cpu(), last.cpu())
+        card = card[0].cpu()
+    HOST_CHECKS.submit(hymba_long_on_host, cfg, tr.host[8], tokens, card,
+                       blind, rel_last)
+    tr.set_variant(None)
+    torch.cuda.empty_cache()
+
+
+def hymba_long_on_host(cfg, host_params, tokens, card, blind,
+                       rel_last: float) -> str:
+    """The host's side of :func:`check_hymba_long`."""
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    host = T.forward(cfg, host_params, {"tokens": tokens})[0]
+    t_host = time.perf_counter() - t0
     past = slice(cfg.sliding_window + cfg.num_meta_tokens, None)
-    rel_last = rel_l2(card[:, -1].cpu(), last.cpu())
-    card = card[0].cpu()
     rel_all, rel_past = rel_l2(card, host), rel_l2(card[past], host[past])
     rel_blind = rel_l2(blind[past], host[past])
     line = (f"hymba long prefill, 1 x {HYMBA_LONG} tokens ({card.shape[0]} "
@@ -2055,11 +2196,9 @@ def check_hymba_long(tr) -> None:
             f"s): rel L2 err {rel_all:.3g}, past the window {rel_past:.3g} "
             f"(tol {QMM_TOL}); without the prefix {rel_blind:.3g} there; "
             f"prefill vs forward's last row {rel_last:.3g}")
-    print(line)
     if max(rel_all, rel_past, rel_last) > QMM_TOL or rel_blind <= QMM_TOL:
         raise AssertionError(line)
-    tr.set_variant(None)
-    torch.cuda.empty_cache()
+    return line
 
 
 def cut_variants(arch: str, layers: int, precisions):
@@ -3181,10 +3320,10 @@ def recovery_child() -> None:
     print(json.dumps({"ok": bool(ok), "text": text}))
 
 
-def check_training(ref, g, cfgs, kernels, host) -> tuple:
-    """Phase 10: training on the card; ``host`` is ``start_host_cuts``'s.
-    Returns ({kernel: its row} of the two backward kernels, the training
-    runs' wrapper launches summed)."""
+def check_training(ref, g, cfgs, kernels) -> tuple:
+    """Phase 10 but its depth cuts (:func:`check_train_cuts`): training
+    on the card.  Returns ({kernel: its row} of the two backward kernels,
+    the training runs' wrapper launches summed)."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd
     from repro_torch.kernels.ssd_scan import ssd_scan_bwd
 
@@ -3200,12 +3339,18 @@ def check_training(ref, g, cfgs, kernels, host) -> tuple:
         for k, n in train_main(kernels, bwds, arch).items():
             calls[k] = calls.get(k, 0) + n
         print(f"training run {arch} took {time.perf_counter() - t0:.1f} s")
+    check_recovery()
+    return rows, calls
+
+
+def check_train_cuts(host) -> None:
+    """Phase 10 (d), run after phase 13 so that the host's child has the
+    CPU of the phases before it: each of HOST_CUTS by
+    :func:`check_train_cut`."""
     t0 = time.perf_counter()
     for cut in HOST_CUTS:
         check_train_cut(cut, host)
     print(f"cut-depth checks took {time.perf_counter() - t0:.1f} s")
-    check_recovery()
-    return rows, calls
 
 
 # ---------------------------------------------------------------------------
@@ -3213,7 +3358,8 @@ def check_training(ref, g, cfgs, kernels, host) -> tuple:
 # ---------------------------------------------------------------------------
 def cell_step(kernels, bwds, arch) -> dict:
     """``arch``'s ``train_4k`` cell on the production mesh: its dry-run on
-    ``meta`` (``run_cell``), then the cell's own step function
+    ``meta`` (``run_cell(placed=False)``: the unplaced program this step
+    runs, divided by the chips), then the cell's own step function
     (``build_cell``'s ``fn``) on the card at one device's share of the
     batch, at full width and depth from ``init_state``'s state on the
     card: one untimed step, then CELL_STEPS timed.  Gates: the cell is
@@ -3237,7 +3383,10 @@ def cell_step(kernels, bwds, arch) -> dict:
     mesh = make_production_mesh()
     seq, gbatch, _ = SHAPE_SPECS[CELL_SHAPE]
     t0 = time.perf_counter()
-    dry = run_cell(arch, CELL_SHAPE, probe=False, verbose=False)
+    # Priced as the program this step runs: build_cell's on the logical
+    # mesh, unplaced (the placed ZeRO program is phase 13's).
+    dry = run_cell(arch, CELL_SHAPE, probe=False, verbose=False,
+                   placed=False)
     dry_s = time.perf_counter() - t0
     if dry["status"] != "OK" or not dry["dp_only"]:
         raise AssertionError(f"cell {arch}: {dry['status']} dp_only="
@@ -3300,7 +3449,8 @@ def cell_step(kernels, bwds, arch) -> dict:
           f"model_flops / {chips} = {per_dev / 1e12:.3f} TFLOP a device, "
           f"{per_dev / (med / 1e3) / peak_ops(torch.bfloat16):.1%} of "
           f"{peak_ops(torch.bfloat16) / 1e12:.0f} TFLOP/s; dry-run on meta "
-          f"({dry_s:.1f} s) a device: compute_s {t['compute_s'] * 1e3:.2f} "
+          f"({dry_s:.1f} s) of this unplaced program, a device's share: "
+          f"compute_s {t['compute_s'] * 1e3:.2f} "
           f"ms, memory_s {t['memory_s'] * 1e3:.2f} ms (each kernel's "
           f"inputs and outputs, the other operations' operands and "
           f"results), bound_s {t['bound_s'] * 1e3:.2f} ms "
@@ -3617,6 +3767,413 @@ def check_placed(world: int = PLACED_RANKS) -> dict:
     return total
 
 
+class GlooClock:
+    """Times and sizes every collective the ZeRO step calls on this rank:
+    ``torch.distributed``'s three entry points wrapped, the card
+    synchronized before and after each (the time in gloo, which copies
+    CUDA tensors through the host), each call's output recorded as a
+    ``roofline.Collective`` (bytes by kind, wire bytes by the ring
+    formulas)."""
+
+    KINDS = {"all_gather_into_tensor": "all-gather",
+             "reduce_scatter_tensor": "reduce-scatter",
+             "all_reduce": "all-reduce"}
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        self.dist, self.orig = dist, {}
+        self.reset()
+        for name, kind in self.KINDS.items():
+            self.orig[name] = getattr(dist, name)
+            setattr(dist, name, self._wrap(name, kind))
+
+    def reset(self):
+        self.secs, self.records = 0.0, []
+
+    def _wrap(self, name, kind):
+        from repro_torch.launch.roofline import Collective
+
+        fn = self.orig[name]
+
+        def call(out, *args, group=None, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(out, *args, group=group, **kw)
+            torch.cuda.synchronize()
+            self.secs += time.perf_counter() - t0
+            self.records.append(Collective(
+                kind, out.dtype, tuple(out.shape),
+                self.dist.get_world_size(group)))
+            return res
+        return call
+
+    def summary(self, steps: int) -> dict:
+        """Per step: the time in gloo, and bytes and wire bytes by kind."""
+        from repro_torch.launch.roofline import collective_wire_bytes
+
+        out = {"gloo_s": self.secs / steps, "calls": len(self.records)
+               / steps, "bytes": {}, "wire_bytes": {}}
+        for rec in self.records:
+            n = rec.dtype.itemsize * math.prod(rec.shape)
+            out["bytes"][rec.kind] = out["bytes"].get(rec.kind, 0) + n / steps
+        for k, v in collective_wire_bytes(self.records).items():
+            if v:
+                out["wire_bytes"][k] = v / steps
+        return out
+
+
+def zero_rank(rank: int, root: str, world: int) -> None:
+    """One rank of phase 13 (a spawned process): the group over gloo
+    (file rendezvous under ``root``), then :func:`zero_run`; rank 0
+    writes its result to ``root``/result.json."""
+    import datetime
+    import faulthandler
+
+    import torch.distributed as dist
+
+    faulthandler.enable()
+    sys.path.insert(0, str(SRC))
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    dist.init_process_group("gloo", init_method=f"file://{root}/rdzv",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=600))
+    try:
+        out = zero_run(rank, world)
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        Path(root, "result.json").write_text(json.dumps(out))
+
+
+def host_rss_gb() -> float:
+    """The peak resident host memory of this process, GB (a spawned
+    process inherits its parent's)."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+
+
+def release_memory() -> None:
+    """The card's cached blocks and the pinned host blocks (gloo stages
+    CUDA tensors through them) given back."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    getattr(torch._C, "_host_emptyCache", lambda: None)()
+
+
+def zero_run(rank: int, world: int) -> dict:
+    """Phase 13 on one rank: each of ZERO_ARCHS at full width and depth,
+    its f32 state from seed 0 placed by ``place_state`` on a ("data",)
+    mesh of ``world`` ranks (each rank copying its own slice), trained by
+    ``make_train_step`` (bf16 compute, remat, z-loss) on the rank's row of
+    the synthetic stream's batch: step 1, held to one process's plain step
+    (:func:`zero_held`, every rank taking part), then ZERO_STEPS timed
+    steps.  Gates: the rank's state bytes within ZERO_BYTES_TOL of the
+    spec tree's bytes a device, losses finite."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.training import pytree
+    from repro_torch.training.data import DataConfig, SyntheticStream
+    from repro_torch.training.optim import AdamW
+    from repro_torch.training.train_step import init_state, make_train_step
+
+    fns = {"flash_attention": ops.flash_attention,
+           "flash_attention_bwd": flash_attention_bwd,
+           "ssd_scan": ops.ssd_scan, "ssd_scan_bwd": ssd_scan_bwd}
+    clock = GlooClock()
+    mesh = make_mesh((world,), ("data",), "cuda")
+    lm = SH.logical(mesh)
+    for f in fns.values():
+        f.launches = 0
+    runs, held = [], []
+    for arch in ZERO_ARCHS:
+        cfg = get_config(arch)
+        opt = AdamW(lr=1e-4)
+        t0 = time.perf_counter()
+        state = init_state(cfg, 0, opt, dtype=torch.float32, device="cuda")
+        sspecs = SH.state_specs(cfg, state, lm, pytree.tree_map(
+            lambda p: (None,) * p.dim(), state.params), dp_axes=("data",))
+        spec_bytes = [0.0]
+        SH.spec_map(lambda sp, t: spec_bytes.__setitem__(
+            0, spec_bytes[0] + t.numel() * t.element_size()
+            / SH._divisor(sp, lm)), sspecs, state)
+        placed = SH.place_state(state, mesh, sspecs)
+        del state
+        release_memory()
+        place_s = time.perf_counter() - t0
+        blocks = SH.local_nbytes(placed)
+        allocated = torch.cuda.memory_allocated()
+        if abs(blocks / spec_bytes[0] - 1) > ZERO_BYTES_TOL:
+            raise AssertionError(f"zero: {arch} rank {rank} holds {blocks} "
+                                 f"B, the spec tree {spec_bytes[0]:.0f} B")
+        ds = SyntheticStream(DataConfig(vocab_size=cfg.vocab_size,
+                                        seq_len=ZERO_SEQ,
+                                        global_batch=world))
+
+        def mine(s):
+            return {k: v[rank:rank + 1] for k, v in train_batch(ds, s)
+                    .items()}
+
+        step = make_train_step(cfg, opt, remat=True, z_loss=TRAIN_Z,
+                               dp_axes=("data",))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, m1 = step(placed, mine(0))
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        del placed
+        release_memory()
+        # The plain steps' kernel launches are the comparison's, not the
+        # ZeRO path's.
+        counts = {k: f.launches for k, f in fns.items()}
+        t0 = time.perf_counter()
+        rec = zero_held(arch, new, float(m1["loss"]),
+                        float(m1["grad_norm"]), rank, world)
+        held.append(dict(rec, secs=time.perf_counter() - t0))
+        for k, f in fns.items():
+            f.launches = counts[k]
+        release_memory()
+        torch.cuda.reset_peak_memory_stats()  # the timed steps' peak
+        clock.reset()
+        walls, losses = [], [float(m1["loss"])]
+        for s in range(1, ZERO_STEPS + 1):
+            batch = mine(s)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            new, m = step(new, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"zero: {arch} rank {rank} losses {losses}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        del new
+        release_memory()
+        runs.append(dict(arch=arch, place_s=place_s, first_s=first_s,
+                         step_s=walls, losses=losses, blocks=blocks,
+                         spec_bytes=spec_bytes[0], allocated=allocated,
+                         peak_gb=peak_gb,
+                         **clock.summary(ZERO_STEPS)))
+        dist.barrier()
+    counts = {k: f.launches for k, f in fns.items()}
+    every = [None] * world
+    dist.all_gather_object(every, (counts, runs))
+    return {"ranks": [{"launches": c, "runs": r} for c, r in every],
+            "held": held} if rank == 0 else {}
+
+
+def zero_held(arch: str, new, loss: float, grad_norm: float, rank: int,
+              world: int) -> dict:
+    """Step 1 of the ZeRO run (``new``: this rank's placed state after it;
+    its loss and gradient norm) held to one process's plain step on the
+    whole ``world`` x ZERO_SEQ batch from the same seed's weights, by
+    PERF.md section 2's bf16 rule: the loss, the gradient norm, and leaf
+    by leaf the gradient (the first moment after step 1: 1 - b1 times the
+    clipped gradient), the params and their update, each within 3e-2
+    relative, params and update compared away from their ill-conditioned
+    elements (where the plain gradient is within ZERO_WELL of its leaf's
+    root mean square of zero, Adam's first step, which moves every element
+    by about lr, can go either way); past it, no further from the plain
+    f32 step than 2x the plain bf16 step is (the f32 step runs only
+    then).  Each rank in turn runs the plain steps on the card and sums
+    each leaf's squares over its own blocks; one all-reduce adds the
+    ranks' sums, so every leaf is held whole and none is gathered.
+    Returns the leaf figures' worst, the leaves that took the f32 rule,
+    and every leaf together."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.training import pytree
+    from repro_torch.training.data import DataConfig, SyntheticStream
+    from repro_torch.training.optim import AdamW
+    from repro_torch.training.train_step import init_state, make_train_step
+
+    cfg = get_config(arch)
+    opt = AdamW(lr=1e-4)
+    batch = train_batch(SyntheticStream(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=ZERO_SEQ, global_batch=world)), 0)
+    paths = ["/".join(map(str, p)) for p, _ in
+             pytree.flatten_with_path(new.params)[0]]
+    like = pytree.leaves(new.params)  # every params leaf is as its mu is
+    got_mu = [SH.local_block(t) for t in pytree.leaves(new.opt.mu)]
+    got_p = [SH.local_block(t) for t in like]
+    # A leaf every rank holds whole counts once over the ranks' sums.
+    share = [1.0 if any(q.is_shard() for q in t.placements) else 1 / world
+             for t in like]
+
+    def block(whole, placed):
+        off, size = SH._local_box(tuple(whole.shape), placed.device_mesh,
+                                  placed.placements)
+        for d, (o, n) in enumerate(zip(off, size)):
+            if n != whole.shape[d]:
+                whole = whole.narrow(d, o, n)
+        return whole.clone()
+
+    def plain(compute_dtype):
+        """This rank's blocks of one process's plain step."""
+        state = init_state(cfg, 0, opt, dtype=torch.float32, device="cuda")
+        p0 = [block(t, q) for t, q in zip(pytree.leaves(state.params), like)]
+        after, m = make_train_step(cfg, opt, remat=True, z_loss=TRAIN_Z,
+                                   compute_dtype=compute_dtype)(state, batch)
+        del state
+        mu = pytree.leaves(after.opt.mu)
+        out = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                   p0=p0, rms=[t.square().mean().sqrt() for t in mu],
+                   mu=[block(t, q) for t, q in zip(mu, like)],
+                   params=[block(t, q) for t, q in
+                           zip(pytree.leaves(after.params), like)])
+        del after, m, mu
+        release_memory()
+        return out
+
+    def sq(x, keep=None):
+        x = x.float().square()
+        return float((x if keep is None else x * keep).sum(
+            dtype=torch.float64))
+
+    def in_turn(fn):
+        """``fn()``'s rows of sums on each rank in turn (one plain step on
+        the card at a time), added over the ranks."""
+        rows = None
+        for r in range(world):
+            if r == rank:
+                rows = torch.tensor(fn(), dtype=torch.float64)
+            dist.barrier()
+        dist.all_reduce(rows)
+        return rows
+
+    def ratio(num, den):
+        return math.sqrt(num / den) if den else 0.0 if not num else math.inf
+
+    want = keep = None
+
+    def first():
+        nonlocal want, keep
+        want = plain(torch.bfloat16)
+        keep = [m.abs() > ZERO_WELL * r for m, r in zip(want["mu"],
+                                                         want["rms"])]
+        return [[f * v for v in (
+            sq(g - w), sq(w), sq(p - q, k), sq(q, k), sq(q - p0, k),
+            float(k.sum()), k.numel())] for f, g, w, p, q, p0, k in zip(
+                share, got_mu, want["mu"], got_p, want["params"], want["p0"],
+                keep)]
+
+    rows = in_turn(first).tolist()
+    leaves = {kind: [ratio(r[0], r[1]) if kind == "grads" else ratio(
+        r[2], r[3] if kind == "params" else r[4]) for r in rows]
+        for kind in ("grads", "params", "update")}
+    tol = TOL[torch.bfloat16]
+    scalars = dict(loss=abs(loss - want["loss"]) / abs(want["loss"]),
+                   grad_norm=abs(grad_norm - want["grad_norm"])
+                   / want["grad_norm"])
+    total = [sum(r[i] for r in rows) for i in range(7)]
+    rec = dict(arch=arch, leaves=len(rows), **scalars,
+               grads=ratio(total[0], total[1]),
+               params=ratio(total[2], total[3]),
+               update=ratio(total[2], total[4]),
+               well_conditioned=total[5] / total[6],
+               worst={k: [paths[int(np.argmax(v))], max(v)]
+                      for k, v in leaves.items()})
+    past = [(k, i) for k, v in leaves.items() for i, x in enumerate(v)
+            if x > tol] + [(k, None) for k, x in scalars.items() if x > tol]
+    need = torch.tensor([float(bool(past))])
+    dist.all_reduce(need, op=dist.ReduceOp.MAX)  # every rank or none
+    if need.item():
+        def second():
+            nonlocal exact
+            exact = plain(None)
+            return [[f * v for v in (
+                sq(g - e), sq(w - e), sq(e), sq(p - x, k), sq(q - x, k),
+                sq(x, k), sq(x - p0, k))] for f, g, w, e, p, q, x, p0, k in
+                zip(share, got_mu, want["mu"], exact["mu"], got_p,
+                    want["params"], exact["params"], want["p0"], keep)]
+
+        exact = None
+        rows2 = in_turn(second).tolist()
+        f32 = []
+        for kind, i in past:
+            if i is None:
+                z = abs((loss if kind == "loss" else grad_norm)
+                        - exact[kind]) / exact[kind]
+                pl = abs(want[kind] - exact[kind]) / exact[kind]
+            else:
+                r = rows2[i]
+                den = {"grads": r[2], "params": r[5], "update": r[6]}[kind]
+                a, b = (r[0], r[1]) if kind == "grads" else (r[3], r[4])
+                z, pl = ratio(a, den), ratio(b, den)
+            f32.append(dict(kind=kind, leaf=None if i is None else paths[i],
+                            bf16=leaves[kind][i] if i is not None
+                            else scalars[kind], zero_from_f32=z,
+                            plain_from_f32=pl))
+        rec["f32_rule"] = f32
+        over = [x for x in f32 if x["zero_from_f32"] > 2 * x["plain_from_f32"]]
+        if over:
+            raise AssertionError(f"zero: {arch} past the bf16 rule: {over}; "
+                                 f"{rec}")
+    del want, keep
+    release_memory()
+    return rec
+
+
+def check_zero(world: int = ZERO_RANKS) -> dict:
+    """Phase 13: ``world`` ranks spawned on the one card run
+    :func:`zero_rank`; holds what they report: every rank launched the
+    four training kernels through their wrappers (counts zeroed before
+    the first model, read after the last timed step).  Prints each rank's
+    step seconds, bytes a step by collective kind, the time in gloo, and
+    rank 0's comparison with the plain step.  Returns the launches summed
+    over the ranks."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    release_memory()
+    print(f"zero: {world} ranks on {card()}, ZeRO data parallelism over "
+          "gloo on CUDA tensors (NCCL refuses two ranks on one device); "
+          f"this process's peak host memory {host_rss_gb():.1f} GB")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as root:
+        mp.start_processes(zero_rank, args=(root, world), nprocs=world,
+                           start_method="spawn")
+        out = json.loads(Path(root, "result.json").read_text())
+    total = {}
+    for r, rk in enumerate(out["ranks"]):
+        for k, n in rk["launches"].items():
+            if n == 0:
+                raise AssertionError(f"zero: rank {r} never launched {k}")
+            total[k] = total.get(k, 0) + n
+        for run in rk["runs"]:
+            print(f"zero: rank {r} {run['arch']} ({card()}): placed in "
+                  f"{run['place_s']:.1f} s, {run['blocks']} B of blocks "
+                  f"({run['blocks'] / run['spec_bytes']:.6f} of the spec "
+                  f"tree's a device; allocator {run['allocated']} B), step "
+                  f"1 {run['first_s']:.2f} s, timed steps "
+                  + ", ".join(f"{w * 1e3:.0f}" for w in run["step_s"])
+                  + f" ms, their peak {run['peak_gb']:.1f} GB on the card; "
+                  f"a step: {run['calls']:.0f} collectives, "
+                  f"{run['gloo_s'] * 1e3:.0f} ms in gloo, bytes "
+                  + ", ".join(f"{k} {v / 1e9:.4f} GB"
+                              for k, v in run["bytes"].items())
+                  + "; wire bytes (ring formulas) "
+                  + ", ".join(f"{k} {v / 1e9:.4f} GB"
+                              for k, v in run["wire_bytes"].items())
+                  + "; losses " + ", ".join(f"{x:.4f}"
+                                            for x in run["losses"]))
+        print(f"zero: rank {r} launches {rk['launches']}")
+    for rec in out["held"]:
+        print("zero: against one process's plain step: " + json.dumps(rec))
+    return total
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -3639,13 +4196,14 @@ def main() -> None:
     try:
         run(ops, ref, get_config, host)
     finally:
+        HOST_CHECKS.cancel()
         if host[0].poll() is None:
             host[0].kill()
             host[0].wait()
 
 
 def run(ops, ref, get_config, host) -> None:
-    """Phases 2-13 (``main`` builds the kernels and starts the host's
+    """Phases 2-14 (``main`` builds the kernels and starts the host's
     side of phase 10 first)."""
     g = torch.Generator(device="cuda").manual_seed(0)
     cfgs = [get_config(a) for a in ARCHS]
@@ -3673,6 +4231,7 @@ def run(ops, ref, get_config, host) -> None:
     t0 = time.perf_counter()
     check_forward(srv, kernels)
     print(f"forward and fidelity checks took {time.perf_counter() - t0:.1f} s")
+    HOST_CHECKS.join("main path")
     del srv  # phase 8 runs on a card and host the main path has left
     gc.collect()
     torch.cuda.empty_cache()
@@ -3691,7 +4250,7 @@ def run(ops, ref, get_config, host) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    bwd_rows, calls = check_training(ref, g, cfgs, kernels, host)
+    bwd_rows, calls = check_training(ref, g, cfgs, kernels)
     rows.update(bwd_rows)
     paths["train"] = {k: n for k, n in calls.items() if n}
     print(f"training phase took {time.perf_counter() - t0:.1f} s")
@@ -3706,6 +4265,12 @@ def run(ops, ref, get_config, host) -> None:
     check_qmm_shards(ops, ref, g)
     paths["placed"] = check_placed()
     print(f"placed phase took {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    paths["zero"] = check_zero()
+    print(f"zero phase took {time.perf_counter() - t0:.1f} s")
+    check_train_cuts(host)
 
     replaces = {
         "quant_matmul": "src/repro/kernels/quant_matmul.py:102",
@@ -3731,13 +4296,16 @@ def run(ops, ref, get_config, host) -> None:
     for k in kernels:
         counted_by[k] += ("; the placed run's eager calls by the wrapper, "
                           "summed over its ranks")
+    for k in ("flash_attention", "ssd_scan"):
+        counted_by[k] += ("; the ZeRO run's by the wrapper, summed over "
+                          "its ranks")
     counted_by["flash_attention_bwd"] = (
-        "wrapper calls over the training runs and the train cell (each "
-        "launches the dQ and the dK/dV kernels; the profiler counted both "
-        "over one step)")
+        "wrapper calls over the training runs, the train cell and the ZeRO "
+        "run (summed over its ranks; each launches the dQ and the dK/dV "
+        "kernels; the profiler counted both over one step)")
     counted_by["ssd_scan_bwd"] = (
-        "wrapper calls over the training runs and the train cell (each "
-        "launches the local "
+        "wrapper calls over the training runs, the train cell and the ZeRO "
+        "run (summed over its ranks; each launches the local "
         "states, the scans, the gradient and the reduction kernels; the "
         "profiler counted all four over one step)")
     launches_by = {k: {p: n[k] for p, n in paths.items() if k in n}

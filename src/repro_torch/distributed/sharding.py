@@ -17,7 +17,10 @@ devices.  :func:`place_tree` places a serving tree on a ``DeviceMesh``
 with each rank copying only its own slice to its device, and
 :func:`rank_nbytes` reports the bytes each rank then holds.  A placed
 tensor changes its layout through :func:`redistribute` (:func:`whole`,
-:func:`summed`), which runs the process group's own collectives.
+:func:`summed`), which runs the process group's own collectives.  A
+training state is placed by :func:`place_state`; the ZeRO step moves a
+leaf's block to its whole and a whole gradient to the block with
+:func:`gather_block` and :func:`scatter_sum`, plain tensors in and out.
 
 Scheme (Megatron-style tensor parallelism on the ``model`` axis):
 column-parallel in-projections, row-parallel out-projections, experts
@@ -338,6 +341,21 @@ def is_placed(t) -> bool:
     return isinstance(t, DTensor)
 
 
+def local_block(t) -> torch.Tensor:
+    """A placed tensor's own block; a plain tensor as it is."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def like_placed(ref, local: torch.Tensor):
+    """``local`` as this rank's block of a tensor placed as ``ref`` is (its
+    mesh, placements, shape and stride); plain where ``ref`` is plain."""
+    if not isinstance(ref, DTensor):
+        return local
+    return DTensor.from_local(local, ref.device_mesh, ref.placements,
+                              run_check=False, shape=ref.shape,
+                              stride=ref.stride())
+
+
 def as_dtensor(t, mesh):
     """``t``, a plain tensor taken as replicated on ``mesh``; a
     ``DTensor`` or None as it is."""
@@ -349,12 +367,12 @@ def as_dtensor(t, mesh):
 
 def redistribute(x, target) -> torch.Tensor:
     """``x`` (a ``DTensor``) redistributed to the placements ``target``
-    with the process group's own collectives: a split gathered
-    (``all_gather_into_tensor``), a partial sum reduced (``all_reduce``),
-    then any split of a whole taken locally.  ``DTensor.redistribute``
-    gathers through the functional all-gather, which crashes on gloo with
-    CUDA tensors (torch 2.11; two ranks sharing one card, where NCCL
-    refuses to run), so every gather of a placed tensor comes here.  The
+    with the process group's own collectives: a partial sum reduced
+    (``all_reduce``), a split gathered (:func:`gather_block`), then any
+    split of a whole taken locally.  ``DTensor.redistribute`` gathers
+    through the functional all-gather, which crashes on gloo with CUDA
+    tensors (torch 2.11; two ranks sharing one card, where NCCL refuses
+    to run), so every gather of a placed tensor comes here.  The
     functional all-reduce works, and ``DTensor`` still uses it where an
     operation reduces a partial sum on its own."""
     import torch.distributed as dist
@@ -363,23 +381,77 @@ def redistribute(x, target) -> torch.Tensor:
     cur = list(x.placements)
     local = x.to_local()
     for i, (p, q) in enumerate(zip(cur, target)):
-        group = mesh.get_group(i)
-        if p.is_shard() and p != q:
-            n = mesh.size(i)
-            moved = local.movedim(p.dim, 0).contiguous()
-            out = moved.new_empty((n * moved.shape[0],) + moved.shape[1:])
-            dist.all_gather_into_tensor(out, moved, group=group)
-            local = out.movedim(0, p.dim)
-            cur[i] = Replicate()
-        elif p.is_partial() and p != q:
+        if p.is_partial() and p != q:
             local = local.clone()
-            dist.all_reduce(local, group=group)
+            dist.all_reduce(local, group=mesh.get_group(i))
             cur[i] = Replicate()
+    gather = [i for i, (p, q) in enumerate(zip(cur, target))
+              if p.is_shard() and p != q]
+    local = gather_block(local, mesh, cur, gather)
+    for i in gather:
+        cur[i] = Replicate()
     x = DTensor.from_local(local.contiguous(), mesh, cur, run_check=False,
                            shape=x.shape, stride=x.stride())
     if tuple(cur) != tuple(target):  # splits of a whole: local slices
         x = x.redistribute(mesh, tuple(target))
     return x
+
+
+def gather_block(local: torch.Tensor, mesh, placements_,
+                 dims=None) -> torch.Tensor:
+    """A placed leaf's ``local`` block gathered over the mesh dims
+    ``dims`` (every split one by default), as a plain tensor: one
+    ``all_gather_into_tensor`` a split mesh dim, the last first, so that a
+    tensor dim split over several mesh dims (the first the major one, as
+    ``DTensor`` splits it) comes back in order.  A leaf split over one
+    mesh axis of two (``zero1_specs``' fallback) gathers over that one."""
+    import torch.distributed as dist
+
+    if dims is None:
+        dims = [i for i, p in enumerate(placements_) if p.is_shard()]
+    for i in sorted(dims, reverse=True):
+        d, n = placements_[i].dim, mesh.size(i)
+        moved = local.movedim(d, 0).contiguous()
+        out = moved.new_empty((n * moved.shape[0],) + moved.shape[1:])
+        dist.all_gather_into_tensor(out, moved, group=mesh.get_group(i))
+        local = out.movedim(0, d)
+    return local.contiguous()
+
+
+def scatter_sum(whole: torch.Tensor, mesh, placements_,
+                dims) -> torch.Tensor:
+    """The conjugate of :func:`gather_block`: ``whole`` (each rank's term
+    of a sum, at the leaf's full shape) summed over the ranks of the mesh
+    dims ``dims`` into this rank's block of ``placements_``, as a plain
+    tensor: a ``reduce_scatter_tensor`` over each split mesh dim of
+    ``dims`` (the first first), then an ``all_reduce`` of the block over
+    each replicated one.  Mesh dims outside ``dims`` are left alone."""
+    import torch.distributed as dist
+
+    x = whole
+    for i in dims:
+        if placements_[i].is_shard():
+            d, n = placements_[i].dim, mesh.size(i)
+            moved = x.movedim(d, 0).contiguous()
+            out = moved.new_empty((moved.shape[0] // n,) + moved.shape[1:])
+            dist.reduce_scatter_tensor(out, moved, group=mesh.get_group(i))
+            x = out.movedim(0, d)
+    x = x.contiguous()
+    rest = [i for i in dims if not placements_[i].is_shard()]
+    if rest and x is whole:
+        x = x.clone()
+    all_reduce_dims(x, mesh, rest)
+    return x
+
+
+def all_reduce_dims(t: torch.Tensor, mesh, dims) -> torch.Tensor:
+    """``t`` summed in place over the ranks of each mesh dim in ``dims``
+    (one ``all_reduce`` each): over all of them together."""
+    import torch.distributed as dist
+
+    for i in dims:
+        dist.all_reduce(t, group=mesh.get_group(i))
+    return t
 
 
 def whole(x) -> torch.Tensor:
@@ -450,7 +522,9 @@ def place(t: torch.Tensor, mesh, spec: Spec, device=None,
     ``spec``, made from this rank's slice alone: only that slice is copied
     to ``device`` (the mesh's device type by default), and no collective
     runs.  :meth:`NamedSharding.place` moves the whole leaf to the device
-    and scatters it from rank 0 instead."""
+    and scatters it from rank 0 instead.  The block never shares ``t``'s
+    storage (a slice of a leaf already on ``device`` is copied), so
+    dropping ``t`` frees it."""
     pl = placements(mesh, spec)
     off, size = _local_box(tuple(t.shape), mesh, pl)
     local = t
@@ -458,7 +532,9 @@ def place(t: torch.Tensor, mesh, spec: Spec, device=None,
         if n != t.shape[d]:
             local = local.narrow(d, o, n)
     local = local.to(device or mesh.device_type, non_blocking=non_blocking)
-    return DTensor.from_local(local.contiguous(), mesh, pl, run_check=False,
+    local = (local.clone(memory_format=torch.contiguous_format)
+             if local.device == t.device else local.contiguous())
+    return DTensor.from_local(local, mesh, pl, run_check=False,
                               shape=t.shape, stride=t.contiguous().stride())
 
 
@@ -482,6 +558,26 @@ def zeros_placed(shape: Tuple[int, ...], dtype, mesh, spec: Spec,
                               shape=torch.Size(shape),
                               stride=torch.empty(shape, device="meta")
                               .stride())
+
+
+def place_state(state, mesh, sspecs, device=None):
+    """A ``TrainState`` placed on ``mesh`` by :func:`state_specs`' tree
+    ``sspecs``: params, both AdamW moments (and an error accumulator) by
+    :func:`place`, each rank copying only its own slice to ``device``;
+    the step replicated.  A ``meta`` state placed with ``device="meta"``
+    gives the dry-run a device's own blocks."""
+    from repro_torch.training.train_step import TrainState
+
+    opt = state.opt
+    return TrainState(
+        params=place_tree(state.params, mesh, sspecs.params, device),
+        opt=type(opt)(
+            step=place(opt.step, mesh, sspecs.opt.step, device),
+            mu=place_tree(opt.mu, mesh, sspecs.opt.mu, device),
+            nu=place_tree(opt.nu, mesh, sspecs.opt.nu, device)),
+        comp=None if state.comp is None else type(state.comp)(
+            error=place_tree(state.comp.error, mesh,
+                             sspecs.comp.error, device)))
 
 
 def local_nbytes(tree: PyTree) -> int:

@@ -12,8 +12,21 @@ wrappers hand it to their plain versions, as the reference's dry-run
 lowers on host CPUs.
 
 Where the reference lowers and compiles the SPMD-partitioned program and
-reads XLA's analyses, the port runs the unpartitioned program (the whole
-global batch on one process) and counts it:
+reads XLA's analyses, the port runs a program and counts it.  A pure
+data-parallel train cell (every mesh axis a data axis,
+:func:`~repro_torch.launch.steps.pure_dp`: 7 of the 10 ``train_4k``
+cells) runs one device's own program: its state placed by
+:func:`~repro_torch.distributed.sharding.place_state` on a ``DeviceMesh``
+of the production shape over a fake process group
+(:func:`~repro_torch.launch.mesh.fake_production_mesh`, this process as
+rank 0), its batch rank 0's rows, and the ZeRO step of
+:func:`~repro_torch.training.train_step.make_train_step` gathering,
+reducing and updating rank 0's blocks.  Every other cell (serving,
+tensor-parallel training: ROADMAP A13) runs the unpartitioned program,
+the whole global batch on one process, and so does a pure data-parallel
+cell under ``run_cell(placed=False)``: the program ``build_cell`` gives
+on a ``LogicalMesh``, which a one-card run of the cell executes.
+Counted:
 
 * FLOPs with ``torch.utils.flop_counter.FlopCounterMode``;
 * bytes accessed with a ``TorchDispatchMode`` that sums the operand and
@@ -25,24 +38,28 @@ global batch on one process) and counts it:
   inputs read once and its outputs written once, none of the plain
   version's intermediates (the attention's S x T scores never reach
   memory on the card);
-* collectives as :class:`~repro_torch.launch.roofline.Collective` records
-  for :func:`~repro_torch.launch.roofline.collective_wire_bytes`: the
-  port's step runs on one process and calls none (placement across
-  devices is ROADMAP A13), so the records are empty and the wire bytes 0.
+* collectives: each ``c10d`` operation the same mode sees becomes a
+  :class:`~repro_torch.launch.roofline.Collective` (kind, dtype, local
+  output shape, the size of its process group), priced by
+  :func:`~repro_torch.launch.roofline.collective_wire_bytes`.  A cell
+  that is not placed calls none: its ``collectives`` are null, with the
+  reason.
 
-**Per-device cost** is each count divided by the mesh's chips: the step
-the port runs is the whole program, and a partitioned step divides its
-work evenly (the reference's per-device cost analysis of a data-parallel
-cell is the same division).  :func:`~repro_torch.launch.roofline.roofline_terms`
-then divides by one card's peaks, as the reference's does.
+**Per-device cost**: a placed cell's counts are already a device's.  An
+unplaced cell's are divided by the mesh's chips: a partitioned step
+divides its work evenly (the reference's per-device cost analysis of a
+data-parallel cell is the same division).
+:func:`~repro_torch.launch.roofline.roofline_terms` then divides by one
+card's peaks, as the reference's does.
 
 **Memory** per device comes from the spec trees, exactly: each argument
 and output leaf's bytes divided by the product of the mesh axes its
 partition names, the donated arguments aliased to the outputs that take
-their buffers (the reference's ``alias_size``).  The temporaries of a
-partitioned program are not known without partitioning it: ``temp_bytes``
-is null with the reason, and ``peak_bytes`` and ``hbm_fraction`` (of the
-H100's ``HBM_BYTES``) are bounds from below.
+their buffers (the reference's ``alias_size``).  The temporaries are not
+counted (``meta`` tensors allocate nothing, and an unplaced cell runs the
+unpartitioned program): ``temp_bytes`` is null with the reason, and
+``peak_bytes`` and ``hbm_fraction`` (of the H100's ``HBM_BYTES``) are
+bounds from below.
 
 The L2/L4 probe stays: counts at 2 and 4 layers give ``per_layer_flops``
 through :func:`~repro_torch.launch.roofline.extrapolate`.  The port's
@@ -61,6 +78,8 @@ import json
 import os
 import time
 import traceback
+from contextlib import nullcontext
+from typing import Optional
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -68,15 +87,23 @@ from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import ARCH_NAMES, get_config
-from repro_torch.distributed.sharding import _divisor, spec_map
+from repro_torch.distributed.sharding import (LogicalMesh, _divisor,
+                                               logical, spec_map)
 from repro_torch.kernels import ref
 from repro_torch.launch import roofline as RL
-from repro_torch.launch.mesh import HBM_BYTES, make_production_mesh
+from repro_torch.launch.mesh import (HBM_BYTES, fake_production_mesh,
+                                    make_production_mesh)
 from repro_torch.launch.steps import build_cell, pure_dp
 from repro_torch.models.config import SHAPE_SPECS, cell_is_runnable
 
 # Namespaces of torch.distributed's collectives, as the dispatcher sees them.
 _COLLECTIVE_NAMESPACES = ("c10d", "_c10d_functional")
+# The c10d operations the port's steps call (``all_reduce``,
+# ``all_gather_into_tensor``, ``reduce_scatter_tensor``), by kind; each
+# takes its output (or its list of in-place tensors) first.
+_COLLECTIVE_KINDS = {"allreduce_": "all-reduce",
+                     "_allgather_base_": "all-gather",
+                     "_reduce_scatter_base_": "reduce-scatter"}
 
 
 def pick_grad_accum(cfg, shape_name, mesh) -> int:
@@ -107,8 +134,8 @@ class ByteCounter(TorchDispatchMode):
     """Sums the bytes of every tensor operand and result of each aten
     operation that is not a view (a view moves nothing), outside a
     kernel's plain version, and those of each kernel's inputs and outputs
-    (:data:`repro_torch.kernels.ref.KERNEL_IO`); notes any collective the
-    step calls."""
+    (:data:`repro_torch.kernels.ref.KERNEL_IO`); makes each collective a
+    :class:`~repro_torch.launch.roofline.Collective` record."""
 
     def __init__(self):
         super().__init__()
@@ -126,7 +153,7 @@ class ByteCounter(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
         if func.namespace in _COLLECTIVE_NAMESPACES:
-            self.collectives.append(str(func))
+            self.collectives += _records(func, args)
         if not func.is_view and not ref.KERNEL_IO.depth:
             tensors = [t for t in tree_leaves((args, kwargs, out))
                        if isinstance(t, torch.Tensor)]
@@ -134,18 +161,34 @@ class ByteCounter(TorchDispatchMode):
         return out
 
 
-def count(fn, args) -> tuple:
-    """(the outputs, the :class:`~repro_torch.launch.roofline.CellCost`
-    of the whole program) of ``fn(*args)``."""
+def _records(func, args) -> list:
+    """The :class:`~repro_torch.launch.roofline.Collective` records of one
+    collective operation (one a tensor of an all-reduce's list), from its
+    output's local shape and its process group's size."""
+    import torch.distributed as dist
+
+    name = func._schema.name.split("::")[-1]
+    if func.namespace != "c10d" or name not in _COLLECTIVE_KINDS:
+        raise NotImplementedError(f"collective {func} has no record")
+    group = next(dist.ProcessGroup.unbox(a) for a in args
+                 if isinstance(a, torch.ScriptObject) and a._type()
+                 .qualified_name().endswith("c10d.ProcessGroup"))
+    outs = args[0] if isinstance(args[0], (list, tuple)) else [args[0]]
+    return [RL.Collective(_COLLECTIVE_KINDS[name], t.dtype, tuple(t.shape),
+                          group.size()) for t in outs]
+
+
+def count(fn, args, records: Optional[list] = None) -> tuple:
+    """(the outputs, the :class:`~repro_torch.launch.roofline.CellCost`)
+    of ``fn(*args)``: the whole program's, or one device's where ``args``
+    are placed.  The collectives' records are appended to ``records``
+    when it is a list."""
     with FlopCounterMode(display=False) as flops, ByteCounter() as nb:
         out = fn(*args)
-    if nb.collectives:
-        raise NotImplementedError(
-            f"the step called collectives {sorted(set(nb.collectives))}; "
-            "their records (group sizes across devices) come with "
-            "placement across devices: ROADMAP A13")
+    if records is not None:
+        records += nb.collectives
     return out, RL.CellCost(float(flops.get_total_flops()), float(nb.bytes),
-                            RL.collective_wire_bytes([]))
+                            RL.collective_wire_bytes(nb.collectives))
 
 
 def _per_device_bytes(tree, spec_tree, mesh) -> float:
@@ -159,7 +202,8 @@ def _per_device_bytes(tree, spec_tree, mesh) -> float:
     return total[0]
 
 
-def _mem_stats(args, in_specs, out, out_specs, donate, mesh) -> dict:
+def _mem_stats(args, in_specs, out, out_specs, donate, mesh,
+               placed) -> dict:
     arg = sum(_per_device_bytes(a, s, mesh) for a, s in zip(args, in_specs))
     alias = sum(_per_device_bytes(args[i], in_specs[i], mesh)
                 for i in donate)
@@ -171,9 +215,12 @@ def _mem_stats(args, in_specs, out, out_specs, donate, mesh) -> dict:
         "output_bytes": outb,
         "alias_bytes": alias,
         "temp_bytes": None,
-        "temp_reason": "the partitioned program's temporaries: the port "
-                       "runs the unpartitioned program and partitions "
-                       "nothing (ROADMAP A13)",
+        "temp_reason": (
+            "a device's temporaries (the gathered compute copy, the whole "
+            "gradients, the activations): meta tensors allocate nothing"
+            if placed else
+            "the partitioned program's temporaries: the port runs this "
+            "cell's unpartitioned program (ROADMAP A13)"),
         "peak_bytes": peak,
         "hbm_fraction": peak / HBM_BYTES,
         "exact": ["argument_bytes", "output_bytes", "alias_bytes"],
@@ -181,23 +228,49 @@ def _mem_stats(args, in_specs, out, out_specs, donate, mesh) -> dict:
     }
 
 
-def _run(cfg, shape_name, mesh, *, moe_impl, grad_accum, qcache, dp_only):
+def _run(cfg, shape_name, mesh, *, moe_impl, grad_accum, qcache, dp_only,
+         records=None):
     fn, args, in_sp, out_sp, donate = build_cell(
         cfg, shape_name, mesh, moe_impl=moe_impl, grad_accum=grad_accum,
         qcache=qcache, dp_only=dp_only)
-    out, cost = count(fn, args)
-    return cost, _mem_stats(args, in_sp, out, out_sp, donate, mesh)
+    out, cost = count(fn, args, records)
+    placed = not isinstance(mesh, LogicalMesh)
+    return cost, _mem_stats(args, in_sp, out, out_sp, donate,
+                            logical(mesh) if placed else mesh, placed)
 
 
-def _cost_dict(cost: RL.CellCost, chips: int) -> dict:
-    return {"flops_per_device": cost.flops / chips,
-            "bytes_per_device": cost.bytes_accessed / chips,
+def _cost_dict(cost: RL.CellCost, per: int) -> dict:
+    """A device's share of ``cost``: divided by ``per`` (the chips, for a
+    count of the whole program; 1 for a device's own)."""
+    return {"flops_per_device": cost.flops / per,
+            "bytes_per_device": cost.bytes_accessed / per,
             "coll_bytes_per_device": cost.coll_total}
+
+
+def _collective_rows(records) -> list:
+    """The records as JSON rows, one for each distinct (kind, dtype,
+    shape, group) with its count and wire bytes."""
+    rows: dict = {}
+    for rec in records:
+        row = rows.setdefault(rec, {
+            "kind": rec.kind, "dtype": str(rec.dtype).split(".")[-1],
+            "shape": list(rec.shape), "group": rec.group, "count": 0,
+            "wire_bytes": 0.0})
+        row["count"] += 1
+        row["wire_bytes"] += RL.collective_wire_bytes([rec])[rec.kind]
+    return list(rows.values())
 
 
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
              probe: bool = True, moe_impl: str = "dense",
-             qcache: bool = False, verbose: bool = True) -> dict:
+             qcache: bool = False, verbose: bool = True,
+             placed: Optional[bool] = None) -> dict:
+    """One cell's dry-run record.  A pure data-parallel train cell runs
+    placed on :func:`~repro_torch.launch.mesh.fake_production_mesh`, which
+    raises if a process group is already initialized and destroys its own
+    on the way out; ``placed=False`` prices it unplaced instead (the
+    whole program on one process, divided by the chips: the program that
+    ``build_cell`` gives on a ``LogicalMesh``)."""
     cfg = get_config(arch)
     result: dict = {"arch": arch, "shape": shape_name,
                     "multi_pod": multi_pod, "moe_impl": moe_impl,
@@ -211,35 +284,54 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     # probes run with the same parallelism mapping.
     dp_only = pure_dp(cfg, shape_name, mesh)
     result["dp_only"] = dp_only
-    result["collectives"] = []  # none called: one process (ROADMAP A13)
+    # A pure data-parallel train cell runs one device's program; every
+    # other cell the whole program, divided by the chips.
+    placed = dp_only if placed is None else placed and dp_only
+    result["placed"] = placed
+    per = 1 if placed else chips
+    records: list = []
+    if not placed:
+        result["collectives"] = None
+        result["collectives_reason"] = (
+            "not placed: this cell runs the whole program on one process "
+            "and calls no collective; " + (
+                "its placed program prices them (placed=None)" if dp_only
+                else "tensor-parallel training" if SHAPE_SPECS[shape_name][2]
+                == "train" else "the serving cells' collectives")
+            + ("" if dp_only else " are ROADMAP A13"))
     t0 = time.time()
-    try:
-        total, result["memory"] = _run(
-            cfg, shape_name, mesh, moe_impl=moe_impl, qcache=qcache,
-            grad_accum=pick_grad_accum(cfg, shape_name, mesh),
-            dp_only=dp_only)
-        result["run_s"] = time.time() - t0
-        result["cost"] = _cost_dict(total, chips)
-        if probe and not multi_pod:
-            costs = {}
-            for Lp in (2, 4):
-                cfg_p = dataclasses.replace(cfg, num_layers=Lp)
-                costs[Lp], _ = _run(cfg_p, shape_name, mesh,
-                                    moe_impl=moe_impl, grad_accum=1,
-                                    qcache=qcache, dp_only=dp_only)
-            ext = RL.extrapolate(costs[2], costs[4], cfg.num_layers)
-            result["cost"]["per_layer_flops"] = (
-                (costs[4] - costs[2]).scaled(0.5 / chips).flops)
-            result["cost"]["extrapolated"] = _cost_dict(ext, chips)
-    except Exception as e:
-        result["status"] = "FAIL"
-        result["error"] = f"{type(e).__name__}: {e}"
-        result["traceback"] = traceback.format_exc()[-2000:]
-        if verbose:
-            _print_cell(result)
-        return result
+    with (fake_production_mesh(multi_pod=multi_pod) if placed
+          else nullcontext(mesh)) as run_mesh:
+        try:
+            total, result["memory"] = _run(
+                cfg, shape_name, run_mesh, moe_impl=moe_impl,
+                qcache=qcache, records=records,
+                grad_accum=pick_grad_accum(cfg, shape_name, mesh),
+                dp_only=dp_only)
+            result["run_s"] = time.time() - t0
+            result["cost"] = _cost_dict(total, per)
+            if probe and not multi_pod:
+                costs = {}
+                for Lp in (2, 4):
+                    cfg_p = dataclasses.replace(cfg, num_layers=Lp)
+                    costs[Lp], _ = _run(cfg_p, shape_name, run_mesh,
+                                        moe_impl=moe_impl, grad_accum=1,
+                                        qcache=qcache, dp_only=dp_only)
+                ext = RL.extrapolate(costs[2], costs[4], cfg.num_layers)
+                result["cost"]["per_layer_flops"] = (
+                    (costs[4] - costs[2]).scaled(0.5 / per).flops)
+                result["cost"]["extrapolated"] = _cost_dict(ext, per)
+        except Exception as e:
+            result["status"] = "FAIL"
+            result["error"] = f"{type(e).__name__}: {e}"
+            result["traceback"] = traceback.format_exc()[-2000:]
+            if verbose:
+                _print_cell(result)
+            return result
+    if placed:
+        result["collectives"] = _collective_rows(records)
     result["status"] = "OK"
-    terms = RL.roofline_terms(total.scaled(1.0 / chips), chips)
+    terms = RL.roofline_terms(total.scaled(1.0 / per), chips)
     mf = RL.model_flops(cfg, shape_name)
     terms["model_flops"] = mf
     terms["useful_ratio"] = (mf / terms["hlo_flops_global"]

@@ -5,12 +5,15 @@ of ``make_mesh_compat``: a ``DeviceMesh`` with named dims over the
 current process group (which the caller has initialised with its own
 address, world size and rank).  :func:`make_production_mesh` returns a
 :class:`~repro_torch.distributed.sharding.LogicalMesh` of the production
-shape: the spec rules only read ``mesh.shape``, and the port places no
-shards across cards.  Nothing touches a device when the module is
-imported.
+shape (the spec rules only read ``mesh.shape``), and
+:func:`fake_production_mesh` a ``DeviceMesh`` of that shape over a fake
+process group in this one process, on which the launch dry-run places a
+cell's state and runs one device's step.  Nothing touches a device when
+the module is imported.
 """
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import Sequence
 
 from repro_torch.distributed.sharding import LogicalMesh
@@ -39,6 +42,29 @@ def make_production_mesh(*, multi_pod: bool = False) -> LogicalMesh:
     if multi_pod:
         return LogicalMesh({"pod": 2, "data": 16, "model": 16})
     return LogicalMesh({"data": 16, "model": 16})
+
+
+@contextmanager
+def fake_production_mesh(*, multi_pod: bool = False):
+    """The production mesh (16 x 16, or 2 x 16 x 16) as a CPU
+    ``DeviceMesh`` with its axis names over a fake process group of its
+    256 (512) devices, this process being rank 0: collectives on it move
+    nothing, and ``meta`` tensors on it carry rank 0's shapes.  The group
+    is destroyed on the way out; raises if one is already initialized."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialized: the "
+                           "fake production mesh needs its own")
+    logical = make_production_mesh(multi_pod=multi_pod)
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=logical.size)
+    try:
+        yield make_mesh(tuple(logical.shape.values()), logical.axis_names,
+                        "cpu")
+    finally:
+        dist.destroy_process_group()
 
 
 def data_axes(mesh) -> tuple:

@@ -11,13 +11,17 @@ run it on real tensors of any device (``chip_smoke.py`` runs the
 ``train_4k`` cell's on the card at one device's share of the batch).  The
 partitions are the spec trees of :mod:`repro_torch.distributed.sharding`
 on the given mesh (a :class:`~repro_torch.distributed.sharding.LogicalMesh`
-or any object with ``shape``, ``axis_names`` and ``size``); the port
-places nothing across devices (ROADMAP A13), so they describe the layout
-a multi-device launch would give each leaf.
+or any object with ``shape``, ``axis_names`` and ``size``), where they
+describe the layout a multi-device launch would give each leaf.  On a
+``DeviceMesh`` a pure data-parallel train cell is placed: its ``meta``
+state by :func:`~repro_torch.distributed.sharding.place_state` and its
+batch split on its rows, so that ``fn`` runs this rank's ZeRO step
+(training a model split on the model axis is ROADMAP A13).
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.distributed import sharding as SH
 from repro_torch.launch.mesh import data_axes
@@ -55,16 +59,25 @@ def build_cell(cfg: ModelConfig, shape_name: str, mesh, *,
     (arch x shape) cell on ``mesh``: ``example_args`` are ``meta``
     stand-ins, each spec tree matches its argument (or output) leaf for
     leaf with one entry a dimension, and ``donate`` names the arguments
-    whose buffers the outputs may take."""
+    whose buffers the outputs may take.  On a ``DeviceMesh`` (a pure
+    data-parallel train cell only) the state and the batch are
+    ``DTensor``s of ``meta`` blocks, rank by rank."""
     from repro_torch.distributed.ctx import ShardCtx, set_ctx
 
+    placed = isinstance(mesh, DeviceMesh)
+    device_mesh, mesh = mesh, SH.logical(mesh) if placed else mesh
     kind, specs = input_specs(cfg, shape_name, quantized_cache=qcache)
     gbatch = SHAPE_SPECS[shape_name][1]
     dp = data_axes(mesh)
     if dp_only is None:
         dp_only = pure_dp(cfg, shape_name, mesh)
+    if placed and not (kind == "train" and dp_only):
+        raise NotImplementedError(
+            f"{shape_name} placed on a device mesh: only a pure "
+            "data-parallel train cell is (ROADMAP A13)")
     if dp_only:
-        dp = tuple(mesh.axis_names)  # every mesh axis is a data axis
+        dp = tuple(device_mesh.mesh_dim_names if placed
+                   else mesh.axis_names)  # every mesh axis a data axis
     dp_size = 1
     for a in dp:
         dp_size *= mesh.shape[a]
@@ -90,13 +103,18 @@ def build_cell(cfg: ModelConfig, shape_name: str, mesh, *,
         bspecs = SH.batch_specs(cfg, specs["batch"], mesh, dp_axes=dp)
         step = make_train_step(cfg, opt, moe_impl=moe_impl, remat=True,
                                grad_accum=grad_accum,
-                               zero_specs=sspecs.params)
+                               zero_specs=sspecs.params, dp_axes=dp)
 
         def fn(state, batch):
             new_state, metrics = step(state, batch)
             return new_state, metrics["loss"]
 
-        return (fn, (state_abs, specs["batch"]), (sspecs, bspecs),
+        batch = specs["batch"]
+        if placed:
+            state_abs = SH.place_state(state_abs, device_mesh, sspecs,
+                                       device="meta")
+            batch = SH.place_tree(batch, device_mesh, bspecs, device="meta")
+        return (fn, (state_abs, batch), (sspecs, bspecs),
                 (sspecs, ()), (0,))  # donate the train state
 
     params_abs = T.abstract_params(cfg, param_dtype)

@@ -5,19 +5,22 @@ tree of tensors (no ``nn.Module``): each step makes every leaf a fresh
 autograd leaf, runs :func:`repro_torch.models.transformer.loss_fn`
 through the mixed-precision cast, and takes the gradients with
 ``torch.autograd.grad``.  Activation remat over the blocks, microbatched
-gradient accumulation, int8 error-feedback gradient compression, and a
+gradient accumulation, int8 error-feedback gradient compression, a
 ``TrainState`` of plain trees that checkpoints leaf for leaf as the
-reference's does.
+reference's does, and ZeRO data parallelism on a state placed across
+ranks (:func:`make_train_step`).
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch.distributed import sharding as SH
 from repro_torch.distributed.compression import (CompressionState,
                                                  compress_grads)
-from repro_torch.distributed.ctx import hint
+from repro_torch.distributed.ctx import get_ctx, hint
 from repro_torch.distributed.sharding import spec_map
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
@@ -73,6 +76,7 @@ def make_train_step(
     z_loss: float = 1e-4,
     compute_dtype=torch.bfloat16,
     zero_specs=None,
+    dp_axes=None,
 ) -> Callable:
     """Returns train_step(state, batch) -> (state, metrics).
 
@@ -84,25 +88,50 @@ def make_train_step(
     stub).  ``grad_accum`` splits the batch into that many micro-slices,
     one backward each, gradients and loss averaged.
 
+    **A placed state** (``DTensor`` leaves on a mesh of more than one
+    device, :func:`repro_torch.distributed.sharding.place_state`) trains
+    as ZeRO data parallelism, each rank on its own rows of the batch (a
+    batch leaf placed ``Shard(0)`` gives its local rows): each rank casts
+    its blocks to ``compute_dtype``, gathers the copy whole
+    (:func:`~repro_torch.distributed.sharding.gather_block`), runs forward
+    and backward on plain tensors, and sums the f32 gradients over the
+    ranks into its blocks
+    (:func:`~repro_torch.distributed.sharding.scatter_sum`: a
+    reduce-scatter over each mesh dim a leaf is split on, an all-reduce
+    over the others), divided by the data-parallel size; the replicated
+    leaves' gradients go in one all-reduce, the loss and metrics in
+    another, and AdamW updates each rank's blocks
+    (:meth:`~repro_torch.training.optim.AdamW.update`).  With
+    ``grad_accum`` each rank gathers once and reduces once.  The data
+    axes are the mesh axis names ``dp_axes`` (the sharding context's,
+    :func:`repro_torch.distributed.ctx.get_ctx`, where None); a leaf
+    split on another mesh axis (tensor-parallel training) and
+    ``compression`` on a placed state raise ``NotImplementedError``
+    (ROADMAP A13).  The new state keeps the placements; no gathered copy
+    outlives the step.
+
     ``zero_specs`` (a tree of partitions matching params, the launch
     cell's) names the data-sharded layout of the compute copy and the
-    gradients, as the reference's ZeRO-2/FSDP constraints do.  On one
-    process they are layout hints that return their input, by
-    :func:`repro_torch.distributed.ctx.hint`'s rule; a step whose state
-    is placed on a device mesh of more than one device raises (ROADMAP
-    A13)."""
+    gradients, as the reference's ZeRO-2/FSDP constraints do: layout
+    hints that return their input, by
+    :func:`repro_torch.distributed.ctx.hint`'s rule.  A placed step takes
+    its layout from the state's placements."""
 
     def _constrain(tree):
         if zero_specs is None:
             return tree
         return spec_map(lambda spec, x: hint(x, *spec), zero_specs, tree)
 
+    def cast_leaf(p):
+        if (compute_dtype is not None and p.dtype == torch.float32
+                and p.ndim >= 2):
+            return p.to(compute_dtype)
+        return p
+
     def cast(params):
         if compute_dtype is None:
             return params
-        return _constrain(pytree.tree_map(
-            lambda p: p.to(compute_dtype)
-            if p.dtype == torch.float32 and p.ndim >= 2 else p, params))
+        return _constrain(pytree.tree_map(cast_leaf, params))
 
     def value_and_grad(params, batch):
         flat, structure = pytree.flatten(params)
@@ -136,13 +165,53 @@ def make_train_step(
         loss = l_sum / grad_accum
         return loss, {"loss": loss}, grads
 
+    def zero_grads(params, batch):
+        """The ZeRO half of a placed step: (metrics averaged over the
+        data ranks, gradients placed as ``params``)."""
+        mesh, dims = _zero_layout(
+            params, get_ctx().dp_axes if dp_axes is None else dp_axes)
+        flat, structure = pytree.flatten(params)
+        dp = math.prod(mesh.size(i) for i in dims)
+        batch = {k: SH.local_block(v) for k, v in batch.items()}
+        whole = [SH.gather_block(cast_leaf(p.to_local()), mesh,
+                                 p.placements) for p in flat]
+        _, metrics, grads = compute_grads(
+            pytree.unflatten(structure, whole), batch)
+        del whole
+        grads = pytree.leaves(grads)
+        # Leaves every rank holds whole: one all-reduce for all of them.
+        rep = [i for i, p in enumerate(flat)
+               if not any(q.is_shard() for q in p.placements)]
+        if rep:
+            buf = SH.all_reduce_dims(torch.cat(
+                [grads[i].float().reshape(-1) for i in rep]), mesh, dims)
+            for i, g in zip(rep, buf.split([grads[i].numel()
+                                            for i in rep])):
+                grads[i] = g.view(grads[i].shape)
+        out = []
+        for i, p in enumerate(flat):
+            g = grads[i].float()
+            grads[i] = None  # each whole gradient freed once reduced
+            if i not in rep:
+                g = SH.scatter_sum(g, mesh, p.placements, dims)
+            out.append(SH.like_placed(p, g / dp))
+        names = list(metrics)
+        avg = SH.all_reduce_dims(torch.stack(
+            [metrics[k].float() for k in names]), mesh, dims) / dp
+        return (dict(zip(names, avg.unbind())),
+                pytree.unflatten(structure, out))
+
     def train_step(state: TrainState, batch):
-        if zero_specs is not None and _placed(state.params):
-            raise NotImplementedError(
-                "zero_specs on a state placed across devices (ZeRO-2/FSDP "
-                "constraints of a sharded step): ROADMAP A13")
         with torch.no_grad():
-            loss, metrics, grads = compute_grads(state.params, batch)
+            if not _placed(state.params):
+                _, metrics, grads = compute_grads(state.params, batch)
+            elif compression:
+                raise NotImplementedError(
+                    "compression=True on a placed state: a per-leaf int8 "
+                    "scale of a shard is not the reference's per-leaf "
+                    "scale (ROADMAP A13)")
+            else:
+                metrics, grads = zero_grads(state.params, batch)
             comp = state.comp
             if compression:
                 grads, comp = compress_grads(grads, comp)
@@ -158,5 +227,26 @@ def make_train_step(
 def _placed(params: PyTree) -> bool:
     """Whether a leaf is a ``DTensor`` on a mesh of more than one
     device."""
-    return any(getattr(p, "device_mesh", None) is not None
-               and p.device_mesh.size() > 1 for p in pytree.leaves(params))
+    return any(SH.is_placed(p) and p.device_mesh.size() > 1
+               for p in pytree.leaves(params))
+
+
+def _zero_layout(params: PyTree, dp_axes):
+    """(mesh, the mesh dims of ``dp_axes``) of a placed state, which the
+    ZeRO step takes: every leaf a ``DTensor`` on one mesh, split over
+    those data axes only."""
+    mesh = next(p.device_mesh for p in pytree.leaves(params)
+                if SH.is_placed(p))
+    names = tuple(mesh.mesh_dim_names or ())
+    dims = tuple(i for i, n in enumerate(names) if n in dp_axes)
+    for path, p in pytree.flatten_with_path(params)[0]:
+        if not SH.is_placed(p) or p.device_mesh != mesh:
+            raise ValueError(f"leaf {'/'.join(map(str, path))} is not "
+                             "placed on the state's mesh")
+        for i, q in enumerate(p.placements):
+            if q.is_partial() or (q.is_shard() and i not in dims):
+                raise NotImplementedError(
+                    f"leaf {'/'.join(map(str, path))} is {q} on mesh axis "
+                    f"{names[i]!r}, not a data axis {dp_axes}: "
+                    "tensor-parallel training (ROADMAP A13)")
+    return mesh, dims

@@ -12,17 +12,25 @@ against the reference's parser over HLO lines built from the same
 records; ``extrapolate`` of the meta counts at 2 and 4 layers against the
 full-depth count (full width); a reduced prefill's FLOP and byte counts
 on ``meta`` equal to those on CPU tensors; ``run_cell`` on ``meta``.
+The pure data-parallel train cells' collectives (one device's ZeRO step
+on a fake process group) against the ring formulas over their spec trees.
 Then training's launch pieces: ``abstract_state`` against the
 reference's ``jax.eval_shape``, ``make_train_step(zero_specs=)`` on one
-process equal to the step without it, and remat with and without the
-saved ``"tp_out"`` products against the reference's gradients.
+process equal to the step without it, a state split on the model axis
+refused, and remat with and without the saved ``"tp_out"`` products
+against the reference's gradients.
 """
+import contextlib
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 from jax.sharding import PartitionSpec as P
+from torch.testing._internal.distributed.fake_pg import FakeStore
 
 from repro.configs import ARCH_NAMES
 from repro.configs import get_config as jget
@@ -264,8 +272,14 @@ def test_run_cell_on_meta(arch, shape):
     assert r["status"] == "OK", r.get("error")
     t, mem = r["roofline"], r["memory"]
     assert t["compute_s"] > 0 and t["memory_s"] > 0
-    assert t["collective_s"] == 0.0 and r["collectives"] == []
-    assert t["bound_s"] == max(t["compute_s"], t["memory_s"])
+    if r["placed"]:  # the pure data-parallel train cell: a device's step
+        assert r["collectives"] and t["collective_s"] > 0
+    else:  # serving: the whole program, no collective called
+        assert r["collectives"] is None and "A13" in r[
+            "collectives_reason"]
+        assert t["collective_s"] == 0.0
+    assert t["bound_s"] == max(t["compute_s"], t["memory_s"],
+                               t["collective_s"])
     assert mem["temp_bytes"] is None and mem["argument_bytes"] > 0
     assert mem["peak_bytes"] == (mem["argument_bytes"] + mem["output_bytes"]
                                  - mem["alias_bytes"])
@@ -336,19 +350,123 @@ def test_zero_specs_step_equals_plain_step():
         assert torch.equal(torch.as_tensor(a), torch.as_tensor(b))
 
 
-def test_zero_specs_refuse_a_state_placed_across_devices():
-    class Placed(torch.Tensor):
-        device_mesh = type("Mesh", (), {"size": lambda self: 4})()
+@contextlib.contextmanager
+def _fake_mesh(shape, names):
+    """A CPU ``DeviceMesh`` over a fake process group in this process (rank
+    0 of the mesh's devices): placement without other ranks."""
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(shape))
+    try:
+        yield LM.make_mesh(shape, names, "cpu")
+    finally:
+        dist.destroy_process_group()
 
+
+def test_zero_specs_refuse_a_state_placed_across_devices():
+    """A state split on the model axis (tensor-parallel training) and
+    compression on a placed state raise, naming ROADMAP A13, before any
+    collective."""
     cfg = get_config("tinyllama-1.1b", reduced=True)
     opt = TO.AdamW()
     state = TS.init_state(cfg, 0, opt, device="cpu")
-    params = dict(state.params, final_norm=state.params[
-        "final_norm"].as_subclass(Placed))
-    step = TS.make_train_step(cfg, opt, zero_specs=SH.param_specs(
-        cfg, state.params, MESH))
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        step(state._replace(params=params), {})
+    with _fake_mesh((2, 2), ("data", "model")) as mesh:
+        lm = SH.logical(mesh)
+        tp = SH.state_specs(cfg, state, lm, SH.param_specs(cfg, state.params,
+                                                           lm))
+        assert any("model" in str(sp) for sp in _port_flat(tp.params))
+        step = TS.make_train_step(cfg, opt, zero_specs=tp.params)
+        with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+            step(SH.place_state(state, mesh, tp), {})
+        dp = SH.state_specs(cfg, state, lm, pytree.tree_map(
+            lambda p: (None,) * p.dim(), state.params),
+            dp_axes=("data", "model"))
+        step = TS.make_train_step(cfg, opt, compression=True,
+                                  dp_axes=("data", "model"))
+        with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+            step(SH.place_state(state, mesh, dp), {})
+    assert not dist.is_initialized()
+
+
+def _zero_wire_bytes(arch):
+    """The pure data-parallel train cell's wire bytes a device by kind,
+    from its spec trees on the 16 x 16 mesh and the ring formulas: each
+    f32 matrix's bf16 copy gathered over the devices that split it and its
+    f32 gradient reduce-scattered over them, each block all-reduced over
+    every mesh axis that does not split it; then the loss's metrics and
+    the gradient norm's sum of squares, all-reduced over each axis."""
+    cfg = get_config(arch)
+    _, args, in_specs, _, _ = ST.build_cell(cfg, "train_4k", MESH)
+    out = {k: 0.0 for k in RL.KINDS}
+    state, specs = args[0].params, in_specs[0].params
+    for spec, leaf in zip(pytree.flatten(specs, is_leaf=lambda x: type(x)
+                                         is tuple)[0], pytree.leaves(state)):
+        n = SH._divisor(spec, MESH)
+        used = {a for e in spec if e for a in (e if isinstance(e, tuple)
+                                               else (e,))}
+        cast = leaf.dtype == torch.float32 and leaf.dim() >= 2
+        out["all-gather"] += (n - 1) / n * (2 if cast else 4) * leaf.numel()
+        out["reduce-scatter"] += (n - 1) / n * 4 * leaf.numel()
+        for a in MESH.axis_names:
+            if a not in used:
+                m = MESH.shape[a]
+                out["all-reduce"] += 2 * (m - 1) / m * 4 * leaf.numel() / n
+    small = get_config(arch, reduced=True)
+    batch = {k: torch.zeros((1, 8), dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    metrics = TT.loss_fn(small, TT.init_params(small, 0, device="cpu"),
+                         batch)[1]
+    for a in MESH.axis_names:
+        m = MESH.shape[a]
+        out["all-reduce"] += 2 * (m - 1) / m * 4 * (len(metrics) + 1)
+    return out
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mamba2-780m"])
+def test_pure_dp_cell_prices_its_collectives(arch):
+    """The pure data-parallel train cell runs one device's ZeRO step on
+    the fake 16 x 16 mesh: wire bytes by kind equal the spec trees'
+    formula (about 6 x 255/256 bytes a parameter), ``collective_s`` is
+    them over NVLink's rate, FLOPs a device equal the whole program's over
+    256, and a device reads whole weights for its one row, so its bytes
+    exceed the whole program's over 256.  No process group is left."""
+    r = DR.run_cell(arch, "train_4k", probe=False, verbose=False)
+    assert not dist.is_initialized()
+    assert r["status"] == "OK" and r["placed"], r.get("error")
+    got = {k: 0.0 for k in RL.KINDS}
+    for row in r["collectives"]:
+        got[row["kind"]] += row["wire_bytes"]
+    want = _zero_wire_bytes(arch)
+    for kind in RL.KINDS:
+        assert got[kind] == pytest.approx(want[kind], rel=1e-9, abs=0), kind
+    total = sum(want.values())
+    params = get_config(arch).param_count()
+    assert total == pytest.approx(6 * 255 / 256 * params, rel=2e-3)
+    assert r["cost"]["coll_bytes_per_device"] == pytest.approx(total,
+                                                                rel=1e-9)
+    assert r["roofline"]["collective_s"] == pytest.approx(
+        total / LM.NVLINK_BW, rel=1e-9)
+    fn, args, *_ = ST.build_cell(get_config(arch), "train_4k",
+                                 LM.make_production_mesh())
+    _, whole = DR.count(fn, args)
+    assert r["cost"]["flops_per_device"] == whole.flops / 256
+    assert r["cost"]["bytes_per_device"] > whole.bytes_accessed / 256
+
+
+def test_pure_dp_cell_unplaced_prices_the_one_process_program():
+    """``placed=False`` prices the program a one-card run of the cell
+    executes (``build_cell`` on the LogicalMesh): the whole program's
+    counts over 256, no collective, and the reason why."""
+    r = DR.run_cell("tinyllama-1.1b", "train_4k", probe=False,
+                    verbose=False, placed=False)
+    assert not dist.is_initialized()
+    assert r["status"] == "OK" and r["dp_only"] and not r["placed"]
+    assert r["collectives"] is None and "placed" in r["collectives_reason"]
+    fn, args, *_ = ST.build_cell(get_config("tinyllama-1.1b"), "train_4k",
+                                 LM.make_production_mesh())
+    _, whole = DR.count(fn, args)
+    assert r["cost"]["flops_per_device"] == whole.flops / 256
+    assert r["cost"]["bytes_per_device"] == whole.bytes_accessed / 256
+    assert r["roofline"]["collective_s"] == 0
 
 
 @pytest.mark.parametrize("save", [True, False])
