@@ -184,7 +184,8 @@
    rank's ``generate`` walls beside the card.
 13. ZeRO data-parallel training on a placed state: ZERO_RANKS processes
    spawned on the one card (gloo on CUDA tensors) place tinyllama-1.1b's
-   and mamba2-780m's f32 states at full width and depth (seed 0) on a
+   and mamba2-780m's f32 states at full width and half depth (11 of 22
+   and 24 of 48 layers; seed 0) on a
    ("data",) mesh with ``place_state`` and train them with
    ``make_train_step`` (bf16 compute, remat, z-loss 1e-4), each rank on
    its own row of ZERO_SEQ tokens: one untimed step, then ZERO_STEPS
@@ -198,10 +199,32 @@
    plain step and sums its blocks' squares; one all-reduce adds the
    ranks' sums).  Prints each rank's step seconds, bytes a step by
    collective kind and the time in gloo.
-14. Prints the kernels as one JSON line (launches summed over the main
+14. Tensor-parallel training on local shards: four processes spawned on
+   the one card (gloo on CUDA tensors) form a (data 2, model 2) mesh and
+   train yi-6b (4 of 32 layers) and olmoe-1b-7b (2 of 16 layers; the
+   dense MoE) at full width, f32 states from seed 0 placed by
+   ``place_state`` with ``param_specs``' layout (split on the model axis)
+   and ZeRO-1 over the data axis, with ``make_train_step`` (bf16 compute,
+   remat, z-loss 1e-4), each data rank on its own row of TP_SEQ tokens:
+   one untimed step, then TP_STEPS timed.  Each rank's state bytes within
+   1% of the spec tree's a device; every rank launched ``flash_attention``
+   and ``flash_attention_bwd`` through their wrappers at its own heads
+   (counts zeroed before the first model, read after the last timed
+   step); step 1 held leaf by leaf to one process's plain step on the
+   whole batch by phase 13's rule.  Prints each rank's step seconds, the
+   time in gloo, bytes a step by collective kind and mesh axis, the
+   allocator's peak and the kernels' local shapes.  Then eight processes
+   form a ("model",) axis of more ranks than yi-6b's 4 KV heads (as the
+   production axis of 16 is): its attention at full width, forward and
+   backward on each rank's columns (k and v gathered whole, the rank's KV
+   head taken), held to the unplaced attention on the whole weights.
+   The attention kernels are also held to their plain versions at each
+   rank's heads in phases 2 and 10.
+15. Prints the kernels as one JSON line (launches summed over the main
    path's, the families' and the elastic A/B's serving runs, the
-   training runs, the train cell, the placed run and the ZeRO run, and
-   by path), the card, and last ``{"ok": true, "device": {...}}``.
+   training runs, the train cell, the placed run, the ZeRO run and the
+   tensor-parallel run, and by path), the card, and last
+   ``{"ok": true, "device": {...}}``.
 
 The host's side of the checks of phases 4 to 8 (their plain versions on
 the host and the comparisons) runs on a worker thread beside the card's
@@ -214,6 +237,7 @@ before printing any result.  Imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -354,15 +378,30 @@ PLACED_BYTES_TOL = 0.06  # tests/test_elastic_serving.py's placement check
 QMM_SHARDS = 8
 # Phase 13: ZeRO data-parallel training on a placed state.  ZERO_RANKS
 # processes share the one card (gloo on CUDA tensors), a ("data",) mesh;
-# each of ZERO_ARCHS at full width and depth trains on ZERO_SEQ tokens a
-# rank (one row), one untimed step then ZERO_STEPS timed, the first held
-# to one process's plain step on the whole batch.
+# each of ZERO_ARCHS at full width, cut to half its depth (the smoke's
+# time: phase 14 joined it), trains on ZERO_SEQ tokens a rank (one row),
+# one untimed step then ZERO_STEPS timed, the first held to one process's
+# plain step on the whole batch.
 ZERO_RANKS = 2
-ZERO_ARCHS = (TRAIN_ARCH, SSM_TRAIN_ARCH)
+ZERO_ARCHS = ((TRAIN_ARCH, 11), (SSM_TRAIN_ARCH, 24))
 ZERO_SEQ = 1024
 ZERO_STEPS = 2
 ZERO_BYTES_TOL = 0.01  # a rank's state bytes against its spec tree's
 ZERO_WELL = 0.1  # |gradient| / its leaf's rms above which Adam's step holds
+# Phase 14: tensor-parallel training on local shards.  TP_MESH's ranks share
+# the one card (gloo on CUDA tensors), a (data, model) mesh; each of
+# TP_ARCHS at full width, cut to its layers, trains on TP_SEQ tokens a data
+# rank (one row), one untimed step then TP_STEPS timed, the first held to
+# one process's plain step on the whole batch.
+TP_MESH = (2, 2)
+TP_ARCHS = (("yi-6b", 4), ("olmoe-1b-7b", 2))
+TP_SEQ = 1024
+TP_STEPS = 2
+# Phase 14 (b): the KV gather.  TP_GATHER's ranks share the card, a
+# ("model",) axis of more ranks than the model's KV heads (yi-6b's 4 over 8,
+# as over the production axis of 16): wk's and wv's columns cut a head, so
+# each rank gathers k and v whole and takes the KV head its queries read.
+TP_GATHER = ("yi-6b", 8)
 
 # The main path's kernels by the profiler's names: the substrings of each
 # wrapper's kernel (the decode kernels' split pass, dense or paged).
@@ -460,6 +499,19 @@ def check_flash(ops, ref, g, cfgs) -> dict:
                     ops.flash_attention(q, k, v, **kw),
                     ref.flash_attention(q, k, v, **kw), TOL[dt], TOL[dt]))
                 n += 1
+    for H, KV, D in tp_shapes():  # phase 14's heads on a rank, causal bf16
+        what = f"flash_attention {1, TP_SEQ, H, KV, D} phase 14's rank"
+        q, k, v = (rand(g, 1, TP_SEQ, n_, D, dtype=torch.bfloat16)
+                   for n_ in (H, KV, KV))
+        got = ops.flash_attention(q, k, v, causal=True)
+        want = ref.flash_attention(q, k, v, causal=True)
+        worst = max(worst, compare(what, got, want, TOL[torch.bfloat16],
+                                   TOL[torch.bfloat16]))
+        if rel_l2(got.float(), want.float()) > FLASH_REL_TOL:
+            raise AssertionError(f"{what}: relative l2 err "
+                                 f"{rel_l2(got.float(), want.float()):.3g} "
+                                 f"(tol {FLASH_REL_TOL})")
+        n += 1
     # Main path.  SDPA has neither softcap nor window: it times the same
     # shapes causal, a yardstick of a nearby function.
     first = f"main {cfgs[0].name}", torch.float32
@@ -2715,6 +2767,16 @@ def check_flash_bwd(ref, g, cfgs) -> dict:
                     fa.flash_attention_bwd(q, k, v, out, do, lse, **kw),
                     ref.flash_attention_bwd(q, k, v, do, **kw), dt))
                 n += 1
+    for H, KV, D in tp_shapes():  # phase 14's heads on a rank, causal bf16
+        q, k, v, do = (rand(g, 1, TP_SEQ, n_, D, dtype=torch.bfloat16)
+                       for n_ in (H, KV, KV, H))
+        out, lse = fa.flash_attention_lse(q, k, v, causal=True)
+        worst = max(worst, hold_grads(
+            f"flash_attention_bwd {1, TP_SEQ, H, KV, D} phase 14's rank",
+            fa.flash_attention_bwd(q, k, v, out, do, lse, causal=True),
+            ref.flash_attention_bwd(q, k, v, do, causal=True),
+            torch.bfloat16))
+        n += 1
     row = None
     for what, B, S, H, KV, D, dt, kw in flash_bwd_rows(cfgs):
         r = flash_bwd_row(fa, ref, g, what, B, S, H, KV, D, dt, kw)
@@ -3768,28 +3830,29 @@ def check_placed(world: int = PLACED_RANKS) -> dict:
 
 
 class GlooClock:
-    """Times and sizes every collective the ZeRO step calls on this rank:
-    ``torch.distributed``'s three entry points wrapped, the card
-    synchronized before and after each (the time in gloo, which copies
-    CUDA tensors through the host), each call's output recorded as a
-    ``roofline.Collective`` (bytes by kind, wire bytes by the ring
+    """Times and sizes every collective a placed training step calls on
+    this rank: ``torch.distributed``'s three entry points wrapped, the
+    card synchronized before and after each (the time in gloo, which
+    copies CUDA tensors through the host), each call's output recorded as
+    a ``roofline.Collective`` with the axis of ``mesh`` its group spans
+    (bytes by kind and by kind and axis, wire bytes by the ring
     formulas)."""
 
     KINDS = {"all_gather_into_tensor": "all-gather",
              "reduce_scatter_tensor": "reduce-scatter",
              "all_reduce": "all-reduce"}
 
-    def __init__(self):
+    def __init__(self, mesh=None):
         import torch.distributed as dist
 
+        from repro_torch.launch.dryrun import axes_of
+
         self.dist, self.orig = dist, {}
+        self.axis_of = {} if mesh is None else axes_of(mesh)
         self.reset()
         for name, kind in self.KINDS.items():
             self.orig[name] = getattr(dist, name)
             setattr(dist, name, self._wrap(name, kind))
-
-    def reset(self):
-        self.secs, self.records = 0.0, []
 
     def _wrap(self, name, kind):
         from repro_torch.launch.roofline import Collective
@@ -3805,27 +3868,36 @@ class GlooClock:
             self.records.append(Collective(
                 kind, out.dtype, tuple(out.shape),
                 self.dist.get_world_size(group)))
+            self.axes.append(self.axis_of.get(
+                getattr(group, "group_name", None), "world"))
             return res
         return call
 
+    def reset(self):
+        self.secs, self.records, self.axes = 0.0, [], []
+
     def summary(self, steps: int) -> dict:
-        """Per step: the time in gloo, and bytes and wire bytes by kind."""
+        """Per step: the time in gloo, the calls, and bytes by kind, by
+        kind and mesh axis, and wire bytes by kind."""
         from repro_torch.launch.roofline import collective_wire_bytes
 
         out = {"gloo_s": self.secs / steps, "calls": len(self.records)
-               / steps, "bytes": {}, "wire_bytes": {}}
-        for rec in self.records:
-            n = rec.dtype.itemsize * math.prod(rec.shape)
-            out["bytes"][rec.kind] = out["bytes"].get(rec.kind, 0) + n / steps
+               / steps, "bytes": {}, "by_axis": {}, "wire_bytes": {}}
+        for rec, axis in zip(self.records, self.axes):
+            n = rec.dtype.itemsize * math.prod(rec.shape) / steps
+            out["bytes"][rec.kind] = out["bytes"].get(rec.kind, 0) + n
+            key = f"{rec.kind} ({str(rec.dtype).split('.')[-1]}) on {axis}"
+            out["by_axis"][key] = out["by_axis"].get(key, 0) + n
         for k, v in collective_wire_bytes(self.records).items():
             if v:
                 out["wire_bytes"][k] = v / steps
         return out
 
 
-def zero_rank(rank: int, root: str, world: int) -> None:
-    """One rank of phase 13 (a spawned process): the group over gloo
-    (file rendezvous under ``root``), then :func:`zero_run`; rank 0
+def zero_rank(rank: int, root: str, world: int, run) -> None:
+    """One rank of phase 13 or 14 (a spawned process): the group over gloo
+    (file rendezvous under ``root``), then ``run(rank, world)``
+    (:func:`zero_run`, :func:`tp_run`, :func:`tp_gather_run`); rank 0
     writes its result to ``root``/result.json."""
     import datetime
     import faulthandler
@@ -3841,7 +3913,7 @@ def zero_rank(rank: int, root: str, world: int) -> None:
                             rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=600))
     try:
-        out = zero_run(rank, world)
+        out = run(rank, world)
     finally:
         dist.destroy_process_group()
     if rank == 0:
@@ -3856,6 +3928,21 @@ def host_rss_gb() -> float:
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
 
 
+def host_now_gb() -> tuple:
+    """(this process's resident host memory, the machine's available
+    memory), GB, from /proc; None where a line is missing."""
+    out = []
+    for path, key in (("/proc/self/status", "VmRSS:"),
+                      ("/proc/meminfo", "MemAvailable:")):
+        try:
+            line = next(x for x in Path(path).read_text().splitlines()
+                        if x.startswith(key))
+            out.append(int(line.split()[1]) * 1024 / 1e9)
+        except (OSError, StopIteration):
+            out.append(None)
+    return tuple(out)
+
+
 def release_memory() -> None:
     """The card's cached blocks and the pinned host blocks (gloo stages
     CUDA tensors through them) given back."""
@@ -3865,8 +3952,8 @@ def release_memory() -> None:
 
 
 def zero_run(rank: int, world: int) -> dict:
-    """Phase 13 on one rank: each of ZERO_ARCHS at full width and depth,
-    its f32 state from seed 0 placed by ``place_state`` on a ("data",)
+    """Phase 13 on one rank: each of ZERO_ARCHS at full width and its cut
+    depth, its f32 state from seed 0 placed by ``place_state`` on a ("data",)
     mesh of ``world`` ranks (each rank copying its own slice), trained by
     ``make_train_step`` (bf16 compute, remat, z-loss) on the rank's row of
     the synthetic stream's batch: step 1, held to one process's plain step
@@ -3875,7 +3962,6 @@ def zero_run(rank: int, world: int) -> dict:
     spec tree's bytes a device, losses finite."""
     import torch.distributed as dist
 
-    from repro_torch.configs import get_config
     from repro_torch.distributed import sharding as SH
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention_bwd
@@ -3895,8 +3981,8 @@ def zero_run(rank: int, world: int) -> dict:
     for f in fns.values():
         f.launches = 0
     runs, held = [], []
-    for arch in ZERO_ARCHS:
-        cfg = get_config(arch)
+    for arch, layers in ZERO_ARCHS:
+        cfg = cut_config(arch, layers)
         opt = AdamW(lr=1e-4)
         t0 = time.perf_counter()
         state = init_state(cfg, 0, opt, dtype=torch.float32, device="cuda")
@@ -3936,7 +4022,7 @@ def zero_run(rank: int, world: int) -> dict:
         # ZeRO path's.
         counts = {k: f.launches for k, f in fns.items()}
         t0 = time.perf_counter()
-        rec = zero_held(arch, new, float(m1["loss"]),
+        rec = zero_held(cfg, new, float(m1["loss"]),
                         float(m1["grad_norm"]), rank, world)
         held.append(dict(rec, secs=time.perf_counter() - t0))
         for k, f in fns.items():
@@ -3958,7 +4044,8 @@ def zero_run(rank: int, world: int) -> dict:
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         del new
         release_memory()
-        runs.append(dict(arch=arch, place_s=place_s, first_s=first_s,
+        runs.append(dict(arch=arch, layers=layers, place_s=place_s,
+                         first_s=first_s,
                          step_s=walls, losses=losses, blocks=blocks,
                          spec_bytes=spec_bytes[0], allocated=allocated,
                          peak_gb=peak_gb,
@@ -3971,12 +4058,24 @@ def zero_run(rank: int, world: int) -> dict:
             "held": held} if rank == 0 else {}
 
 
-def zero_held(arch: str, new, loss: float, grad_norm: float, rank: int,
+def zero_held(cfg, new, loss: float, grad_norm: float, rank: int,
               world: int) -> dict:
-    """Step 1 of the ZeRO run (``new``: this rank's placed state after it;
+    """Step 1 of the ZeRO run held to one process's plain step on the
+    whole ``world`` x ZERO_SEQ batch (:func:`held_to_plain`)."""
+    from repro_torch.training.data import DataConfig, SyntheticStream
+
+    batch = train_batch(SyntheticStream(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=ZERO_SEQ, global_batch=world)), 0)
+    return held_to_plain("zero", cfg, batch, new, loss, grad_norm, rank,
+                         world)
+
+
+def held_to_plain(what: str, cfg, batch, new, loss: float, grad_norm: float,
+                  rank: int, world: int) -> dict:
+    """Step 1 of a placed run (``new``: this rank's placed state after it;
     its loss and gradient norm) held to one process's plain step on the
-    whole ``world`` x ZERO_SEQ batch from the same seed's weights, by
-    PERF.md section 2's bf16 rule: the loss, the gradient norm, and leaf
+    whole ``batch`` from the same seed's weights, by PERF.md section 2's
+    bf16 rule: the loss, the gradient norm, and leaf
     by leaf the gradient (the first moment after step 1: 1 - b1 times the
     clipped gradient), the params and their update, each within 3e-2
     relative, params and update compared away from their ill-conditioned
@@ -3991,24 +4090,23 @@ def zero_held(arch: str, new, loss: float, grad_norm: float, rank: int,
     and every leaf together."""
     import torch.distributed as dist
 
-    from repro_torch.configs import get_config
     from repro_torch.distributed import sharding as SH
+    from repro_torch.models import transformer as T
     from repro_torch.training import pytree
-    from repro_torch.training.data import DataConfig, SyntheticStream
-    from repro_torch.training.optim import AdamW
-    from repro_torch.training.train_step import init_state, make_train_step
+    from repro_torch.training.optim import AdamW, AdamWState
+    from repro_torch.training.train_step import TrainState, make_train_step
 
-    cfg = get_config(arch)
+    arch = cfg.name
     opt = AdamW(lr=1e-4)
-    batch = train_batch(SyntheticStream(DataConfig(
-        vocab_size=cfg.vocab_size, seq_len=ZERO_SEQ, global_batch=world)), 0)
     paths = ["/".join(map(str, p)) for p, _ in
              pytree.flatten_with_path(new.params)[0]]
     like = pytree.leaves(new.params)  # every params leaf is as its mu is
     got_mu = [SH.local_block(t) for t in pytree.leaves(new.opt.mu)]
     got_p = [SH.local_block(t) for t in like]
-    # A leaf every rank holds whole counts once over the ranks' sums.
-    share = [1.0 if any(q.is_shard() for q in t.placements) else 1 / world
+    # A block that the ranks of a mesh dim hold alike counts once over the
+    # ranks' sums.
+    share = [1.0 / math.prod(t.device_mesh.size(i) for i, q in
+                             enumerate(t.placements) if not q.is_shard())
              for t in like]
 
     def block(whole, placed):
@@ -4020,8 +4118,16 @@ def zero_held(arch: str, new, loss: float, grad_norm: float, rank: int,
         return whole.clone()
 
     def plain(compute_dtype):
-        """This rank's blocks of one process's plain step."""
-        state = init_state(cfg, 0, opt, dtype=torch.float32, device="cuda")
+        """This rank's blocks of one process's plain step, from
+        ``init_state``'s weights and zero moments (held as one expanded
+        zero: the same step without 8 bytes a parameter of zeros, while
+        the other ranks hold their states on the same card)."""
+        params = T.init_params(cfg, 0, torch.float32, device="cuda")
+        zero = torch.zeros((), dtype=torch.float32, device="cuda")
+        zeros = pytree.tree_map(lambda t: zero.expand(t.shape), params)
+        state = TrainState(params, AdamWState(
+            torch.zeros((), dtype=torch.int32), zeros, zeros), None)
+        del params
         p0 = [block(t, q) for t, q in zip(pytree.leaves(state.params), like)]
         after, m = make_train_step(cfg, opt, remat=True, z_loss=TRAIN_Z,
                                    compute_dtype=compute_dtype)(state, batch)
@@ -4048,6 +4154,7 @@ def zero_held(arch: str, new, loss: float, grad_norm: float, rank: int,
         for r in range(world):
             if r == rank:
                 rows = torch.tensor(fn(), dtype=torch.float64)
+                release_memory()
             dist.barrier()
         dist.all_reduce(rows)
         return rows
@@ -4118,8 +4225,8 @@ def zero_held(arch: str, new, loss: float, grad_norm: float, rank: int,
         rec["f32_rule"] = f32
         over = [x for x in f32 if x["zero_from_f32"] > 2 * x["plain_from_f32"]]
         if over:
-            raise AssertionError(f"zero: {arch} past the bf16 rule: {over}; "
-                                 f"{rec}")
+            raise AssertionError(f"{what}: {arch} past the bf16 rule: "
+                                 f"{over}; {rec}")
     del want, keep
     release_memory()
     return rec
@@ -4133,18 +4240,11 @@ def check_zero(world: int = ZERO_RANKS) -> dict:
     step seconds, bytes a step by collective kind, the time in gloo, and
     rank 0's comparison with the plain step.  Returns the launches summed
     over the ranks."""
-    import tempfile
-
-    import torch.multiprocessing as mp
-
     release_memory()
     print(f"zero: {world} ranks on {card()}, ZeRO data parallelism over "
           "gloo on CUDA tensors (NCCL refuses two ranks on one device); "
           f"this process's peak host memory {host_rss_gb():.1f} GB")
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as root:
-        mp.start_processes(zero_rank, args=(root, world), nprocs=world,
-                           start_method="spawn")
-        out = json.loads(Path(root, "result.json").read_text())
+    out = spawn_ranks(zero_run, world)
     total = {}
     for r, rk in enumerate(out["ranks"]):
         for k, n in rk["launches"].items():
@@ -4152,7 +4252,8 @@ def check_zero(world: int = ZERO_RANKS) -> dict:
                 raise AssertionError(f"zero: rank {r} never launched {k}")
             total[k] = total.get(k, 0) + n
         for run in rk["runs"]:
-            print(f"zero: rank {r} {run['arch']} ({card()}): placed in "
+            print(f"zero: rank {r} {run['arch']} ({run['layers']} layers; "
+                  f"{card()}): placed in "
                   f"{run['place_s']:.1f} s, {run['blocks']} B of blocks "
                   f"({run['blocks'] / run['spec_bytes']:.6f} of the spec "
                   f"tree's a device; allocator {run['allocated']} B), step "
@@ -4172,6 +4273,346 @@ def check_zero(world: int = ZERO_RANKS) -> dict:
     for rec in out["held"]:
         print("zero: against one process's plain step: " + json.dumps(rec))
     return total
+
+
+def tp_run(rank: int, world: int) -> dict:
+    """Phase 14 on one rank: each of TP_ARCHS at full width and cut depth,
+    its f32 state from seed 0 placed by ``place_state`` with
+    ``param_specs``' layout (split on the model axis) and ZeRO-1 over the
+    data axis of a TP_MESH (data, model) mesh (the ranks in turn build the
+    whole state and copy their slices, so one whole state is on the card
+    at a time), trained by ``make_train_step`` (bf16 compute, remat,
+    z-loss, the dense MoE) on its data rank's row of the synthetic
+    stream's batch: step 1, held to one process's plain step
+    (:func:`held_to_plain`, every rank taking part), then TP_STEPS timed
+    steps.  Gates: the rank's state bytes within ZERO_BYTES_TOL of the
+    spec tree's bytes a device, losses finite, the attention kernels run
+    on the rank's own heads.  Records the local shapes the two attention
+    kernels were called at on the placed steps."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.training.data import DataConfig, SyntheticStream
+    from repro_torch.training.optim import AdamW
+    from repro_torch.training.train_step import init_state, make_train_step
+
+    fns = {"flash_attention": ops.flash_attention,
+           "flash_attention_bwd": FA.flash_attention_bwd}
+    shapes = {k: set() for k in fns}
+    mesh = make_mesh(TP_MESH, ("data", "model"), "cuda")
+    lm = SH.logical(mesh)
+    # Every rank's first card work and first collective on each mesh axis
+    # together, not in the placement's turns below.
+    warm = torch.ones((1024, 1024), device="cuda")
+    warm = warm @ warm
+    for i in range(mesh.ndim):
+        dist.all_reduce(warm, group=mesh.get_group(i))
+    torch.cuda.synchronize()
+    del warm
+    clock = GlooClock(mesh)
+    d = mesh.get_coordinate()[0]
+    for f in fns.values():
+        f.launches = 0
+    runs, held = [], []
+    for arch, layers in TP_ARCHS:
+        cfg = cut_config(arch, layers)
+        opt = AdamW(lr=1e-4)
+        t0 = time.perf_counter()
+        for r in range(world):  # one whole state on the card at a time
+            if r == rank:
+                state = init_state(cfg, 0, opt, dtype=torch.float32,
+                                   device="cuda")
+                sspecs = SH.state_specs(cfg, state, lm, SH.param_specs(
+                    cfg, state.params, lm))
+                spec_bytes = [0.0]
+                SH.spec_map(lambda sp, t: spec_bytes.__setitem__(
+                    0, spec_bytes[0] + t.numel() * t.element_size()
+                    / SH._divisor(sp, lm)), sspecs, state)
+                placed = SH.place_state(state, mesh, sspecs)
+                del state
+                release_memory()
+            dist.barrier()
+        place_s = time.perf_counter() - t0
+        blocks = SH.local_nbytes(placed)
+        allocated = torch.cuda.memory_allocated()
+        if abs(blocks / spec_bytes[0] - 1) > ZERO_BYTES_TOL:
+            raise AssertionError(f"tp: {arch} rank {rank} holds {blocks} "
+                                 f"B, the spec tree {spec_bytes[0]:.0f} B")
+        ds = SyntheticStream(DataConfig(vocab_size=cfg.vocab_size,
+                                        seq_len=TP_SEQ,
+                                        global_batch=TP_MESH[0]))
+
+        def mine(s):
+            return {k: v[d:d + 1] for k, v in train_batch(ds, s).items()}
+
+        step = make_train_step(cfg, opt, remat=True, z_loss=TRAIN_Z)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with attention_shapes(shapes):
+            new, m1 = step(placed, mine(0))
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        del placed
+        release_memory()
+        # The plain steps' kernel launches are the comparison's, not the
+        # tensor-parallel path's.
+        counts = {k: f.launches for k, f in fns.items()}
+        t0 = time.perf_counter()
+        rec = held_to_plain("tp", cfg, train_batch(ds, 0), new,
+                            float(m1["loss"]), float(m1["grad_norm"]), rank,
+                            world)
+        held.append(dict(rec, secs=time.perf_counter() - t0))
+        for k, f in fns.items():
+            f.launches = counts[k]
+        release_memory()
+        torch.cuda.reset_peak_memory_stats()  # the timed steps' peak
+        clock.reset()
+        walls, losses = [], [float(m1["loss"])]
+        for s in range(1, TP_STEPS + 1):
+            batch = mine(s)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with attention_shapes(shapes):
+                new, m = step(new, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"tp: {arch} rank {rank} losses {losses}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        del new
+        release_memory()
+        runs.append(dict(arch=arch, layers=layers, place_s=place_s,
+                         first_s=first_s, step_s=walls, losses=losses,
+                         blocks=blocks, spec_bytes=spec_bytes[0],
+                         allocated=allocated, peak_gb=peak_gb,
+                         **clock.summary(TP_STEPS)))
+        dist.barrier()
+    counts = {k: f.launches for k, f in fns.items()}
+    local = {k: sorted(v) for k, v in shapes.items()}
+    every = [None] * world
+    dist.all_gather_object(every, (counts, runs, local,
+                                   mesh.get_coordinate()))
+    return {"ranks": [{"launches": c, "runs": r, "shapes": sh, "coord": co}
+                      for c, r, sh, co in every],
+            "held": held} if rank == 0 else {}
+
+
+@contextlib.contextmanager
+def attention_shapes(shapes: dict):
+    """In the block, each attention kernel launch's local (q shape, k
+    shape, dtype) added to ``shapes[kernel name]``: recorded at the
+    kernels' argument check, which every launch passes (this process's
+    own module attribute, put back after)."""
+    from repro_torch.kernels import flash_attention as FA
+
+    check = FA._check
+
+    def seen(name, q, k, v):
+        shapes[name].add((tuple(q.shape), tuple(k.shape),
+                          str(q.dtype).split(".")[-1]))
+        return check(name, q, k, v)
+
+    FA._check = seen
+    try:
+        yield shapes
+    finally:
+        FA._check = check
+
+
+def tp_gather_run(rank: int, world: int) -> dict:
+    """Phase 14 (b) on one rank of a ("model",) axis of ``world`` ranks,
+    more than TP_GATHER's KV heads: the model's attention at full width
+    (bf16, TP_SEQ tokens; weights from seed 0 scaled by d_model^-1/2) on
+    the rank's columns of wq, wk and wv as ``param_specs`` splits them
+    (wk's and wv's cut a head), forward and backward through
+    ``layers.attention_prefill`` under the model axis (k and v gathered
+    whole, the rank's KV head taken), held to the same attention unplaced
+    on the whole weights: the rank's heads of the output, the input's
+    gradient (all-reduced over the axis) and the rank's columns of each
+    weight's gradient, each by relative l2 (held in :func:`check_tp`).
+    Records the attention kernels' launches and local shapes in the placed
+    run only."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.ctx import tensor_parallel
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+
+    cfg = get_config(TP_GATHER[0])
+    H, KV, hd, D = (cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
+                    cfg.d_model)
+    window = cfg.window_for_kind(cfg.layer_kinds()[0])
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = rand(g, 1, TP_SEQ, D, dtype=torch.bfloat16)
+    whole = {k: rand(g, D, n * hd, dtype=torch.bfloat16, scale=D ** -0.5)
+             for k, n in (("wq", H), ("wk", KV), ("wv", KV))}
+    dout = rand(g, 1, TP_SEQ, H * hd, dtype=torch.bfloat16)
+    pos = torch.arange(TP_SEQ, device="cuda")
+
+    def cols(t):
+        n = t.shape[-1] // world
+        return t[..., rank * n:(rank + 1) * n].contiguous()
+
+    def attend(lp, do):
+        leaves = [t.detach().requires_grad_() for t in (x, *lp.values())]
+        with torch.enable_grad():
+            out, _, _ = L.attention_prefill(
+                cfg, dict(zip(lp, leaves[1:])), leaves[0], pos, window)
+            grads = torch.autograd.grad(out, leaves, do)
+        return out.detach(), grads
+
+    fns = {"flash_attention": ops.flash_attention,
+           "flash_attention_bwd": FA.flash_attention_bwd}
+    for f in fns.values():
+        f.launches = 0
+    shapes = {k: set() for k in fns}
+    dist.barrier()
+    t0 = time.perf_counter()
+    with (attention_shapes(shapes),
+          tensor_parallel(dist.group.WORLD, rank, world)):
+        out, grads = attend({k: cols(w) for k, w in whole.items()},
+                            cols(dout))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = {k: f.launches for k, f in fns.items()}
+    want, want_grads = attend(whole, dout)
+    errs = {"out": rel_l2(out.float(), cols(want).float()),
+            "dx": rel_l2(grads[0].float(), want_grads[0].float())}
+    for name, got, w in zip(whole, grads[1:], want_grads[1:]):
+        errs[f"d{name}"] = rel_l2(got.float(), cols(w).float())
+    every = [None] * world
+    dist.all_gather_object(every, (counts, {k: sorted(v) for k, v in
+                                            shapes.items()}, errs, secs))
+    return {"ranks": [{"launches": c, "shapes": sh, "errs": e, "secs": t}
+                      for c, sh, e, t in every]} if rank == 0 else {}
+
+
+def tp_shapes() -> list:
+    """(H, KV, D) of each attention phase 14 runs on a rank: each of
+    TP_ARCHS's query and KV heads over TP_MESH's model axis, and
+    TP_GATHER's query heads over its ranks with one (gathered) KV head."""
+    from repro_torch.configs import get_config
+
+    out = []
+    for arch, m in [(a, TP_MESH[1]) for a, _ in TP_ARCHS] + [TP_GATHER]:
+        cfg = get_config(arch)
+        out.append((cfg.num_heads // m, max(cfg.num_kv_heads // m, 1),
+                    cfg.resolved_head_dim))
+    return out
+
+
+def check_tp(world: int = math.prod(TP_MESH)) -> dict:
+    """Phase 14: ``world`` ranks spawned on the one card run
+    :func:`tp_run`; holds what they report: every rank launched
+    ``flash_attention`` and ``flash_attention_bwd`` through their wrappers
+    (counts zeroed before the first model, read after the last timed
+    step), each at its own heads only (the query and KV heads that
+    ``param_specs`` gives a rank of the model axis).  Prints each rank's
+    step seconds, the time in gloo, bytes a step by collective kind and
+    mesh axis, its blocks against the spec tree's bytes a device, the
+    allocator's peak, its launches and their local shapes, and rank 0's
+    comparison with the plain step.  Then (b) TP_GATHER's ranks run
+    :func:`tp_gather_run`: every rank launched both kernels at its heads
+    and the one KV head it takes, each figure within the bf16 TOL by
+    relative l2 (the rule phases 13 and 14 hold a step's leaves to; the
+    partial gradients are summed in bf16 over the ranks, one rounding
+    each more than the unplaced attention).
+    Returns the launches summed over the ranks of both."""
+    release_memory()
+    now, free = host_now_gb()
+    print(f"tp: {world} ranks on {card()}, a (data, model) mesh of "
+          f"{TP_MESH}, tensor parallelism over gloo on CUDA tensors (NCCL "
+          "refuses two ranks on one device); this process's peak host "
+          f"memory {host_rss_gb():.1f} GB, now {now} GB; the machine's "
+          f"available memory {free} GB")
+    # Four ranks' states and a plain step on one card: the children take
+    # the allocator's setting from the environment.
+    env = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        out = spawn_ranks(tp_run, world)
+    finally:
+        if env is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = env
+    shape = [((1, TP_SEQ, H, D), (1, TP_SEQ, KV, D), "bfloat16")
+             for H, KV, D in tp_shapes()]
+    total = {}
+
+    def hold_launches(r, rk, want):
+        for k, n in rk["launches"].items():
+            if n == 0:
+                raise AssertionError(f"tp: rank {r} never launched {k}")
+            total[k] = total.get(k, 0) + n
+        for k, got in rk["shapes"].items():
+            if {tuple(map(tuple, x[:2])) + (x[2],) for x in got} != want:
+                raise AssertionError(f"tp: rank {r} ran {k} at {got}, not "
+                                     f"the rank's heads {sorted(want)}")
+
+    for r, rk in enumerate(out["ranks"]):
+        hold_launches(r, rk, set(shape[:len(TP_ARCHS)]))
+        for run in rk["runs"]:
+            print(f"tp: rank {r} {tuple(rk['coord'])} {run['arch']} "
+                  f"({run['layers']} layers; {card()}): placed in "
+                  f"{run['place_s']:.1f} s, {run['blocks']} B of blocks "
+                  f"({run['blocks'] / run['spec_bytes']:.6f} of the spec "
+                  f"tree's a device; allocator {run['allocated']} B), step "
+                  f"1 {run['first_s']:.2f} s, timed steps "
+                  + ", ".join(f"{w * 1e3:.0f}" for w in run["step_s"])
+                  + f" ms, their peak {run['peak_gb']:.2f} GB allocated on "
+                  f"the card; a step: {run['calls']:.0f} collectives, "
+                  f"{run['gloo_s'] * 1e3:.0f} ms in gloo, bytes "
+                  + ", ".join(f"{k} {v / 1e9:.4f} GB"
+                              for k, v in sorted(run["by_axis"].items()))
+                  + "; wire bytes (ring formulas) "
+                  + ", ".join(f"{k} {v / 1e9:.4f} GB"
+                              for k, v in run["wire_bytes"].items())
+                  + "; losses " + ", ".join(f"{x:.4f}"
+                                            for x in run["losses"]))
+        print(f"tp: rank {r} launches {rk['launches']}, at (q, k, type) "
+              + json.dumps(rk["shapes"]))
+    for rec in out["held"]:
+        print("tp: against one process's plain step: " + json.dumps(rec))
+    arch, m = TP_GATHER
+    t0 = time.perf_counter()
+    out = spawn_ranks(tp_gather_run, m)
+    print(f"tp gather: {arch}'s attention at full width on a (\"model\",) "
+          f"axis of {m} ranks on {card()}, more than its KV heads (k and v "
+          f"gathered whole), in {time.perf_counter() - t0:.1f} s with the "
+          "spawn")
+    for r, rk in enumerate(out["ranks"]):
+        hold_launches(r, rk, {shape[-1]})
+        tol = TOL[torch.bfloat16]
+        bad = {k: e for k, e in rk["errs"].items() if not e <= tol}
+        if bad:
+            raise AssertionError(f"tp gather: rank {r} against the unplaced "
+                                 f"attention: relative l2 {bad} (tol {tol})")
+        print(f"tp gather: rank {r} forward and backward "
+              f"{rk['secs'] * 1e3:.0f} ms, launches {rk['launches']} at (q, "
+              f"k, type) {json.dumps(rk['shapes'])}; relative l2 against the "
+              "unplaced attention "
+              + ", ".join(f"{k} {e:.3g}" for k, e in rk["errs"].items()))
+    return total
+
+
+def spawn_ranks(run, world: int) -> dict:
+    """``world`` ranks spawned on the one card, each :func:`zero_rank`
+    with ``run``: rank 0's result."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as root:
+        mp.start_processes(zero_rank, args=(root, world, run),
+                           nprocs=world, start_method="spawn")
+        return json.loads(Path(root, "result.json").read_text())
 
 
 def main() -> None:
@@ -4270,6 +4711,11 @@ def run(ops, ref, get_config, host) -> None:
     t0 = time.perf_counter()
     paths["zero"] = check_zero()
     print(f"zero phase took {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    paths["tp"] = check_tp()
+    print(f"tp phase took {time.perf_counter() - t0:.1f} s")
     check_train_cuts(host)
 
     replaces = {
@@ -4299,10 +4745,15 @@ def run(ops, ref, get_config, host) -> None:
     for k in ("flash_attention", "ssd_scan"):
         counted_by[k] += ("; the ZeRO run's by the wrapper, summed over "
                           "its ranks")
+    counted_by["flash_attention"] += (
+        "; the tensor-parallel run's and its KV-gather attention's by the "
+        "wrapper, summed over their ranks (each at its own heads)")
     counted_by["flash_attention_bwd"] = (
-        "wrapper calls over the training runs, the train cell and the ZeRO "
-        "run (summed over its ranks; each launches the dQ and the dK/dV "
-        "kernels; the profiler counted both over one step)")
+        "wrapper calls over the training runs, the train cell, the ZeRO "
+        "run, the tensor-parallel run and its KV-gather attention (each "
+        "summed over its ranks; "
+        "each launches the dQ and the dK/dV kernels; the profiler counted "
+        "both over one step)")
     counted_by["ssd_scan_bwd"] = (
         "wrapper calls over the training runs, the train cell and the ZeRO "
         "run (summed over its ranks; each launches the local "

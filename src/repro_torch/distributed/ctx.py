@@ -8,12 +8,18 @@ also when a context is enabled: PyTorch has no sharding constraint on a
 plain tensor.  On a ``DTensor`` (a tenant placed across ranks, which
 installs a context while it serves, :func:`installed`) it redistributes
 the tensor to the layout the reference constrains it to.
+
+Tensor-parallel training runs on plain local shards instead: its step
+installs the model axis's process group (:func:`tensor_parallel`), which
+the helpers of :mod:`repro_torch.distributed.tensor_parallel` read.  With
+no group installed (one device, ZeRO, placed serving) every one of them is
+the identity.
 """
 from __future__ import annotations
 
 from contextlib import contextmanager
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 from torch.distributed.tensor import Replicate, Shard
 
@@ -87,3 +93,35 @@ def hint(x, *dims: Optional[str]):
     if tuple(out) == tuple(x.placements):
         return x
     return SH.redistribute(x, out)
+
+
+@dataclass(frozen=True)
+class TPGroup:
+    """The model axis of a tensor-parallel step: its process group, this
+    rank's index in it, and its size."""
+    group: Any
+    rank: int
+    size: int
+
+
+_TP: Optional[TPGroup] = None
+
+
+def get_tp() -> Optional[TPGroup]:
+    """The installed model axis, or None.  A module global, not a
+    thread's: the backward (and remat's recomputation in it) may run on
+    another thread than the forward."""
+    return _TP
+
+
+@contextmanager
+def tensor_parallel(group, rank: int, size: int):
+    """The model axis ``group`` (this rank ``rank`` of ``size``) installed
+    for the block, the previous one after it; a group of one rank installs
+    nothing."""
+    global _TP
+    prev, _TP = _TP, (TPGroup(group, rank, size) if size > 1 else None)
+    try:
+        yield _TP
+    finally:
+        _TP = prev

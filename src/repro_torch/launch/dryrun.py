@@ -12,21 +12,27 @@ wrappers hand it to their plain versions, as the reference's dry-run
 lowers on host CPUs.
 
 Where the reference lowers and compiles the SPMD-partitioned program and
-reads XLA's analyses, the port runs a program and counts it.  A pure
-data-parallel train cell (every mesh axis a data axis,
-:func:`~repro_torch.launch.steps.pure_dp`: 7 of the 10 ``train_4k``
-cells) runs one device's own program: its state placed by
+reads XLA's analyses, the port runs a program and counts it.  A train
+cell runs one device's own program: its state placed by
 :func:`~repro_torch.distributed.sharding.place_state` on a ``DeviceMesh``
 of the production shape over a fake process group
 (:func:`~repro_torch.launch.mesh.fake_production_mesh`, this process as
-rank 0), its batch rank 0's rows, and the ZeRO step of
+rank 0), its batch rank 0's rows, and the step of
 :func:`~repro_torch.training.train_step.make_train_step` gathering,
-reducing and updating rank 0's blocks.  Every other cell (serving,
-tensor-parallel training: ROADMAP A13) runs the unpartitioned program,
-the whole global batch on one process, and so does a pure data-parallel
-cell under ``run_cell(placed=False)``: the program ``build_cell`` gives
-on a ``LogicalMesh``, which a one-card run of the cell executes.
-Counted:
+reducing and updating rank 0's blocks: ZeRO over every mesh axis for a
+pure data-parallel cell (every mesh axis a data axis,
+:func:`~repro_torch.launch.steps.pure_dp`: 7 of the 10 ``train_4k``
+cells), and for yi-6b and olmoe-1b-7b ZeRO over the data axis with
+tensor parallelism over the model axis (each layer's all-reduces and
+gathers inside the forward, the backward and remat's recomputation, at
+``pick_grad_accum``'s micro-batching).  Every other cell (serving, and
+a train cell whose placed step raises ``NotImplementedError``:
+llama4-scout, whose 40 query heads do not split over 16 ranks,
+:func:`repro_torch.models.transformer.tp_train_gaps`; ROADMAP A13) runs
+the unpartitioned program, the whole global batch on one process, and
+so does a train cell under ``run_cell(placed=False)``: the program
+``build_cell`` gives on a ``LogicalMesh``, which a one-card run of the
+cell executes.  Counted:
 
 * FLOPs with ``torch.utils.flop_counter.FlopCounterMode``;
 * bytes accessed with a ``TorchDispatchMode`` that sums the operand and
@@ -41,9 +47,9 @@ Counted:
 * collectives: each ``c10d`` operation the same mode sees becomes a
   :class:`~repro_torch.launch.roofline.Collective` (kind, dtype, local
   output shape, the size of its process group), priced by
-  :func:`~repro_torch.launch.roofline.collective_wire_bytes`.  A cell
-  that is not placed calls none: its ``collectives`` are null, with the
-  reason.
+  :func:`~repro_torch.launch.roofline.collective_wire_bytes`, and is
+  listed with the mesh axis of its group.  A cell that is not placed
+  calls none: its ``collectives`` are null, with the reason.
 
 **Per-device cost**: a placed cell's counts are already a device's.  An
 unplaced cell's are divided by the mesh's chips: a partitioned step
@@ -69,12 +75,14 @@ reads; the extrapolation equals it wherever every layer is the same kind.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-6b --shape train_4k
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --no-probe
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --rank-step yi-6b:4 olmoe-1b-7b:2
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import math
 import os
 import time
 import traceback
@@ -91,7 +99,8 @@ from repro_torch.distributed.sharding import (LogicalMesh, _divisor,
                                                logical, spec_map)
 from repro_torch.kernels import ref
 from repro_torch.launch import roofline as RL
-from repro_torch.launch.mesh import (HBM_BYTES, fake_production_mesh,
+from repro_torch.launch.mesh import (HBM_BYTES, fake_mesh,
+                                    fake_production_mesh,
                                     make_production_mesh)
 from repro_torch.launch.steps import build_cell, pure_dp
 from repro_torch.models.config import SHAPE_SPECS, cell_is_runnable
@@ -135,12 +144,15 @@ class ByteCounter(TorchDispatchMode):
     operation that is not a view (a view moves nothing), outside a
     kernel's plain version, and those of each kernel's inputs and outputs
     (:data:`repro_torch.kernels.ref.KERNEL_IO`); makes each collective a
-    :class:`~repro_torch.launch.roofline.Collective` record."""
+    :class:`~repro_torch.launch.roofline.Collective` record, and names
+    its mesh axis in ``axes`` (from ``axis_of``: a process group's name to
+    its mesh axis; None where it is not there)."""
 
-    def __init__(self):
+    def __init__(self, axis_of: Optional[dict] = None):
         super().__init__()
         self.bytes = 0
-        self.collectives = []
+        self.collectives, self.axes = [], []
+        self.axis_of = axis_of or {}
 
     def __enter__(self):
         self._kernel_bytes = ref.KERNEL_IO.bytes
@@ -153,7 +165,9 @@ class ByteCounter(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
         if func.namespace in _COLLECTIVE_NAMESPACES:
-            self.collectives += _records(func, args)
+            recs, group = _records(func, args)
+            self.collectives += recs
+            self.axes += [self.axis_of.get(group.group_name)] * len(recs)
         if not func.is_view and not ref.KERNEL_IO.depth:
             tensors = [t for t in tree_leaves((args, kwargs, out))
                        if isinstance(t, torch.Tensor)]
@@ -161,10 +175,10 @@ class ByteCounter(TorchDispatchMode):
         return out
 
 
-def _records(func, args) -> list:
-    """The :class:`~repro_torch.launch.roofline.Collective` records of one
+def _records(func, args) -> tuple:
+    """(the :class:`~repro_torch.launch.roofline.Collective` records of one
     collective operation (one a tensor of an all-reduce's list), from its
-    output's local shape and its process group's size."""
+    output's local shape and its process group's size; the group)."""
     import torch.distributed as dist
 
     name = func._schema.name.split("::")[-1]
@@ -175,18 +189,27 @@ def _records(func, args) -> list:
                  .qualified_name().endswith("c10d.ProcessGroup"))
     outs = args[0] if isinstance(args[0], (list, tuple)) else [args[0]]
     return [RL.Collective(_COLLECTIVE_KINDS[name], t.dtype, tuple(t.shape),
-                          group.size()) for t in outs]
+                          group.size()) for t in outs], group
 
 
-def count(fn, args, records: Optional[list] = None) -> tuple:
+def axes_of(mesh) -> dict:
+    """A ``DeviceMesh``'s process groups by name, each to its dim's name."""
+    return {mesh.get_group(i).group_name: n
+            for i, n in enumerate(mesh.mesh_dim_names)}
+
+
+def count(fn, args, records: Optional[list] = None,
+          axis_of: Optional[dict] = None) -> tuple:
     """(the outputs, the :class:`~repro_torch.launch.roofline.CellCost`)
     of ``fn(*args)``: the whole program's, or one device's where ``args``
-    are placed.  The collectives' records are appended to ``records``
-    when it is a list."""
-    with FlopCounterMode(display=False) as flops, ByteCounter() as nb:
+    are placed.  Each collective's (record, mesh axis) is appended to
+    ``records`` when it is a list (the axis from ``axis_of``,
+    :func:`axes_of`)."""
+    with (FlopCounterMode(display=False) as flops,
+          ByteCounter(axis_of) as nb):
         out = fn(*args)
     if records is not None:
-        records += nb.collectives
+        records += zip(nb.collectives, nb.axes)
     return out, RL.CellCost(float(flops.get_total_flops()), float(nb.bytes),
                             RL.collective_wire_bytes(nb.collectives))
 
@@ -233,8 +256,8 @@ def _run(cfg, shape_name, mesh, *, moe_impl, grad_accum, qcache, dp_only,
     fn, args, in_sp, out_sp, donate = build_cell(
         cfg, shape_name, mesh, moe_impl=moe_impl, grad_accum=grad_accum,
         qcache=qcache, dp_only=dp_only)
-    out, cost = count(fn, args, records)
     placed = not isinstance(mesh, LogicalMesh)
+    out, cost = count(fn, args, records, axes_of(mesh) if placed else None)
     return cost, _mem_stats(args, in_sp, out, out_sp, donate,
                             logical(mesh) if placed else mesh, placed)
 
@@ -248,14 +271,14 @@ def _cost_dict(cost: RL.CellCost, per: int) -> dict:
 
 
 def _collective_rows(records) -> list:
-    """The records as JSON rows, one for each distinct (kind, dtype,
-    shape, group) with its count and wire bytes."""
+    """The (record, axis) pairs as JSON rows, one for each distinct (kind,
+    dtype, shape, group, axis) with its count and wire bytes."""
     rows: dict = {}
-    for rec in records:
-        row = rows.setdefault(rec, {
+    for rec, axis in records:
+        row = rows.setdefault((rec, axis), {
             "kind": rec.kind, "dtype": str(rec.dtype).split(".")[-1],
-            "shape": list(rec.shape), "group": rec.group, "count": 0,
-            "wire_bytes": 0.0})
+            "shape": list(rec.shape), "group": rec.group, "axis": axis,
+            "count": 0, "wire_bytes": 0.0})
         row["count"] += 1
         row["wire_bytes"] += RL.collective_wire_bytes([rec])[rec.kind]
     return list(rows.values())
@@ -265,12 +288,15 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
              probe: bool = True, moe_impl: str = "dense",
              qcache: bool = False, verbose: bool = True,
              placed: Optional[bool] = None) -> dict:
-    """One cell's dry-run record.  A pure data-parallel train cell runs
-    placed on :func:`~repro_torch.launch.mesh.fake_production_mesh`, which
-    raises if a process group is already initialized and destroys its own
-    on the way out; ``placed=False`` prices it unplaced instead (the
-    whole program on one process, divided by the chips: the program that
-    ``build_cell`` gives on a ``LogicalMesh``)."""
+    """One cell's dry-run record.  A train cell runs placed on
+    :func:`~repro_torch.launch.mesh.fake_production_mesh` (which raises if
+    a process group is already initialized and destroys its own on the way
+    out), unless the step refuses the placed state
+    (``NotImplementedError``: its config needs what the tensor-parallel
+    path lacks, :func:`repro_torch.models.transformer.tp_train_gaps`;
+    the message becomes ``collectives_reason``); ``placed=False`` prices
+    it unplaced instead (the whole program on one process, divided by the
+    chips: the program that ``build_cell`` gives on a ``LogicalMesh``)."""
     cfg = get_config(arch)
     result: dict = {"arch": arch, "shape": shape_name,
                     "multi_pod": multi_pod, "moe_impl": moe_impl,
@@ -284,53 +310,66 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     # probes run with the same parallelism mapping.
     dp_only = pure_dp(cfg, shape_name, mesh)
     result["dp_only"] = dp_only
-    # A pure data-parallel train cell runs one device's program; every
-    # other cell the whole program, divided by the chips.
-    placed = dp_only if placed is None else placed and dp_only
+    # A train cell runs one device's program; every other cell the whole
+    # program, divided by the chips.
+    train = SHAPE_SPECS[shape_name][2] == "train"
+    placed = train if placed is None else placed and train
+    reason = ("its placed program prices them (placed=None)" if train
+              else "the serving cells' collectives are ROADMAP A13")
     result["placed"] = placed
-    per = 1 if placed else chips
     records: list = []
-    if not placed:
-        result["collectives"] = None
-        result["collectives_reason"] = (
-            "not placed: this cell runs the whole program on one process "
-            "and calls no collective; " + (
-                "its placed program prices them (placed=None)" if dp_only
-                else "tensor-parallel training" if SHAPE_SPECS[shape_name][2]
-                == "train" else "the serving cells' collectives")
-            + ("" if dp_only else " are ROADMAP A13"))
-    t0 = time.time()
-    with (fake_production_mesh(multi_pod=multi_pod) if placed
-          else nullcontext(mesh)) as run_mesh:
-        try:
-            total, result["memory"] = _run(
-                cfg, shape_name, run_mesh, moe_impl=moe_impl,
-                qcache=qcache, records=records,
-                grad_accum=pick_grad_accum(cfg, shape_name, mesh),
-                dp_only=dp_only)
+
+    def measure(placed: bool) -> tuple:
+        """(the full-depth cost, its memory, the cost as JSON with the
+        probe's extrapolation) of the placed or the unplaced program."""
+        per = 1 if placed else chips
+        kw = dict(moe_impl=moe_impl, qcache=qcache, dp_only=dp_only)
+        t0 = time.time()
+        with (fake_production_mesh(multi_pod=multi_pod) if placed
+              else nullcontext(mesh)) as run_mesh:
+            total, memory = _run(
+                cfg, shape_name, run_mesh, records=records,
+                grad_accum=pick_grad_accum(cfg, shape_name, mesh), **kw)
             result["run_s"] = time.time() - t0
-            result["cost"] = _cost_dict(total, per)
+            cost = _cost_dict(total, per)
             if probe and not multi_pod:
                 costs = {}
                 for Lp in (2, 4):
                     cfg_p = dataclasses.replace(cfg, num_layers=Lp)
                     costs[Lp], _ = _run(cfg_p, shape_name, run_mesh,
-                                        moe_impl=moe_impl, grad_accum=1,
-                                        qcache=qcache, dp_only=dp_only)
+                                        grad_accum=1, **kw)
                 ext = RL.extrapolate(costs[2], costs[4], cfg.num_layers)
-                result["cost"]["per_layer_flops"] = (
+                cost["per_layer_flops"] = (
                     (costs[4] - costs[2]).scaled(0.5 / per).flops)
-                result["cost"]["extrapolated"] = _cost_dict(ext, per)
-        except Exception as e:
-            result["status"] = "FAIL"
-            result["error"] = f"{type(e).__name__}: {e}"
-            result["traceback"] = traceback.format_exc()[-2000:]
-            if verbose:
-                _print_cell(result)
-            return result
+                cost["extrapolated"] = _cost_dict(ext, per)
+        return total, memory, cost
+
+    try:
+        if placed:
+            try:
+                total, result["memory"], result["cost"] = measure(True)
+            except NotImplementedError as e:
+                placed, reason = False, f"the placed step refuses it: {e}"
+                records.clear()
+        if not placed:
+            total, result["memory"], result["cost"] = measure(False)
+    except Exception as e:
+        result["status"] = "FAIL"
+        result["error"] = f"{type(e).__name__}: {e}"
+        result["traceback"] = traceback.format_exc()[-2000:]
+        if verbose:
+            _print_cell(result)
+        return result
+    result["placed"] = placed
     if placed:
         result["collectives"] = _collective_rows(records)
+    else:
+        result["collectives"] = None
+        result["collectives_reason"] = (
+            "not placed: this cell runs the whole program on one process "
+            "and calls no collective; " + reason)
     result["status"] = "OK"
+    per = 1 if placed else chips
     terms = RL.roofline_terms(total.scaled(1.0 / per), chips)
     mf = RL.model_flops(cfg, shape_name)
     terms["model_flops"] = mf
@@ -340,6 +379,52 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     if verbose:
         _print_cell(result)
     return result
+
+
+def rank_step(cfg, mesh_shape: tuple, seq: int) -> tuple:
+    """(the :class:`~repro_torch.launch.roofline.CellCost`, the (record,
+    mesh axis) pairs of its collectives) of rank 0's training step of
+    ``cfg`` on one row of ``seq`` tokens a data rank: the f32 state placed
+    on ``meta`` by ``param_specs`` and ZeRO-1 on a (data, model)
+    :func:`~repro_torch.launch.mesh.fake_mesh` of ``mesh_shape``, the
+    step bf16 compute, remat and z-loss 1e-4 (what a rank of
+    ``chip_smoke.py``'s tensor-parallel phase runs)."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.training.optim import AdamW
+    from repro_torch.training.train_step import (abstract_state,
+                                                 make_train_step)
+
+    with fake_mesh(mesh_shape, ("data", "model")) as mesh:
+        lm = logical(mesh)
+        opt = AdamW(lr=1e-4)
+        state = abstract_state(cfg, opt)
+        state = SH.place_state(state, mesh, SH.state_specs(
+            cfg, state, lm, SH.param_specs(cfg, state.params, lm)),
+            device="meta")
+        batch = {k: torch.zeros((1, seq), dtype=torch.int32, device="meta")
+                 for k in ("tokens", "labels")}
+        records: list = []
+        _, cost = count(make_train_step(cfg, opt, remat=True, z_loss=1e-4),
+                        (state, batch), records, axes_of(mesh))
+    return cost, records
+
+
+def _print_rank_step(arch: str, layers: int) -> None:
+    """:func:`rank_step` of ``arch`` cut to ``layers`` on the smoke's
+    (data 2, model 2) mesh and 1024 tokens a data rank: its FLOPs and each
+    (kind, dtype, mesh axis) of collective with its calls and output bytes
+    a step."""
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    cost, records = rank_step(cfg, (2, 2), 1024)
+    print(f"{arch}, {layers} layers, a rank of (2, 2): "
+          f"{cost.flops / 1e12:.4f} TFLOP")
+    rows: dict = {}
+    for rec, axis in records:
+        key = (rec.kind, str(rec.dtype).split(".")[-1], axis)
+        n, b = rows.get(key, (0, 0))
+        rows[key] = (n + 1, b + rec.dtype.itemsize * math.prod(rec.shape))
+    for (kind, dtype, axis), (n, b) in sorted(rows.items()):
+        print(f"  {kind} ({dtype}) on {axis}: {n} calls, {b / 1e9:.4f} GB")
 
 
 def _print_cell(r: dict) -> None:
@@ -377,7 +462,15 @@ def main(argv=None) -> None:
                     choices=["dense", "ragged", "local"])
     ap.add_argument("--qcache", action="store_true")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--rank-step", nargs="+", metavar="ARCH:LAYERS",
+                    help="print a rank's training step of chip_smoke.py's "
+                    "tensor-parallel phase instead (rank_step)")
     args = ap.parse_args(argv)
+    if args.rank_step:
+        for spec in args.rank_step:
+            arch, layers = spec.split(":")
+            _print_rank_step(arch, int(layers))
+        return
 
     cells = (list(all_cells()) if args.all
              else [(args.arch, args.shape)])

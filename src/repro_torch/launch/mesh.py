@@ -45,26 +45,33 @@ def make_production_mesh(*, multi_pod: bool = False) -> LogicalMesh:
 
 
 @contextmanager
-def fake_production_mesh(*, multi_pod: bool = False):
-    """The production mesh (16 x 16, or 2 x 16 x 16) as a CPU
-    ``DeviceMesh`` with its axis names over a fake process group of its
-    256 (512) devices, this process being rank 0: collectives on it move
-    nothing, and ``meta`` tensors on it carry rank 0's shapes.  The group
-    is destroyed on the way out; raises if one is already initialized."""
+def fake_mesh(shape: Sequence[int], axes: Sequence[str]):
+    """A CPU ``DeviceMesh`` of ``shape`` with dims named ``axes`` over a
+    fake process group of its devices, this process being rank 0:
+    collectives on it move nothing, and ``meta`` tensors on it carry rank
+    0's shapes.  The group is destroyed on the way out; raises if one is
+    already initialized."""
+    import math
+
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
     if dist.is_initialized():
         raise RuntimeError("a process group is already initialized: the "
-                           "fake production mesh needs its own")
-    logical = make_production_mesh(multi_pod=multi_pod)
+                           "fake mesh needs its own")
     dist.init_process_group("fake", store=FakeStore(), rank=0,
-                            world_size=logical.size)
+                            world_size=math.prod(shape))
     try:
-        yield make_mesh(tuple(logical.shape.values()), logical.axis_names,
-                        "cpu")
+        yield make_mesh(shape, axes, "cpu")
     finally:
         dist.destroy_process_group()
+
+
+def fake_production_mesh(*, multi_pod: bool = False):
+    """The production mesh (16 x 16, or 2 x 16 x 16) as a
+    :func:`fake_mesh` of its 256 (512) devices."""
+    logical = make_production_mesh(multi_pod=multi_pod)
+    return fake_mesh(tuple(logical.shape.values()), logical.axis_names)
 
 
 def data_axes(mesh) -> tuple:

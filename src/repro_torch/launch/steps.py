@@ -13,10 +13,14 @@ partitions are the spec trees of :mod:`repro_torch.distributed.sharding`
 on the given mesh (a :class:`~repro_torch.distributed.sharding.LogicalMesh`
 or any object with ``shape``, ``axis_names`` and ``size``), where they
 describe the layout a multi-device launch would give each leaf.  On a
-``DeviceMesh`` a pure data-parallel train cell is placed: its ``meta``
-state by :func:`~repro_torch.distributed.sharding.place_state` and its
-batch split on its rows, so that ``fn`` runs this rank's ZeRO step
-(training a model split on the model axis is ROADMAP A13).
+``DeviceMesh`` a train cell is placed: its ``meta`` state by
+:func:`~repro_torch.distributed.sharding.place_state` and its batch split
+on its rows over the data axes, so that ``fn`` runs this rank's step:
+ZeRO over every mesh axis for a pure data-parallel cell, and ZeRO over
+the data axes with tensor parallelism over the model axis for the others
+(the step raises for a config the path lacks,
+:func:`repro_torch.models.transformer.tp_train_gaps`; the serving cells
+placed are ROADMAP A13).
 """
 from __future__ import annotations
 
@@ -59,9 +63,10 @@ def build_cell(cfg: ModelConfig, shape_name: str, mesh, *,
     (arch x shape) cell on ``mesh``: ``example_args`` are ``meta``
     stand-ins, each spec tree matches its argument (or output) leaf for
     leaf with one entry a dimension, and ``donate`` names the arguments
-    whose buffers the outputs may take.  On a ``DeviceMesh`` (a pure
-    data-parallel train cell only) the state and the batch are
-    ``DTensor``s of ``meta`` blocks, rank by rank."""
+    whose buffers the outputs may take.  On a ``DeviceMesh`` (a train
+    cell only) the state and the batch are ``DTensor``s of ``meta``
+    blocks, rank by rank; ``fn`` raises where the step refuses the
+    placed state (a config the tensor-parallel path lacks)."""
     from repro_torch.distributed.ctx import ShardCtx, set_ctx
 
     placed = isinstance(mesh, DeviceMesh)
@@ -71,10 +76,10 @@ def build_cell(cfg: ModelConfig, shape_name: str, mesh, *,
     dp = data_axes(mesh)
     if dp_only is None:
         dp_only = pure_dp(cfg, shape_name, mesh)
-    if placed and not (kind == "train" and dp_only):
+    if placed and kind != "train":
         raise NotImplementedError(
-            f"{shape_name} placed on a device mesh: only a pure "
-            "data-parallel train cell is (ROADMAP A13)")
+            f"{shape_name} placed on a device mesh: only a train cell is "
+            "(ROADMAP A13)")
     if dp_only:
         dp = tuple(device_mesh.mesh_dim_names if placed
                    else mesh.axis_names)  # every mesh axis a data axis

@@ -20,12 +20,21 @@ process group's own collectives (:func:`replicated`, :func:`embed_rows`,
 :func:`kv_for_ranks`, :func:`write_rows`, ``mm``'s
 :func:`repro_torch.kernels.placed.matmul`).  On plain tensors each is the
 computation it always was.
+
+A tensor-parallel training step passes each rank's plain blocks instead
+(the model axis installed, :mod:`repro_torch.distributed.tensor_parallel`
+as ``TP``): head counts come from the local weights, each rank-local use
+of a whole tensor goes through ``TP.copy_in``, and a row-parallel product
+leaves partial sums that the block reduces once
+(:func:`repro_torch.models.transformer._tp_out`).  Without an installed
+axis every ``TP`` helper is the identity.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.distributed.ctx import get_ctx, hint
 from repro_torch.distributed.sharding import is_placed
 from repro_torch.kernels import ops, placed
@@ -47,13 +56,19 @@ def mm(x: torch.Tensor, w) -> torch.Tensor:
     return x @ w
 
 
-def embed_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+def embed_rows(table: torch.Tensor, ids: torch.Tensor,
+               rows: int = 0) -> torch.Tensor:
     """``table[ids]``.  A placed table split on its rows (the vocabulary)
     is read as Megatron's vocabulary-parallel embedding does: each rank
     looks up the ids in its own rows, zeros for the others, and the
     result is their partial sum (``DTensor`` reduces it where it is
-    read), so the table is never gathered."""
+    read), so the table is never gathered.  A plain table of fewer than
+    ``rows`` rows is a rank's block of a table split over the installed
+    model axis: :func:`~repro_torch.distributed.tensor_parallel.
+    vocab_lookup`."""
     if not is_placed(table):
+        if rows and TP.is_split(table.shape[0], rows):
+            return TP.vocab_lookup(table, ids)
         return table[ids.long()]
     from torch.distributed.tensor import Partial
     from torch.distributed.tensor.experimental import local_map
@@ -150,28 +165,49 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 # Attention branch (full-sequence prefill and single-token decode)
 # ---------------------------------------------------------------------------
 def _qkv(cfg: ModelConfig, lp: dict, x: torch.Tensor, positions):
-    """Projected, normed and rotated q, k, v: (B, S, H|KV, hd)."""
-    B, S, _ = x.shape
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    q = _split_heads(mm(x, lp["wq"]), H, hd)
-    k = _split_heads(mm(x, lp["wk"]), KV, hd)
-    v = _split_heads(mm(x, lp["wv"]), KV, hd)
+    """Projected, normed and rotated q, k, v: (B, S, H|KV, hd), the heads
+    the weights hold (a rank's, under tensor parallelism).  Where the
+    model axis has more ranks than KV heads, a rank's k and v columns cut
+    a head: k and v are gathered whole, normed and rotated, and each rank
+    takes the KV head its query heads read (:func:`_own_kv_head`)."""
+    hd = cfg.resolved_head_dim
+    x = TP.copy_in(x)
+    q = _split_heads(mm(x, lp["wq"]), hd)
+    k, v = mm(x, lp["wk"]), mm(x, lp["wv"])
+    whole_kv = (TP.is_split(k.shape[-1], cfg.num_kv_heads * hd)
+                and cfg.num_kv_heads % TP.size() != 0)
+    if whole_kv:
+        k, v = TP.gather_last(k), TP.gather_last(v)
+    k, v = _split_heads(k, hd), _split_heads(v, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, lp["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, lp["k_norm"], cfg.norm_eps)
-    return (rope(q, positions, cfg.rope_theta),
-            kv_for_ranks(rope(k, positions, cfg.rope_theta)),
-            kv_for_ranks(v))
+        q = rms_norm(q, TP.copy_in(lp["q_norm"]), cfg.norm_eps)
+        k = rms_norm(k, lp["k_norm"] if whole_kv
+                     else TP.copy_in(lp["k_norm"]), cfg.norm_eps)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    if whole_kv:
+        return q, _own_kv_head(k), _own_kv_head(v)
+    return q, kv_for_ranks(k), kv_for_ranks(v)
 
 
-def _split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+def _split_heads(t: torch.Tensor, hd: int) -> torch.Tensor:
     """(B, S, n * hd) -> (B, S, n, hd), split on the heads over the model
     axis where it is placed.  A placed projection whose heads do not
     divide the axis is gathered first: ``DTensor`` splits no head."""
-    B, S, _ = t.shape
+    B, S, w = t.shape
+    n = w // hd
     if is_placed(t) and n % get_ctx().model_size:
         t = hint(t, "dp", None, None)
     return hint(t.reshape(B, S, n, hd), "dp", None, "model", None)
+
+
+def _own_kv_head(k: torch.Tensor) -> torch.Tensor:
+    """Of k or v (B, S, KV, hd), whole on every rank of a model axis of
+    more ranks than KV heads, the one head this rank's query heads read
+    (B, S, 1, hd), taken in (``TP.copy_in``) and contiguous, as the
+    attention kernels take it."""
+    j = TP.rank() * k.shape[2] // TP.size()
+    return TP.copy_in(k)[:, :, j:j + 1].contiguous()
 
 
 def kv_for_ranks(k):
@@ -371,7 +407,10 @@ def attention_decode_q(cfg: ModelConfig, lp: dict, x: torch.Tensor, kq, ks,
 # Dense FFN
 # ---------------------------------------------------------------------------
 def mlp_hidden(cfg: ModelConfig, x: torch.Tensor, wg, wu) -> torch.Tensor:
-    """The gated MLP's hidden activations, before its down projection."""
+    """The gated MLP's hidden activations, before its down projection.
+    Under tensor parallelism ``wg`` and ``wu`` are a rank's columns and
+    ``x`` is taken in by the caller (``TP.copy_in``); :func:`mlp`'s down
+    projection is then the rank's rows, a partial sum."""
     h = act_fn(mm(x, wg), cfg.act) * mm(x, wu)
     return hint(h, *(["dp"] + [None] * (h.ndim - 2) + ["model"]))
 
@@ -397,11 +436,29 @@ def moe_ffn(cfg: ModelConfig, lp: dict, x: torch.Tensor,
     :func:`_group_sizes`).  ``"local"`` is the reference's expert-local
     ``shard_map`` on one device: each expert takes at most ``cap`` of its
     slots, the last ones in slot order, and the shared expert joins its
-    f32 sum."""
+    f32 sum.
+
+    Under tensor parallelism (``impl="dense"`` only) the weights are a
+    rank's: the router's expert columns, E / m experts, the shared
+    expert's columns and rows.  The tokens are taken in once
+    (``TP.copy_in``) for all of them; the router's logits are gathered
+    whole, so every rank routes alike; the rank's columns of the gates are
+    taken in; and the result is the rank's partial sum, which the block
+    reduces once (:func:`repro_torch.models.transformer._tp_out`)."""
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.num_experts_per_tok
     xt = x.reshape(B * S, D)
-    probs = torch.softmax(mm(xt, lp["router"]).float(), dim=-1)
+    tp = TP.size() > 1
+    if tp and impl != "dense":
+        raise NotImplementedError(
+            f"moe_impl={impl!r} under tensor parallelism (experts split "
+            "over the model axis): only 'dense' is ported; see ROADMAP A13")
+    if tp:
+        xt = TP.copy_in(xt)
+    logits = mm(xt, lp["router"])
+    if tp:
+        logits = TP.gather_last(logits)
+    probs = torch.softmax(logits.float(), dim=-1)
     topv, topi = torch.topk(probs, K, dim=-1)
     topv = topv / torch.clamp_min(topv.sum(-1, keepdim=True), 1e-9)
     if impl == "local":
@@ -411,6 +468,8 @@ def moe_ffn(cfg: ModelConfig, lp: dict, x: torch.Tensor,
     elif impl == "dense":
         gates = torch.zeros((xt.shape[0], E), dtype=torch.float32,
                             device=x.device).scatter_(1, topi, topv)
+        if tp:
+            gates = TP.own_cols(gates)
         y = _moe_dense(cfg, lp, xt, gates)
     else:
         raise ValueError(f"moe_impl must be 'dense', 'ragged' or 'local', "

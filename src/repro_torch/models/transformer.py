@@ -37,6 +37,15 @@ install the mesh's sharding context, so the layers' hints place the
 activations, build the decode cache split by ``cache_specs``
 (:func:`placed_cache`), and every rank takes the whole logits' greedy
 ids.  The int8 cache and the deferred decode are not placed.
+
+:func:`loss_fn` also runs a rank's plain blocks of a tree split on the
+model axis, under a training step's installed model axis
+(:mod:`repro_torch.distributed.tensor_parallel`): the embedding looks up
+the rank's vocabulary rows, each block's row-parallel products are
+reduced once (:func:`_tp_out`, which keeps the reduced product across a
+remat), and each CE chunk's logits are gathered whole before the
+softcap, the mask and the log-sum-exp.  :func:`tp_train_gaps` names what
+that path lacks.
 """
 from __future__ import annotations
 
@@ -50,6 +59,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed import ctx as CTX
 from repro_torch.distributed import sharding as SH
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
@@ -110,15 +120,19 @@ class _KeptMM(torch.autograd.Function):
 
 def _tp_out(x, w=None):
     """The tagged product ``x @ w`` (``x`` itself where ``w`` is None),
-    kept across the remat it runs in, if any."""
+    kept across the remat it runs in, if any.  Under tensor parallelism
+    it is a row-parallel product (or the rank's experts' sum) and is
+    reduced over the model axis here; the kept product is the reduced
+    one, so a recomputation runs neither the product nor its all-reduce
+    (whose backward is the identity)."""
     ctx = getattr(_REMAT, "ctx", None)
     if ctx is None:
-        return L.replicated(x if w is None else L.mm(x, w))
+        return L.replicated(TP.reduce_out(x if w is None else L.mm(x, w)))
     if ctx.load:
         out = ctx.kept[ctx.i]
         ctx.i += 1
         return out if w is None else _KeptMM.apply(x, w, [out])
-    out = x if w is None else _KeptMM.apply(x, w, [None])
+    out = TP.reduce_out(x if w is None else _KeptMM.apply(x, w, [None]))
     ctx.kept.append(out.detach())
     return out
 
@@ -389,6 +403,55 @@ def check_placeable(cfg: ModelConfig, model_size: Optional[int] = None,
             "ROADMAP A13")
 
 
+def tp_train_gaps(cfg: ModelConfig, model_size: Optional[int] = None
+                  ) -> list:
+    """What training ``cfg`` split over a model axis of ``model_size``
+    ranks (None: any axis) needs that the tensor-parallel path lacks, in
+    words (empty: it trains).  The path runs the dense attention block
+    with the gated MLP and the ``dense`` MoE FFN (experts split on the
+    model axis, a shared expert's columns and rows) on one codebook of
+    text, laid out by ``param_specs``: query heads, experts and the MLP's
+    width split evenly, KV heads split evenly or fewer than the ranks (each
+    head's columns then split evenly, and k and v gathered whole)."""
+    m = model_size
+    gaps = []
+    if cfg.family == "hybrid":
+        gaps.append("hybrid blocks")
+    elif cfg.uses_ssm:
+        gaps.append("SSM blocks")
+    if cfg.num_codebooks > 1:
+        gaps.append(f"{cfg.num_codebooks} codebooks")
+    if cfg.frontend != "none":
+        gaps.append(f"the {cfg.frontend} frontend")
+    if cfg.num_meta_tokens:
+        gaps.append(f"{cfg.num_meta_tokens} meta tokens")
+    if m is None or m == 1:
+        return gaps
+    if cfg.uses_attention:
+        H, KV = cfg.num_heads, cfg.num_kv_heads
+        hd = cfg.resolved_head_dim
+        if H % m:
+            gaps.append(f"{H} query heads over {m} ranks")
+        if KV % m and (m % KV or KV * hd % m):
+            gaps.append(f"{KV} KV heads over {m} ranks")
+    if cfg.num_experts and cfg.num_experts % m:
+        gaps.append(f"{cfg.num_experts} experts over {m} ranks")
+    if (cfg.num_shared_experts or not cfg.is_moe) and cfg.d_ff % m:
+        gaps.append(f"an MLP width of {cfg.d_ff} over {m} ranks")
+    return gaps
+
+
+def check_tp_trainable(cfg: ModelConfig, model_size: int) -> None:
+    """Raise ``NotImplementedError`` naming :func:`tp_train_gaps`, if
+    any."""
+    gaps = tp_train_gaps(cfg, model_size)
+    if gaps:
+        raise NotImplementedError(
+            f"{cfg.name}: training {cfg.name} split over a model axis of "
+            f"{model_size} ranks needs what the tensor-parallel path lacks "
+            f"({'; '.join(gaps)}); see ROADMAP A13")
+
+
 def placed_cache(cfg: ModelConfig, mesh, batch: int, max_len: int,
                  dtype=torch.bfloat16, quantized: bool = False,
                  device=None) -> PyTree:
@@ -436,7 +499,7 @@ def _ffn(cfg: ModelConfig, h, lp, moe_impl: str):
         x2 = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
         return h + _tp_out(L.moe_ffn(cfg, lp, x2, impl=moe_impl))
     if cfg.d_ff:
-        x2 = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
+        x2 = TP.copy_in(L.rms_norm(h, lp["ln2"], cfg.norm_eps))
         ff = _tp_out(L.mlp_hidden(cfg, x2, lp["wg"], lp["wu"]),
                      lp["wd"])
         if cfg.post_norm:
@@ -526,10 +589,11 @@ def embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor
                  ) -> torch.Tensor:
     """tokens: (B, S) int, or (B, S, Kcb) for multi-codebook audio."""
     emb = params["embed"]  # (Kcb, Vp, D)
+    Vp = cfg.padded_vocab
     if cfg.num_codebooks == 1:
-        h = L.embed_rows(emb[0], tokens)
+        h = L.embed_rows(emb[0], tokens, Vp)
     else:
-        h = sum(L.embed_rows(emb[i], tokens[..., i])
+        h = sum(L.embed_rows(emb[i], tokens[..., i], Vp)
                 for i in range(cfg.num_codebooks))
     if cfg.emb_scale:
         # The scale rounded to h's type, as the reference rounds it; a CPU
@@ -625,13 +689,21 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
         w = params["embed"].transpose(1, 2)  # (Kcb, D, Vp)
     else:
         w = L.dense_w(params["head"])
-    Vp = w.shape[-1]
+    Vp = cfg.padded_vocab
     col_ok = torch.arange(Vp, device=hidden.device) < cfg.vocab_size
+    # A rank's vocabulary columns of the head: each chunk's logits are
+    # gathered whole (every rank then computes the same statistics).
+    split = TP.is_split(w.shape[-1], Vp)
+    if split:
+        hidden = TP.copy_in(hidden)
 
     def chunk_stats(h_chunk, lab_chunk):
         # h_chunk: (B, ck, D); lab_chunk: (B, ck, Kcb)
         logits = torch.einsum("bsd,kdv->bskv", h_chunk,
-                              w.to(h_chunk.dtype)).float()
+                              w.to(h_chunk.dtype))
+        if split:
+            logits = TP.gather_last(logits)
+        logits = logits.float()
         if cfg.final_logit_softcap:
             logits = L.softcap(logits, cfg.final_logit_softcap)
         logits = torch.where(col_ok, logits, -1e9)

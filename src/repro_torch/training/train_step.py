@@ -7,8 +7,8 @@ through the mixed-precision cast, and takes the gradients with
 ``torch.autograd.grad``.  Activation remat over the blocks, microbatched
 gradient accumulation, int8 error-feedback gradient compression, a
 ``TrainState`` of plain trees that checkpoints leaf for leaf as the
-reference's does, and ZeRO data parallelism on a state placed across
-ranks (:func:`make_train_step`).
+reference's does, and ZeRO data parallelism, with tensor parallelism over
+a model axis, on a state placed across ranks (:func:`make_train_step`).
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ import torch
 from repro_torch.distributed import sharding as SH
 from repro_torch.distributed.compression import (CompressionState,
                                                  compress_grads)
-from repro_torch.distributed.ctx import get_ctx, hint
+from repro_torch.distributed.ctx import get_ctx, hint, tensor_parallel
 from repro_torch.distributed.sharding import spec_map
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
@@ -104,11 +104,24 @@ def make_train_step(
     (:meth:`~repro_torch.training.optim.AdamW.update`).  With
     ``grad_accum`` each rank gathers once and reduces once.  The data
     axes are the mesh axis names ``dp_axes`` (the sharding context's,
-    :func:`repro_torch.distributed.ctx.get_ctx`, where None); a leaf
-    split on another mesh axis (tensor-parallel training) and
-    ``compression`` on a placed state raise ``NotImplementedError``
-    (ROADMAP A13).  The new state keeps the placements; no gathered copy
-    outlives the step.
+    :func:`repro_torch.distributed.ctx.get_ctx`, where None).
+
+    **Tensor parallelism.**  A mesh may have one more axis, the model
+    axis, on which leaves are split as ``param_specs`` splits them
+    (Megatron's layout: column-parallel in-projections, row-parallel
+    out-projections, experts, the vocabulary).  Each rank then gathers its
+    blocks over the data axes only, to its model-axis shard of the
+    compute copy; runs forward and backward on those shards with the
+    model axis installed (:func:`repro_torch.distributed.ctx.
+    tensor_parallel`: the model-axis collectives run inside autograd,
+    :mod:`repro_torch.distributed.tensor_parallel`); and reduces each
+    gradient over the data axes only (a leaf replicated over the model
+    axis has its whole gradient on every rank of it).  A config the path
+    does not cover (:func:`repro_torch.models.transformer.tp_train_gaps`),
+    a leaf split on the model axis otherwise than ``param_specs`` splits
+    it, and ``compression`` on a placed state raise
+    ``NotImplementedError`` (ROADMAP A13).  The new state keeps the
+    placements; no gathered copy outlives the step.
 
     ``zero_specs`` (a tree of partitions matching params, the launch
     cell's) names the data-sharded layout of the compute copy and the
@@ -168,20 +181,21 @@ def make_train_step(
     def zero_grads(params, batch):
         """The ZeRO half of a placed step: (metrics averaged over the
         data ranks, gradients placed as ``params``)."""
-        mesh, dims = _zero_layout(
-            params, get_ctx().dp_axes if dp_axes is None else dp_axes)
+        mesh, dims, tp = _zero_layout(
+            cfg, params, get_ctx().dp_axes if dp_axes is None else dp_axes)
         flat, structure = pytree.flatten(params)
         dp = math.prod(mesh.size(i) for i in dims)
         batch = {k: SH.local_block(v) for k, v in batch.items()}
         whole = [SH.gather_block(cast_leaf(p.to_local()), mesh,
-                                 p.placements) for p in flat]
-        _, metrics, grads = compute_grads(
-            pytree.unflatten(structure, whole), batch)
+                                 p.placements, _split(p, dims))
+                 for p in flat]
+        with tensor_parallel(*tp):
+            _, metrics, grads = compute_grads(
+                pytree.unflatten(structure, whole), batch)
         del whole
         grads = pytree.leaves(grads)
-        # Leaves every rank holds whole: one all-reduce for all of them.
-        rep = [i for i, p in enumerate(flat)
-               if not any(q.is_shard() for q in p.placements)]
+        # Leaves whole over the data axes: one all-reduce for all of them.
+        rep = [i for i, p in enumerate(flat) if not _split(p, dims)]
         if rep:
             buf = SH.all_reduce_dims(torch.cat(
                 [grads[i].float().reshape(-1) for i in rep]), mesh, dims)
@@ -231,22 +245,55 @@ def _placed(params: PyTree) -> bool:
                for p in pytree.leaves(params))
 
 
-def _zero_layout(params: PyTree, dp_axes):
-    """(mesh, the mesh dims of ``dp_axes``) of a placed state, which the
-    ZeRO step takes: every leaf a ``DTensor`` on one mesh, split over
-    those data axes only."""
+def _split(p, dims) -> list:
+    """The mesh dims of ``dims`` that split the placed leaf ``p``."""
+    return [i for i in dims if p.placements[i].is_shard()]
+
+
+def _zero_layout(cfg: ModelConfig, params: PyTree, dp_axes):
+    """(mesh, the mesh dims of ``dp_axes``, the model axis as
+    ``tensor_parallel``'s arguments) of a placed state: every leaf a
+    ``DTensor`` on one mesh, split over those data axes and at most one
+    other mesh dim, the model axis.  A leaf split on the model axis makes
+    the step tensor-parallel: every leaf must then be split on it as
+    ``param_specs`` splits it, and ``cfg`` must be one that
+    :func:`repro_torch.models.transformer.tp_train_gaps` passes.  Without
+    such a leaf the model axis installs nothing, (None, 0, 1): its ranks
+    run the same step."""
     mesh = next(p.device_mesh for p in pytree.leaves(params)
                 if SH.is_placed(p))
     names = tuple(mesh.mesh_dim_names or ())
     dims = tuple(i for i, n in enumerate(names) if n in dp_axes)
-    for path, p in pytree.flatten_with_path(params)[0]:
+    flat = pytree.flatten_with_path(params)[0]
+    for path, p in flat:
         if not SH.is_placed(p) or p.device_mesh != mesh:
             raise ValueError(f"leaf {'/'.join(map(str, path))} is not "
                              "placed on the state's mesh")
-        for i, q in enumerate(p.placements):
-            if q.is_partial() or (q.is_shard() and i not in dims):
-                raise NotImplementedError(
-                    f"leaf {'/'.join(map(str, path))} is {q} on mesh axis "
-                    f"{names[i]!r}, not a data axis {dp_axes}: "
-                    "tensor-parallel training (ROADMAP A13)")
-    return mesh, dims
+        if any(q.is_partial() for q in p.placements):
+            raise NotImplementedError(
+                f"leaf {'/'.join(map(str, path))} is a partial sum "
+                f"{p.placements} (ROADMAP A13)")
+    model = [i for i in range(len(names)) if i not in dims and any(
+        p.placements[i].is_shard() for _, p in flat)]
+    if not model:
+        return mesh, dims, (None, 0, 1)
+    if len(model) > 1:
+        raise NotImplementedError(
+            f"leaves split on mesh axes {[names[i] for i in model]}, not data "
+            f"axes {dp_axes}: one model axis at most (ROADMAP A13)")
+    t = model[0]
+    T.check_tp_trainable(cfg, mesh.size(t))
+    want = SH.param_specs(cfg, params, SH.logical(mesh),
+                          model_axis=names[t])
+    for (path, p), spec in zip(flat, pytree.flatten(
+            want, is_leaf=lambda x: type(x) is tuple)[0]):
+        q = p.placements[t]
+        dim = next((d for d, e in enumerate(spec) if e is not None and
+                    names[t] in (e if isinstance(e, tuple) else (e,))), None)
+        if (q.dim if q.is_shard() else None) != dim:
+            raise NotImplementedError(
+                f"leaf {'/'.join(map(str, path))} is {q} on the model axis "
+                f"{names[t]!r}; the tensor-parallel step takes param_specs' "
+                f"layout, {spec} (ROADMAP A13)")
+    return mesh, dims, (mesh.get_group(t), mesh.get_local_rank(t),
+                        mesh.size(t))

@@ -13,15 +13,18 @@ records; ``extrapolate`` of the meta counts at 2 and 4 layers against the
 full-depth count (full width); a reduced prefill's FLOP and byte counts
 on ``meta`` equal to those on CPU tensors; ``run_cell`` on ``meta``.
 The pure data-parallel train cells' collectives (one device's ZeRO step
-on a fake process group) against the ring formulas over their spec trees.
-Then training's launch pieces: ``abstract_state`` against the
-reference's ``jax.eval_shape``, ``make_train_step(zero_specs=)`` on one
-process equal to the step without it, a state split on the model axis
+on a fake process group) against the ring formulas over their spec trees;
+the tensor-parallel train cells' (yi-6b, olmoe-1b-7b, depth cut)
+model-axis collectives against the counts their layer structure gives,
+a rank's step of the smoke's tensor-parallel phase (``rank_step``), and
+llama4-scout's cell left unplaced with its reason.  Then training's
+launch pieces: ``abstract_state`` against the reference's
+``jax.eval_shape``, ``make_train_step(zero_specs=)`` on one process equal
+to the step without it, a state the tensor-parallel path cannot train
 refused, and remat with and without the saved ``"tp_out"`` products
 against the reference's gradients.
 """
-import contextlib
-import math
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -30,7 +33,6 @@ import pytest
 import torch
 import torch.distributed as dist
 from jax.sharding import PartitionSpec as P
-from torch.testing._internal.distributed.fake_pg import FakeStore
 
 from repro.configs import ARCH_NAMES
 from repro.configs import get_config as jget
@@ -57,6 +59,8 @@ from test_torch_sharding import MESH, MESH_MP, MESHES
 from test_torch_training import Z, hold, setup, torch_grads
 
 CELLS = [(a, s) for a in ARCH_NAMES for s in SHAPE_SPECS]
+# The tensor-parallel train cells' depth in their dry-run test.
+TP_CELL_LAYERS = 2
 
 
 @pytest.fixture(autouse=True)
@@ -350,33 +354,33 @@ def test_zero_specs_step_equals_plain_step():
         assert torch.equal(torch.as_tensor(a), torch.as_tensor(b))
 
 
-@contextlib.contextmanager
-def _fake_mesh(shape, names):
-    """A CPU ``DeviceMesh`` over a fake process group in this process (rank
-    0 of the mesh's devices): placement without other ranks."""
-    dist.init_process_group("fake", store=FakeStore(), rank=0,
-                            world_size=math.prod(shape))
-    try:
-        yield LM.make_mesh(shape, names, "cpu")
-    finally:
-        dist.destroy_process_group()
-
-
 def test_zero_specs_refuse_a_state_placed_across_devices():
-    """A state split on the model axis (tensor-parallel training) and
-    compression on a placed state raise, naming ROADMAP A13, before any
-    collective."""
+    """A state split on the model axis that the tensor-parallel path
+    cannot train (an SSM model; a leaf split otherwise than
+    ``param_specs`` splits it) and compression on a placed state raise,
+    naming ROADMAP A13, before any collective."""
     cfg = get_config("tinyllama-1.1b", reduced=True)
     opt = TO.AdamW()
     state = TS.init_state(cfg, 0, opt, device="cpu")
-    with _fake_mesh((2, 2), ("data", "model")) as mesh:
+    ssm = get_config("mamba2-780m", reduced=True)
+    ssm_state = TS.init_state(ssm, 0, opt, device="cpu")
+    with LM.fake_mesh((2, 2), ("data", "model")) as mesh:
         lm = SH.logical(mesh)
-        tp = SH.state_specs(cfg, state, lm, SH.param_specs(cfg, state.params,
-                                                           lm))
+        tp = SH.state_specs(ssm, ssm_state, lm, SH.param_specs(
+            ssm, ssm_state.params, lm))
         assert any("model" in str(sp) for sp in _port_flat(tp.params))
-        step = TS.make_train_step(cfg, opt, zero_specs=tp.params)
-        with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-            step(SH.place_state(state, mesh, tp), {})
+        step = TS.make_train_step(ssm, opt, zero_specs=tp.params)
+        with pytest.raises(NotImplementedError,
+                           match="SSM blocks.*ROADMAP A13"):
+            step(SH.place_state(ssm_state, mesh, tp), {})
+        pspecs = SH.param_specs(cfg, state.params, lm)
+        assert pspecs["layers"]["wq"] == (None, None, "model")
+        pspecs["layers"]["wq"] = (None, "model", None)  # its rows instead
+        odd = SH.state_specs(cfg, state, lm, pspecs)
+        with pytest.raises(NotImplementedError,
+                           match="param_specs' layout.*ROADMAP A13"):
+            TS.make_train_step(cfg, opt)(SH.place_state(state, mesh, odd),
+                                         {})
         dp = SH.state_specs(cfg, state, lm, pytree.tree_map(
             lambda p: (None,) * p.dim(), state.params),
             dp_axes=("data", "model"))
@@ -467,6 +471,159 @@ def test_pure_dp_cell_unplaced_prices_the_one_process_program():
     assert r["cost"]["flops_per_device"] == whole.flops / 256
     assert r["cost"]["bytes_per_device"] == whole.bytes_accessed / 256
     assert r["roofline"]["collective_s"] == 0
+
+
+def _tp_collective_counts(cfg):
+    """Model-axis collectives of ``cfg``'s tensor-parallel ``train_4k``
+    cell, from its layer structure: (all-reduces, all-gathers).  Each
+    micro-batch of ``pick_grad_accum``'s A runs the embedding's all-reduce
+    (forward), the LM head input's (backward), and each CE chunk's logits
+    gather (its forward and its recomputation); each of the L layers an
+    all-reduce after its attention and its FFN (forward; remat's
+    recomputation takes the kept products and runs neither), one for its
+    q/k/v input (backward), one each for the q and k norm weights where
+    the config norms q and k (backward); where the model axis has more
+    ranks than KV heads (yi-6b: 4 of 16), k and v are gathered (forward
+    and recomputation) and each all-reduced (backward); an MoE FFN gathers
+    the router's logits (forward and recomputation) and all-reduces the
+    tokens' and the gates' gradients (backward), a dense MLP its input's.
+    The gradient norm adds one all-reduce over each mesh axis.
+
+    At full depth, yi-6b: A = 16, L = 32, 8 chunks: 16 (32 x 6 + 2) + 1 =
+    3105 all-reduces and 16 (32 x 4 + 16) = 2304 all-gathers.
+    olmoe-1b-7b: A = 4, L = 16: 4 (16 x 7 + 2) + 1 = 457 and 4 (16 x 2 +
+    16) = 192."""
+    A = DR.pick_grad_accum(cfg, "train_4k", LM.make_production_mesh())
+    seq = SHAPE_SPECS["train_4k"][0]
+    m = 16
+    per_layer_ar, per_layer_ag = 2 + 1, 0
+    if cfg.qk_norm:
+        per_layer_ar += 2
+    if cfg.num_kv_heads % m:
+        per_layer_ar += 2
+        per_layer_ag += 4
+    if cfg.is_moe:
+        per_layer_ar += 2
+        per_layer_ag += 2
+    else:
+        per_layer_ar += 1
+    chunks = seq // TT.CE_CHUNK
+    return (A * (cfg.num_layers * per_layer_ar + 2) + 1,
+            A * (cfg.num_layers * per_layer_ag + 2 * chunks))
+
+
+@pytest.mark.parametrize("arch,counts", [("yi-6b", (3105, 2304)),
+                                         ("olmoe-1b-7b", (457, 192))])
+def test_tp_train_cell_prices_its_collectives(arch, counts, monkeypatch):
+    """yi-6b's and olmoe-1b-7b's ``train_4k`` cells, at full width cut to
+    ``TP_CELL_LAYERS`` at the full cell's micro-batching (each count is
+    linear in the depth; the full-depth counts are
+    :func:`_tp_collective_counts`' formula), run rank 0's
+    tensor-parallel step on the fake 16 x 16 group, placed: all-reduces
+    and all-gathers on the model axis (a group of 16) in the numbers the
+    layer structure gives, the data axis's all-gathers of the bf16 shards
+    and reduce-scatters of the f32 gradients (each weight once, whatever
+    the micro-batching), and ``collective_s`` their wire bytes over
+    NVLink's rate.  No process group is left."""
+    full = get_config(arch)
+    assert _tp_collective_counts(full) == counts
+    cfg = dataclasses.replace(full, num_layers=TP_CELL_LAYERS)
+    monkeypatch.setattr(DR, "get_config", lambda a: cfg)
+    # The mapping and the micro-batching are the full cell's, as run_cell's
+    # probes keep the mapping.
+    monkeypatch.setattr(DR, "pure_dp", lambda c, *a: ST.pure_dp(full, *a))
+    pick = DR.pick_grad_accum
+    monkeypatch.setattr(DR, "pick_grad_accum", lambda c, *a: pick(full, *a))
+    r = DR.run_cell(arch, "train_4k", probe=False, verbose=False)
+    assert not dist.is_initialized()
+    assert r["status"] == "OK" and r["placed"], r.get("error")
+    assert not r["dp_only"]
+    n = {}
+    for row in r["collectives"]:
+        assert row["group"] == 16
+        key = (row["kind"], row["axis"])
+        n[key] = n.get(key, 0) + row["count"]
+    assert (n[("all-reduce", "model")],
+            n[("all-gather", "model")]) == _tp_collective_counts(cfg)
+    assert ("reduce-scatter", "model") not in n
+    params = TT.abstract_params(cfg, torch.float32)
+    matrices = sum(p.dim() >= 2 for p in pytree.leaves(params))
+    assert n[("all-gather", "data")] == n[("reduce-scatter", "data")]
+    assert 0 < n[("reduce-scatter", "data")] <= matrices
+    assert all(row["dtype"] == ("bfloat16" if row["kind"] == "all-gather"
+                                else "float32")
+               for row in r["collectives"] if row["axis"] == "data"
+               and row["kind"] != "all-reduce")
+    total = sum(row["wire_bytes"] for row in r["collectives"])
+    assert r["cost"]["coll_bytes_per_device"] == pytest.approx(total,
+                                                                rel=1e-9)
+    assert r["roofline"]["collective_s"] == pytest.approx(
+        total / LM.NVLINK_BW, rel=1e-9)
+
+
+def test_rank_step_counts_a_ranks_collectives():
+    """``rank_step`` (the dry-run of one rank of the smoke's
+    tensor-parallel phase) on a (data 2, model 2) fake mesh, reduced
+    yi-6b on one row: the model axis's all-reduces and gathers as
+    :func:`_tp_collective_counts` derives them at A = 1 and one CE chunk
+    (2 KV heads split evenly: no k/v gather), and each data-split leaf
+    gathered in bf16 and its gradient reduce-scattered in f32, once.  No
+    process group is left."""
+    cfg = get_config("yi-6b", reduced=True)
+    seq = 16
+    cost, records = DR.rank_step(cfg, (2, 2), seq)
+    assert not dist.is_initialized() and cost.flops > 0
+    n = {}
+    for rec, axis in records:
+        assert rec.group == 2
+        key = (rec.kind, str(rec.dtype).split(".")[-1], axis)
+        n[key] = n.get(key, 0) + 1
+    assert cfg.num_kv_heads % 2 == 0 and not cfg.qk_norm and not cfg.is_moe
+    assert n.pop(("all-reduce", "bfloat16", "model")) == (
+        4 * cfg.num_layers + 2)
+    assert n.pop(("all-gather", "bfloat16", "model")) == 2
+    gathers = n.pop(("all-gather", "bfloat16", "data"))
+    assert gathers == n.pop(("reduce-scatter", "float32", "data")) > 0
+    # the gradient norm's squares over each axis; the loss and metrics
+    assert n.pop(("all-reduce", "float32", "model")) == 1
+    assert set(n) == {("all-reduce", "float32", "data")}
+
+
+def test_tp_train_cell_unplaced_and_uneven_heads(monkeypatch):
+    """``placed=False`` keeps a tensor-parallel cell's unplaced program
+    (olmoe-1b-7b: ``build_cell`` on the LogicalMesh, no collective, the
+    reason); llama4-scout's cell, 40 query heads over 16 ranks, is
+    refused by its placed step (``NotImplementedError``, run here) and
+    priced unplaced, its reason the step's, naming the gap.  The unplaced
+    count itself is
+    ``test_pure_dp_cell_unplaced_prices_the_one_process_program``'s; only
+    the decision and its reason are held here."""
+    seen = []
+    real = DR._run
+
+    def run(cfg, shape_name, mesh, **kw):
+        seen.append(mesh)
+        if not isinstance(mesh, SH.LogicalMesh):
+            return real(cfg, shape_name, mesh, **kw)
+        return RL.CellCost(1.0, 1.0, RL.collective_wire_bytes([])), {
+            "hbm_fraction": 0.0}
+
+    monkeypatch.setattr(DR, "_run", run)
+    r = DR.run_cell("olmoe-1b-7b", "train_4k", probe=False, verbose=False,
+                    placed=False)
+    assert r["status"] == "OK" and not r["placed"] and not r["dp_only"]
+    assert r["collectives"] is None and "placed=None" in r[
+        "collectives_reason"]
+    assert r["roofline"]["collective_s"] == 0
+    r = DR.run_cell("llama4-scout-17b-a16e", "train_4k", probe=False,
+                    verbose=False)
+    assert not dist.is_initialized()
+    assert r["status"] == "OK" and not r["placed"] and not r["dp_only"]
+    assert [isinstance(m, SH.LogicalMesh) for m in seen] == [True, False,
+                                                             True]
+    assert r["collectives"] is None
+    assert "40 query heads over 16 ranks" in r["collectives_reason"]
+    assert "ROADMAP A13" in r["collectives_reason"]
 
 
 @pytest.mark.parametrize("save", [True, False])

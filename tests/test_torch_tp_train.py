@@ -1,0 +1,460 @@
+"""Tensor-parallel training on local shards (ROADMAP A13, training): the
+port's ``make_train_step`` on a state placed by ``param_specs`` (leaves
+split on the model axis) and ZeRO-split over the data axis, on gloo CPU
+ranks, against the JAX package's one-device step on the whole batch.
+
+Each world runs in a child process that forks its ranks
+(``start_processes(..., start_method="fork")``; the ranks meet through a
+file under the test's directory), as ``tests/test_torch_zero.py`` does;
+the children run while this process compiles the reference's steps.
+Worlds:
+
+- (model 2), 2 ranks: reduced yi-6b, olmoe-1b-7b and llama4-scout, each
+  layer's KV heads split over the ranks;
+- (data 2, model 2), 4 ranks: yi-6b and olmoe-1b-7b, each data rank on
+  its own rows, the f32 master and moments also split over the data axis;
+- (model 4), 4 ranks: llama4-scout, whose 2 KV heads are fewer than the
+  ranks (k and v gathered whole, each rank the head its query head reads),
+  and olmoe-1b-7b.
+
+Held, from the reference's weights (``params_from_numpy``), as
+``tests/test_torch_zero.py`` holds the ZeRO step:
+
+- step 1 (f32 compute) against ``jax.jit(make_train_step(...,
+  compute_dtype=None))``'s: loss, gradient norm, params and both moments
+  at ``rtol=atol=3e-5``, a step's params and moments but at its
+  ill-conditioned elements (``test_torch_training.ill_conditioned``);
+- step 2 with ``grad_accum=2`` from the world's own step-1 state;
+- a bf16 compute copy (yi-6b on 2 ranks) at 3e-2 relative l2;
+- the (data 2, model 2) state saved with ``checkpoint.save``, restored
+  onto one process bit-equal;
+- ``global_norm`` of a placed tree whose leaves are split on the model
+  axis, the data axis, both or neither: the whole tree's norm;
+- mamba2-780m and hymba-1.5b placed on the model axis: the step raises,
+  naming ``tp_train_gaps``' words and ROADMAP A13.
+"""
+import dataclasses
+import os
+import subprocess
+import sys
+import textwrap
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from repro.configs import get_config as jget
+from repro.models import transformer as JT
+from repro.training import optim as JO
+from repro.training import train_step as JS
+from repro_torch.configs import get_config as tget
+from repro_torch.distributed import checkpoint as CK
+from repro_torch.models import transformer as TT
+from repro_torch.training import optim as TO
+from repro_torch.training import pytree
+from repro_torch.training import train_step as TS
+from test_torch_training import (BF16_REL_L2, LR, Z, make_batch, np_tree,
+                                 step_grads)
+from test_torch_zero import (_flat_np, _hold_step, _jstate, _leaves,
+                             _port_inputs)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+YI, OLMOE, SCOUT = "yi-6b", "olmoe-1b-7b", "llama4-scout-17b-a16e"
+ARCHS = (YI, OLMOE, SCOUT)
+# world name -> (mesh shape, mesh axis names, archs trained, jobs)
+WORLDS = {
+    "model2": ((2,), ("model",), ARCHS, ("train", "bf16", "gaps")),
+    "data2model2": ((2, 2), ("data", "model"), (YI, OLMOE),
+                    ("train", "save", "norm")),
+    "model4": ((4,), ("model",), (SCOUT, OLMOE), ("train",)),
+}
+RUNS = [(w, a) for w, (_, _, archs, _) in WORLDS.items() for a in archs]
+B, S = 4, 16
+CKPT_ARCH = YI
+GAP_ARCHS = ("mamba2-780m", "hymba-1.5b")
+
+CHILD = textwrap.dedent("""
+    import os, sys
+    sys.path.insert(0, "src")
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    def load(path):
+        tree = {}
+        for key, a in np.load(path).items():
+            node = tree
+            *head, last = key.split("/")
+            for k in head:
+                node = node.setdefault(k, {})
+            node[last] = a
+        return tree
+
+    def specs(cfg, state, mesh):
+        from repro_torch.distributed import sharding as SH
+        lm = SH.logical(mesh)
+        return SH.state_specs(cfg, state, lm,
+                              SH.param_specs(cfg, state.params, lm))
+
+    def setup(arch, root, mesh):
+        from repro_torch.configs import get_config
+        from repro_torch.models import transformer as T
+        from repro_torch.training import optim
+        from repro_torch.training import train_step as TS
+
+        cfg = get_config(arch, reduced=True)
+        opt = optim.AdamW(lr=1e-3)
+        state = TS.state_from_params(
+            T.params_from_numpy(load(f"{root}/params-{arch}.npz")), opt)
+        return cfg, opt, state, specs(cfg, state, mesh)
+
+    def rows(root, arch, mesh):
+        batch = {k: torch.from_numpy(v)
+                 for k, v in np.load(f"{root}/batch-{arch}.npz").items()}
+        names = mesh.mesh_dim_names
+        if "data" not in names:
+            return batch
+        i = names.index("data")
+        n = batch["tokens"].shape[0] // mesh.size(i)
+        r = mesh.get_coordinate()[i]
+        return {k: v[r * n:(r + 1) * n] for k, v in batch.items()}
+
+    def whole(tree):
+        from repro_torch.distributed import sharding as SH
+        from repro_torch.training import pytree
+        return [(SH.whole(t) if SH.is_placed(t) else t).numpy()
+                for t in pytree.leaves(tree)]
+
+    def put(out, key, state, metrics):
+        for field, tree in (("params", state.params), ("mu", state.opt.mu),
+                            ("nu", state.opt.nu)):
+            for i, a in enumerate(whole(tree)):
+                out[f"{key}/{field}/{i:03d}"] = a
+        out[f"{key}/step"] = np.array(int(state.opt.step.full_tensor()))
+        for k in ("loss", "grad_norm"):
+            out[f"{key}/{k}"] = np.array(float(metrics[k]))
+
+    def train(root, mesh, out):
+        from repro_torch.distributed import sharding as SH
+        from repro_torch.training import pytree
+        from repro_torch.training import train_step as TS
+
+        for arch in ARCHS_RUN:
+            cfg, opt, state, sspecs = setup(arch, root, mesh)
+            placed = SH.place_state(state, mesh, sspecs)
+            out[f"{arch}/whole_equal"] = np.array(all(
+                np.array_equal(a, b.numpy()) for a, b in zip(
+                    whole(placed), pytree.leaves(state))))
+            out[f"{arch}/bytes"] = np.array(SH.rank_nbytes(placed))
+            lm = SH.logical(mesh)
+            spec_bytes = [0]
+            SH.spec_map(lambda sp, t: spec_bytes.__setitem__(
+                0, spec_bytes[0] + t.numel() * t.element_size()
+                // SH._divisor(sp, lm)), sspecs, state)
+            out[f"{arch}/spec_bytes"] = np.array(spec_bytes[0])
+            model = mesh.mesh_dim_names.index("model")
+            out[f"{arch}/model_split"] = np.array(sum(
+                p.placements[model].is_shard()
+                for p in pytree.leaves(placed.params)))
+            mine = rows(root, arch, mesh)
+            one, m1 = TS.make_train_step(cfg, opt, compute_dtype=None)(
+                placed, mine)
+            put(out, f"{arch}/1", one, m1)
+            two, m2 = TS.make_train_step(cfg, opt, compute_dtype=None,
+                                         grad_accum=2)(one, mine)
+            put(out, f"{arch}/2", two, m2)
+            if arch == CKPT_ARCH and "save" in JOBS_RUN:
+                from repro_torch.distributed import checkpoint
+                checkpoint.save(two, f"{root}/ckpt", 2)
+
+    def bf16(root, mesh, out):
+        from repro_torch.distributed import sharding as SH
+        from repro_torch.training import train_step as TS
+
+        cfg, opt, state, sspecs = setup(CKPT_ARCH, root, mesh)
+        new, m = TS.make_train_step(cfg, opt)(
+            SH.place_state(state, mesh, sspecs), rows(root, CKPT_ARCH, mesh))
+        put(out, "bf16", new, m)
+
+    def gaps(root, mesh, out):
+        from repro_torch.configs import get_config
+        from repro_torch.distributed import sharding as SH
+        from repro_torch.training import optim
+        from repro_torch.training import train_step as TS
+
+        for arch in GAP_ARCHS:
+            cfg = get_config(arch, reduced=True)
+            opt = optim.AdamW(lr=1e-3)
+            state = TS.init_state(cfg, 0, opt, device="cpu")
+            placed = SH.place_state(state, mesh, specs(cfg, state, mesh))
+            try:
+                TS.make_train_step(cfg, opt)(placed, {})
+                out[f"gaps/{arch}"] = np.array("trained")
+            except NotImplementedError as e:
+                out[f"gaps/{arch}"] = np.array(str(e))
+
+    def norm(root, mesh, out):
+        from repro_torch.distributed import sharding as SH
+        from repro_torch.training import optim, pytree
+
+        for arch in ARCHS_RUN:
+            cfg, opt, state, sspecs = setup(arch, root, mesh)
+            g = torch.Generator().manual_seed(7)
+            tree = pytree.tree_map(
+                lambda p: torch.randn(p.shape, generator=g), state.params)
+            kinds = set()
+            for tag, sp in (("zero", sspecs.params), ("tp", SH.param_specs(
+                    cfg, state.params, SH.logical(mesh)))):
+                placed = SH.place_tree(tree, mesh, sp)
+                for p in pytree.leaves(placed):
+                    kinds.add(tuple(q.is_shard() for q in p.placements))
+                out[f"norm/{arch}/{tag}"] = np.array(
+                    float(optim.global_norm(placed)))
+            out[f"norm/{arch}/kinds"] = np.array(sorted(kinds))
+            out[f"norm/{arch}/whole"] = np.array(
+                float(optim.global_norm(tree)))
+
+    def attention_inputs():
+        # Each ops.flash_attention call's q, k, v contiguous or not (the
+        # CUDA wrapper refuses a strided view; the CPU's plain version
+        # takes it): the list the calls append to.
+        from repro_torch.kernels import ops
+        seen, fa = [], ops.flash_attention
+
+        def call(q, k, v, *a, **kw):
+            seen.append(all(t.is_contiguous() for t in (q, k, v)))
+            return fa(q, k, v, *a, **kw)
+
+        ops.flash_attention = call
+        return seen
+
+    JOBS = {"train": train, "bf16": bf16, "gaps": gaps, "norm": norm}
+    JOBS_RUN = ()
+    ARCHS_RUN = ()
+
+    def run(rank, root, shape, names, archs, jobs):
+        global JOBS_RUN, ARCHS_RUN
+        from repro_torch.launch.mesh import make_mesh
+
+        JOBS_RUN, ARCHS_RUN = jobs, archs
+        torch.set_num_threads(1)
+        world = int(np.prod(shape))
+        dist.init_process_group("gloo", init_method=f"file://{root}/rdzv",
+                                rank=rank, world_size=world)
+        mesh = make_mesh(shape, names, "cpu")
+        out = {}
+        contiguous = attention_inputs()
+        for job in jobs:
+            if job in JOBS:
+                JOBS[job](root, mesh, out)
+        out["attention_contiguous"] = np.array(contiguous)
+        if rank == 0:
+            np.savez(f"{root}/out.npz", **out)
+        dist.barrier()
+        dist.destroy_process_group()
+
+    if __name__ == "__main__":
+        root = sys.argv[1]
+        shape = tuple(int(x) for x in sys.argv[2].split(","))
+        names = tuple(sys.argv[3].split(","))
+        archs = tuple(sys.argv[4].split(","))
+        jobs = tuple(sys.argv[5].split(","))
+        mp.start_processes(run, args=(root, shape, names, archs, jobs),
+                           nprocs=int(np.prod(shape)), start_method="fork")
+""").replace("CKPT_ARCH", repr(CKPT_ARCH)).replace("GAP_ARCHS",
+                                                   repr(GAP_ARCHS))
+
+
+def _reference(arch):
+    cfg = jget(arch, reduced=True)
+    params = JT.init_params(cfg, jax.random.key(ARCHS.index(arch)),
+                            jnp.float32)
+    return params, make_batch(cfg, B, S, seed=ARCHS.index(arch))
+
+
+_STEPS: dict = {}
+
+
+def _jax_step(arch, compute_dtype=None):
+    """The reference's jitted step (compiled once an arch and type)."""
+    key = (arch, compute_dtype)
+    if key not in _STEPS:
+        _STEPS[key] = jax.jit(JS.make_train_step(
+            jget(arch, reduced=True), JO.AdamW(lr=LR), z_loss=Z,
+            compute_dtype=compute_dtype))
+    return _STEPS[key]
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Each world's out.npz, and the reference's step 1 (and the bf16
+    step) for each arch, computed while the children run."""
+    base = tmp_path_factory.mktemp("tp")
+    refs = {a: _reference(a) for a in ARCHS}
+    procs = {}
+    for world, (shape, names, archs, jobs) in WORLDS.items():
+        d = base / world
+        d.mkdir()
+        for arch in archs:
+            params, batch = refs[arch]
+            np.savez(d / f"params-{arch}.npz", **_flat_np(np_tree(params)))
+            np.savez(d / f"batch-{arch}.npz", **batch)
+        log = open(base / f"{world}.log", "w")
+        procs[world] = (subprocess.Popen(
+            [sys.executable, "-c", CHILD, str(d),
+             ",".join(map(str, shape)), ",".join(names), ",".join(archs),
+             ",".join(jobs)], cwd=ROOT, stdout=log,
+            stderr=subprocess.STDOUT), log)
+    want = {}
+    for arch in ARCHS:
+        params, batch = refs[arch]
+        jopt = JO.AdamW(lr=LR)
+        state = JS.TrainState(params, jopt.init(params), None)
+        jb = {k: jnp.asarray(v) for k, v in batch.items()}
+        want[arch] = (params, batch, _jax_step(arch)(state, jb))
+        if arch == CKPT_ARCH:
+            want["bf16"] = _jax_step(arch, compute_dtype=jnp.bfloat16)(
+                state, jb)
+    out = {}
+    for world, (proc, log) in procs.items():
+        proc.wait(timeout=600)
+        log.close()
+        assert proc.returncode == 0, (base / f"{world}.log").read_text()[
+            -4000:]
+        with np.load(base / world / "out.npz") as f:
+            out[world] = dict(f)
+    return out, want, base / "data2model2" / "ckpt"
+
+
+@pytest.mark.parametrize("world,arch", RUNS)
+def test_tp_step_matches_reference(runs, world, arch):
+    """Step 1 of the state split on the model axis against the
+    reference's one-device step on the whole batch (f32)."""
+    out, want, _ = runs
+    params, batch, (jstate, jm) = want[arch]
+    tcfg, tparams, tb = _port_inputs(arch, np_tree(params), batch)
+    _hold_step(out[world], f"{arch}/1", jstate, jm,
+               step_grads(tcfg, tparams, tb), f"{arch} {world}")
+
+
+@pytest.mark.parametrize("world,arch", RUNS)
+def test_tp_grad_accum_step_matches_reference(runs, world, arch):
+    """Step 2, ``grad_accum=2`` (each rank gathers its shards once, runs
+    two micro-slices of its rows with the model axis installed, reduces
+    once), from the world's own step-1 state, against the reference's
+    step from that state on the whole batch."""
+    out, want, _ = runs
+    params, batch, _ = want[arch]
+    got = out[world]
+    start = _jstate(params, got, f"{arch}/1")
+    jstate, jm = _jax_step(arch)(
+        start, {k: jnp.asarray(v) for k, v in batch.items()})
+    tcfg, tparams, tb = _port_inputs(arch, np_tree(start.params), batch)
+    _hold_step(got, f"{arch}/2", jstate, jm,
+               step_grads(tcfg, tparams, tb, grad_accum=2),
+               f"{arch} {world} grad_accum")
+
+
+@pytest.mark.parametrize("world", list(WORLDS))
+def test_tp_state_layout_and_bytes(runs, world):
+    """``place_state`` by ``param_specs`` splits leaves on the model axis;
+    gathered whole it is the state placed, and each rank holds its spec
+    tree's bytes a device."""
+    got = runs[0][world]
+    n = int(np.prod(WORLDS[world][0]))
+    for arch in WORLDS[world][2]:
+        assert got[f"{arch}/whole_equal"], arch
+        assert int(got[f"{arch}/model_split"]) > 0, arch
+        assert list(got[f"{arch}/bytes"]) == [int(
+            got[f"{arch}/spec_bytes"])] * n, arch
+
+
+@pytest.mark.parametrize("world", list(WORLDS))
+def test_tp_attention_inputs_are_contiguous(runs, world):
+    """Every attention call of the world's steps takes contiguous q, k and
+    v, as the card's kernels require: on (model 4) too, where each rank
+    takes its KV head out of k and v gathered whole."""
+    seen = runs[0][world]["attention_contiguous"]
+    assert seen.size > 0 and seen.all(), seen
+
+
+def test_tp_bf16_step_matches_reference(runs):
+    """A bf16 compute copy (the default) on the (model 2) world: loss,
+    gradient norm, the first moment and the params within 3e-2 relative
+    l2 of the reference's bf16 step; the master params stay f32."""
+    out, want, _ = runs
+    got = out["model2"]
+    jstate, jm = want["bf16"]
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(got[f"bf16/{k}"]), float(jm[k]),
+                                   rtol=BF16_REL_L2)
+    for field, tree in (("mu", jstate.opt.mu), ("params", jstate.params)):
+        g = np.concatenate([a.ravel() for a in _leaves(got, "bf16", field)])
+        w = np.concatenate([np.asarray(a, np.float32).ravel()
+                            for a in jax.tree.leaves(tree)])
+        assert np.linalg.norm(g - w) <= BF16_REL_L2 * np.linalg.norm(w)
+    assert all(a.dtype == np.float32 for a in _leaves(got, "bf16", "params"))
+
+
+def test_tp_checkpoint_restores_bit_equal(runs):
+    """The (data 2, model 2) state after step 2, saved by every rank
+    together, restored onto one process: bit-equal to the state saved."""
+    out, _, ckpt = runs
+    saved = out["data2model2"]
+    key = f"{CKPT_ARCH}/2"
+    opt = TO.AdamW(lr=LR)
+    template = TS.init_state(tget(CKPT_ARCH, reduced=True), 0, opt,
+                             device="cpu")
+    one = CK.restore(template, str(ckpt))
+    assert int(one.opt.step) == 2
+    for field, tree in (("params", one.params), ("mu", one.opt.mu),
+                        ("nu", one.opt.nu)):
+        for a, b in zip(pytree.leaves(tree), _leaves(saved, key, field)):
+            np.testing.assert_array_equal(a.numpy(), b)
+
+
+def test_global_norm_counts_each_block_once(runs):
+    """``global_norm`` of a tree placed on the (data 2, model 2) mesh by the
+    TP state's master specs and by ``param_specs`` (leaves split on the
+    model axis, the data axis, both and neither): the whole tree's norm (a
+    block that the ranks of a mesh dim hold alike counted once)."""
+    got = runs[0]["data2model2"]
+    for arch in (YI, OLMOE):
+        kinds = {tuple(k) for k in got[f"norm/{arch}/kinds"].tolist()}
+        assert {(True, True), (False, True), (True, False),
+                (False, False)} <= kinds, kinds
+        for tag in ("zero", "tp"):
+            np.testing.assert_allclose(float(got[f"norm/{arch}/{tag}"]),
+                                       float(got[f"norm/{arch}/whole"]),
+                                       rtol=1e-6)
+
+
+@pytest.mark.parametrize("arch", GAP_ARCHS)
+def test_tp_train_gaps_raise(runs, arch):
+    """A state of an SSM or hybrid model split on the model axis: the
+    step raises before any collective, naming what the path lacks."""
+    msg = str(runs[0]["model2"][f"gaps/{arch}"])
+    word = "hybrid blocks" if arch.startswith("hymba") else "SSM blocks"
+    assert word in msg and "ROADMAP A13" in msg, msg
+    assert word in TT.tp_train_gaps(tget(arch), 16)
+
+
+def test_tp_train_gaps_name_uneven_splits():
+    """The production model axis of 16: yi-6b and olmoe-1b-7b train
+    (yi's 4 KV heads split mid-head, gathered whole); llama4-scout's 40
+    query heads do not split; KV heads whose columns do not split, experts
+    and MLP widths that the axis does not divide are named."""
+    assert TT.tp_train_gaps(tget(YI), 16) == []
+    assert TT.tp_train_gaps(tget(OLMOE), 16) == []
+    assert TT.tp_train_gaps(tget(SCOUT), 16) == ["40 query heads over 16 "
+                                                 "ranks"]
+    small = tget(YI, reduced=True)  # 6 query heads, 2 KV heads, d_ff 192
+    assert TT.tp_train_gaps(small, 4) == ["6 query heads over 4 ranks"]
+    assert TT.tp_train_gaps(small, 2) == []
+    odd = dataclasses.replace(tget(YI), num_kv_heads=3)
+    assert TT.tp_train_gaps(odd, 16) == ["3 KV heads over 16 ranks"]
+    olmoe = tget(OLMOE, reduced=True)  # 8 experts
+    assert "8 experts over 16 ranks" in TT.tp_train_gaps(olmoe, 16)
+    assert TT.tp_train_gaps(tget("musicgen-large"), 16)[0] == "4 codebooks"
