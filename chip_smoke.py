@@ -141,9 +141,9 @@
    params held to PERF.md section 2's bf16 rule (the host's steps run in
    a child process started before phase 2, beside the card's phases;
    these checks run after phase 13, when the child is done).  A
-   child process runs the cut tinyllama through ``run_supervised`` with a
-   failure at step 3 under deterministic algorithms: its final state
-   bit-equal to an unbroken run's.
+   child process, run beside phase 12, runs the cut tinyllama through
+   ``run_supervised`` with a failure at step 3 under deterministic
+   algorithms: its final state bit-equal to an unbroken run's.
 11. The production train cell's per-device step on the card: for
    tinyllama-1.1b and mamba2-780m, the ``train_4k`` cell on the 16 x 16
    production mesh (pure data parallelism: every mesh axis a data axis,
@@ -184,8 +184,8 @@
    rank's ``generate`` walls beside the card.
 13. ZeRO data-parallel training on a placed state: ZERO_RANKS processes
    spawned on the one card (gloo on CUDA tensors) place tinyllama-1.1b's
-   and mamba2-780m's f32 states at full width and half depth (11 of 22
-   and 24 of 48 layers; seed 0) on a
+   and mamba2-780m's f32 states at full width and a quarter of their
+   depth (6 of 22 and 12 of 48 layers; seed 0) on a
    ("data",) mesh with ``place_state`` and train them with
    ``make_train_step`` (bf16 compute, remat, z-loss 1e-4), each rank on
    its own row of ZERO_SEQ tokens: one untimed step, then ZERO_STEPS
@@ -201,7 +201,7 @@
    collective kind and the time in gloo.
 14. Tensor-parallel training on local shards: four processes spawned on
    the one card (gloo on CUDA tensors) form a (data 2, model 2) mesh and
-   train yi-6b (4 of 32 layers) and olmoe-1b-7b (2 of 16 layers; the
+   train yi-6b (2 of 32 layers) and olmoe-1b-7b (2 of 16 layers; the
    dense MoE) at full width, f32 states from seed 0 placed by
    ``place_state`` with ``param_specs``' layout (split on the model axis)
    and ZeRO-1 over the data axis, with ``make_train_step`` (bf16 compute,
@@ -211,14 +211,26 @@
    and ``flash_attention_bwd`` through their wrappers at its own heads
    (counts zeroed before the first model, read after the last timed
    step); step 1 held leaf by leaf to one process's plain step on the
-   whole batch by phase 13's rule.  Prints each rank's step seconds, the
-   time in gloo, bytes a step by collective kind and mesh axis, the
-   allocator's peak and the kernels' local shapes.  Then eight processes
-   form a ("model",) axis of more ranks than yi-6b's 4 KV heads (as the
-   production axis of 16 is): its attention at full width, forward and
-   backward on each rank's columns (k and v gathered whole, the rank's KV
-   head taken), held to the unplaced attention on the whole weights.
-   The attention kernels are also held to their plain versions at each
+   whole batch by phase 13's rule; the cross entropy reduces each rank's
+   vocabulary columns (no logits gathered over the model axis: yi's
+   model-axis all-gathers are none, olmoe's the router's alone).  Prints
+   each rank's step seconds, the time in gloo, bytes and calls a step by
+   collective kind and mesh axis, the allocator's peak and the kernels'
+   local shapes.  Sixteen processes, spawned together at the start of
+   phase 13 and running beside it, run (b) and (c).  (b): the first eight form a ("model",) axis of more ranks than
+   yi-6b's 4 KV heads (as the production axis of 16 is): its attention at
+   full width, forward and backward on each rank's columns (k and v
+   gathered whole, the rank's KV head taken), held to the unplaced
+   attention on the whole weights.  (c): all sixteen form a ("model",)
+   axis that does not divide llama4-scout's 40 query heads (as in its
+   ``train_4k`` cell): its attention at full width
+   (QK-norm; ranks 0-7 run the kernels at 3 query heads, 8-15 at 2, k and
+   v repeated to as many), held the same way; and its cross entropy on
+   the whole padded vocabulary (1 x TP_SEQ tokens, each rank 12 640 of
+   202 240 head columns) held to the unsplit one that rank 0 runs: the
+   loss within 1e-3 relative, the accuracy equal, the gradients of the
+   hidden states and of each rank's head columns within 3e-2.  The
+   attention kernels are also held to their plain versions at each
    rank's heads in phases 2 and 10.
 15. Prints the kernels as one JSON line (launches summed over the main
    path's, the families' and the elastic A/B's serving runs, the
@@ -288,7 +300,7 @@ SSD_TOL = 2e-4  # tests/test_kernels.py's chunked-vs-sequential tolerance
 # 4, prompts up to 12 tokens, 8 new tokens.
 ARCHS = ("tinyllama-1.1b", "mamba2-780m", "gemma2-2b")
 MAX_BATCH, MAX_PROMPT, MAX_NEW, REQUESTS = 4, 12, 8, 18
-GENERATE_RUNS = 5  # unprofiled generate walls per tenant and variant
+GENERATE_RUNS = 2  # unprofiled generate walls per tenant and variant
 PROFILE_TRIES = 3  # profiles of a step, until none of its kernels is lost
 LONG_PROMPT = 2048  # a long mamba2 prefill: the scan bound by operations
 
@@ -370,7 +382,7 @@ HOST_THREADS = 4  # of the card machine's 8 cores: the host's cut steps
 # alternating the tenants; then every rank runs each tenant's variants.
 PLACED_RANKS = 2
 PLACED_ARCHS = ("tinyllama-1.1b", "mamba2-780m")
-PLACED_REQUESTS = 4
+PLACED_REQUESTS = 2  # one a tenant (the smoke's time)
 PLACED_BATCH = (2, 8)
 PLACED_BYTES_TOL = 0.06  # tests/test_elastic_serving.py's placement check
 # tinyllama's row-parallel down projection (K = d_ff 5632, groups of 128)
@@ -378,14 +390,14 @@ PLACED_BYTES_TOL = 0.06  # tests/test_elastic_serving.py's placement check
 QMM_SHARDS = 8
 # Phase 13: ZeRO data-parallel training on a placed state.  ZERO_RANKS
 # processes share the one card (gloo on CUDA tensors), a ("data",) mesh;
-# each of ZERO_ARCHS at full width, cut to half its depth (the smoke's
-# time: phase 14 joined it), trains on ZERO_SEQ tokens a rank (one row),
+# each of ZERO_ARCHS at full width, cut to a quarter of its depth (the
+# smoke's time: phase 14 grew), trains on ZERO_SEQ tokens a rank (one row),
 # one untimed step then ZERO_STEPS timed, the first held to one process's
 # plain step on the whole batch.
 ZERO_RANKS = 2
-ZERO_ARCHS = ((TRAIN_ARCH, 11), (SSM_TRAIN_ARCH, 24))
+ZERO_ARCHS = ((TRAIN_ARCH, 6), (SSM_TRAIN_ARCH, 12))
 ZERO_SEQ = 1024
-ZERO_STEPS = 2
+ZERO_STEPS = 1
 ZERO_BYTES_TOL = 0.01  # a rank's state bytes against its spec tree's
 ZERO_WELL = 0.1  # |gradient| / its leaf's rms above which Adam's step holds
 # Phase 14: tensor-parallel training on local shards.  TP_MESH's ranks share
@@ -394,14 +406,32 @@ ZERO_WELL = 0.1  # |gradient| / its leaf's rms above which Adam's step holds
 # rank (one row), one untimed step then TP_STEPS timed, the first held to
 # one process's plain step on the whole batch.
 TP_MESH = (2, 2)
-TP_ARCHS = (("yi-6b", 4), ("olmoe-1b-7b", 2))
+TP_ARCHS = (("yi-6b", 2), ("olmoe-1b-7b", 2))
 TP_SEQ = 1024
-TP_STEPS = 2
-# Phase 14 (b): the KV gather.  TP_GATHER's ranks share the card, a
+TP_STEPS = 1
+# Phase 14 (b): the KV gather, on the first TP_GATHER[1] of phase 14 (c)'s
+# TP_UNEVEN ranks (one spawn for both parts).  TP_GATHER's ranks form a
 # ("model",) axis of more ranks than the model's KV heads (yi-6b's 4 over 8,
 # as over the production axis of 16): wk's and wv's columns cut a head, so
 # each rank gathers k and v whole and takes the KV head its queries read.
 TP_GATHER = ("yi-6b", 8)
+# Phase 14 (c): uneven heads and the vocabulary-parallel cross entropy.
+# TP_UNEVEN's ranks share the card, a ("model",) axis that does not divide
+# the model's query heads (llama4-scout's 40 over the production axis of
+# 16: ranks 0-7 take 3 heads, 8-15 take 2); then its cross entropy on its
+# whole padded vocabulary, each rank 1/16 of the head's columns.  At even
+# positions TP_CE_BUMP times the unit vector of the label's head column is
+# added to the hidden state, so that about half the rows' argmax is their
+# label by a margin wider than bf16's rounding of the logits.
+TP_UNEVEN = ("llama4-scout-17b-a16e", 16)
+TP_CE_BUMP = 8.0
+TP_CE_SEED = 100  # rank r's head columns from seed TP_CE_SEED + r
+TP_CE_LOSS_TOL = 1e-3  # the loss's relative error against the unsplit CE
+# Phase 14 (a)'s model-axis all-gathers a step (bytes): none for yi-6b (its
+# cross entropy gathers no logits), olmoe-1b-7b's MoE router logits alone.
+TP_ROUTER_BYTES = {"yi-6b": 0, "olmoe-1b-7b": 1e6}
+RANK_ROOT = None  # a spawned rank's directory shared with the others
+RECOVERY: list = []  # phase 10's recovery child and its start time
 
 # The main path's kernels by the profiler's names: the substrings of each
 # wrapper's kernel (the decode kernels' split pass, dense or paged).
@@ -3287,22 +3317,36 @@ def check_train_cut(cut, host) -> None:
     torch.cuda.empty_cache()
 
 
-def check_recovery() -> None:
+def start_recovery() -> subprocess.Popen:
     """Phase 10 (e), run in a child process so that cuBLAS can be given a
     fixed workspace (``CUBLAS_WORKSPACE_CONFIG``) before it starts: see
-    ``recovery_child``."""
+    ``recovery_child``.  Started beside phase 12 (its card work is a
+    2-layer model's few steps, and phase 12 waits on gloo), checked by
+    :func:`check_recovery`."""
     env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
-    t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                          "--recovery-child"], capture_output=True,
-                         text=True, env=env, timeout=600)
-    if out.returncode != 0:
-        raise AssertionError(f"recovery: the child failed:\n{out.stderr}")
-    res = json.loads(out.stdout.strip().splitlines()[-1])
+    out = ROOT / "build" / "recovery"
+    out.mkdir(parents=True, exist_ok=True)
+    with open(out / "stdout", "w") as o, open(out / "stderr", "w") as e:
+        RECOVERY[:] = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--recovery-child"], stdout=o, stderr=e, env=env),
+            time.perf_counter(), out]
+    return RECOVERY[0]
+
+
+def check_recovery() -> None:
+    """The child :func:`start_recovery` started: exit 0 and its JSON
+    line's ``ok``."""
+    proc, t0, out = RECOVERY
+    proc.wait(timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError("recovery: the child failed:\n"
+                             + (out / "stderr").read_text()[-4000:])
+    res = json.loads((out / "stdout").read_text().strip().splitlines()[-1])
     if not res["ok"]:
         raise AssertionError(f"recovery: {res}")
-    print(f"recovery ({time.perf_counter() - t0:.1f} s, child process): "
-          f"{res['text']}")
+    print(f"recovery ({time.perf_counter() - t0:.1f} s with phase 12, "
+          f"child process): {res['text']}")
 
 
 def recovery_child() -> None:
@@ -3401,7 +3445,6 @@ def check_training(ref, g, cfgs, kernels) -> tuple:
         for k, n in train_main(kernels, bwds, arch).items():
             calls[k] = calls.get(k, 0) + n
         print(f"training run {arch} took {time.perf_counter() - t0:.1f} s")
-    check_recovery()
     return rows, calls
 
 
@@ -3877,17 +3920,20 @@ class GlooClock:
         self.secs, self.records, self.axes = 0.0, [], []
 
     def summary(self, steps: int) -> dict:
-        """Per step: the time in gloo, the calls, and bytes by kind, by
-        kind and mesh axis, and wire bytes by kind."""
+        """Per step: the time in gloo, the calls, and bytes by kind, bytes
+        and calls by kind and mesh axis, and wire bytes by kind."""
         from repro_torch.launch.roofline import collective_wire_bytes
 
         out = {"gloo_s": self.secs / steps, "calls": len(self.records)
-               / steps, "bytes": {}, "by_axis": {}, "wire_bytes": {}}
+               / steps, "bytes": {}, "by_axis": {}, "calls_by_axis": {},
+               "wire_bytes": {}}
         for rec, axis in zip(self.records, self.axes):
             n = rec.dtype.itemsize * math.prod(rec.shape) / steps
             out["bytes"][rec.kind] = out["bytes"].get(rec.kind, 0) + n
             key = f"{rec.kind} ({str(rec.dtype).split('.')[-1]}) on {axis}"
             out["by_axis"][key] = out["by_axis"].get(key, 0) + n
+            out["calls_by_axis"][key] = (out["calls_by_axis"].get(key, 0)
+                                         + 1 / steps)
         for k, v in collective_wire_bytes(self.records).items():
             if v:
                 out["wire_bytes"][k] = v / steps
@@ -3896,15 +3942,18 @@ class GlooClock:
 
 def zero_rank(rank: int, root: str, world: int, run) -> None:
     """One rank of phase 13 or 14 (a spawned process): the group over gloo
-    (file rendezvous under ``root``), then ``run(rank, world)``
-    (:func:`zero_run`, :func:`tp_run`, :func:`tp_gather_run`); rank 0
+    (file rendezvous under ``root``, which is also RANK_ROOT, the ranks'
+    shared directory), then ``run(rank, world)`` (:func:`zero_run`,
+    :func:`tp_run`, :func:`tp_parts_run`); rank 0
     writes its result to ``root``/result.json."""
     import datetime
     import faulthandler
 
     import torch.distributed as dist
 
+    global RANK_ROOT
     faulthandler.enable()
+    RANK_ROOT = root
     sys.path.insert(0, str(SRC))
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4423,19 +4472,20 @@ def attention_shapes(shapes: dict):
         FA._check = check
 
 
-def tp_gather_run(rank: int, world: int) -> dict:
-    """Phase 14 (b) on one rank of a ("model",) axis of ``world`` ranks,
-    more than TP_GATHER's KV heads: the model's attention at full width
-    (bf16, TP_SEQ tokens; weights from seed 0 scaled by d_model^-1/2) on
-    the rank's columns of wq, wk and wv as ``param_specs`` splits them
-    (wk's and wv's cut a head), forward and backward through
-    ``layers.attention_prefill`` under the model axis (k and v gathered
-    whole, the rank's KV head taken), held to the same attention unplaced
-    on the whole weights: the rank's heads of the output, the input's
-    gradient (all-reduced over the axis) and the rank's columns of each
-    weight's gradient, each by relative l2 (held in :func:`check_tp`).
-    Records the attention kernels' launches and local shapes in the placed
-    run only."""
+def tp_attention(arch: str, rank: int, world: int, group) -> dict:
+    """Phase 14 (b) and (c) on one rank of a ("model",) axis of ``world``
+    ranks (the process group ``group``): ``arch``'s attention at full
+    width (bf16, TP_SEQ tokens; weights from seed 0 scaled by
+    d_model^-1/2, norm weights by 0.1) on the rank's columns of wq, wk
+    and wv as ``param_specs`` splits them,
+    forward and backward through ``layers.attention_prefill`` under the
+    model axis, held to the same attention unplaced on the whole weights:
+    the rank's columns of the output (its rows of ``wo``), the input's
+    gradient (all-reduced over the axis), the rank's columns of each
+    projection's gradient and the norm weights' gradients whole, each by
+    relative l2 (held in :func:`check_tp`).  Returns the attention
+    kernels' launches and local shapes in the placed run only, the
+    errors and the placed run's seconds."""
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
@@ -4444,7 +4494,7 @@ def tp_gather_run(rank: int, world: int) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.models import layers as L
 
-    cfg = get_config(TP_GATHER[0])
+    cfg = get_config(arch)
     H, KV, hd, D = (cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
                     cfg.d_model)
     window = cfg.window_for_kind(cfg.layer_kinds()[0])
@@ -4452,10 +4502,15 @@ def tp_gather_run(rank: int, world: int) -> dict:
     x = rand(g, 1, TP_SEQ, D, dtype=torch.bfloat16)
     whole = {k: rand(g, D, n * hd, dtype=torch.bfloat16, scale=D ** -0.5)
              for k, n in (("wq", H), ("wk", KV), ("wv", KV))}
+    if cfg.qk_norm:
+        whole.update({k: rand(g, hd, dtype=torch.bfloat16, scale=0.1)
+                      for k in ("q_norm", "k_norm")})
     dout = rand(g, 1, TP_SEQ, H * hd, dtype=torch.bfloat16)
     pos = torch.arange(TP_SEQ, device="cuda")
 
-    def cols(t):
+    def cols(t):  # the rank's columns of a projection; a norm weight whole
+        if t.ndim == 1:
+            return t
         n = t.shape[-1] // world
         return t[..., rank * n:(rank + 1) * n].contiguous()
 
@@ -4472,10 +4527,9 @@ def tp_gather_run(rank: int, world: int) -> dict:
     for f in fns.values():
         f.launches = 0
     shapes = {k: set() for k in fns}
-    dist.barrier()
+    dist.barrier(group=group)
     t0 = time.perf_counter()
-    with (attention_shapes(shapes),
-          tensor_parallel(dist.group.WORLD, rank, world)):
+    with (attention_shapes(shapes), tensor_parallel(group, rank, world)):
         out, grads = attend({k: cols(w) for k, w in whole.items()},
                             cols(dout))
     torch.cuda.synchronize()
@@ -4486,44 +4540,186 @@ def tp_gather_run(rank: int, world: int) -> dict:
             "dx": rel_l2(grads[0].float(), want_grads[0].float())}
     for name, got, w in zip(whole, grads[1:], want_grads[1:]):
         errs[f"d{name}"] = rel_l2(got.float(), cols(w).float())
+    return {"launches": counts, "errs": errs, "secs": secs,
+            "shapes": {k: sorted(v) for k, v in shapes.items()}}
+
+
+def tp_ce(arch: str, rank: int, world: int) -> dict:
+    """Phase 14 (c)'s cross entropy on one rank of a ("model",) axis of
+    ``world`` ranks: ``transformer.head_loss`` (``loss_fn`` past the final
+    hidden states; bf16, TP_SEQ tokens, z-loss) on the rank's columns of
+    ``arch``'s head at its full padded vocabulary (rank r's from seed
+    TP_CE_SEED + r, scaled by d_model^-1/2), the vocabulary-parallel
+    statistics reduced over the axis.  The labels and the hidden states
+    come from seed 1 on every rank alike, TP_CE_BUMP times the unit vector
+    of each even position's label column added (the rank holding the
+    column adds it; an all-reduce sums).  Then rank 0 alone (16 copies of
+    the head and its float32 logits would not fit on the card beside each
+    other) builds the whole head from the same seeds and runs the unsplit
+    ``head_loss``, and hands each rank its columns of the head's gradient
+    through files under RANK_ROOT.  Returns the loss, nll and accuracy of
+    both, the relative errors of the loss and of the gradients of the
+    hidden states and of the rank's head columns, and the placed run's
+    seconds."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.ctx import tensor_parallel
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(arch)
+    D, w = cfg.d_model, cfg.padded_vocab // world
+    g = torch.Generator(device="cuda").manual_seed(1)
+    labels = torch.randint(0, cfg.vocab_size, (1, TP_SEQ), generator=g,
+                           device="cuda")
+    base = torch.randn((1, TP_SEQ, D), generator=g, device="cuda")
+
+    def block(r):  # rank r's head columns (1, D, w)
+        gr = torch.Generator(device="cuda").manual_seed(TP_CE_SEED + r)
+        return rand(gr, 1, D, w, dtype=torch.bfloat16, scale=D ** -0.5)
+
+    head = block(rank)
+    j = labels[0] - rank * w
+    mine = ((j >= 0) & (j < w)
+            & (torch.arange(TP_SEQ, device="cuda") % 2 == 0))
+    col = head[0].float()[:, j.clamp(0, w - 1)].T  # (TP_SEQ, D)
+    bump = torch.where(mine[:, None], col / col.norm(dim=-1, keepdim=True),
+                       torch.zeros_like(col)) * TP_CE_BUMP
+    dist.all_reduce(bump)
+    hidden = (base + bump[None]).to(torch.bfloat16)
+    del base, bump, col
+
+    def ce(w_):
+        leaves = [hidden.detach().requires_grad_(),
+                  w_.detach().requires_grad_()]
+        with torch.enable_grad():
+            loss, met = T.head_loss(cfg, *leaves, labels, TRAIN_Z)
+            grads = torch.autograd.grad(loss, leaves)
+        return {k: float(v.detach()) for k, v in met.items()}, grads
+
+    dist.barrier()
+    t0 = time.perf_counter()
+    with tensor_parallel(dist.group.WORLD, rank, world):
+        got, (dh, dw) = ce(head)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    del head
+    dist.barrier()
+    root = Path(RANK_ROOT)
+    if rank == 0:
+        want, (dh0, dw0) = ce(torch.cat([block(r) for r in range(world)],
+                                        -1))
+        for r in range(world):
+            torch.save(dw0[..., r * w:(r + 1) * w].clone(),
+                       root / f"ce-{r}.pt")
+        torch.save({"metrics": want, "dh": dh0}, root / "ce-whole.pt")
+        del dh0, dw0
+        release_memory()
+    dist.barrier()
+    whole = torch.load(root / "ce-whole.pt", map_location="cuda")
+    want_dw = torch.load(root / f"ce-{rank}.pt", map_location="cuda")
+    want = whole["metrics"]
+    errs = {"loss": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+            "dhidden": rel_l2(dh.float(), whole["dh"].float()),
+            "dhead": rel_l2(dw.float(), want_dw.float())}
+    return {"got": got, "want": want, "errs": errs, "secs": secs,
+            "columns": w}
+
+
+def tp_parts_run(rank: int, world: int) -> dict:
+    """Phase 14 (b) and (c) on one rank of TP_UNEVEN's ``world`` ranks
+    (one spawn for both).  (b): on the first TP_GATHER[1] ranks (a group
+    of their own), :func:`tp_attention` of TP_GATHER's model, whose KV
+    heads are fewer than the ranks (wk's and wv's columns cut a head: k
+    and v gathered whole, the rank's KV head taken).  (c): on all of them,
+    :func:`tp_attention` of TP_UNEVEN's model, whose query heads the axis
+    does not divide (q gathered whole, the rank's 3 or 2 heads taken, k
+    and v gathered whole and repeated to them, the output gathered back
+    for the rank's rows of ``wo``), then :func:`tp_ce` on its full
+    vocabulary."""
+    import torch.distributed as dist
+
+    m = TP_GATHER[1]
+    sub = dist.new_group(list(range(m)))  # every rank takes part
+    out = {}
+    if rank < m:
+        out["gather"] = tp_attention(TP_GATHER[0], rank, m, sub)
+    release_memory()
+    out["uneven"] = tp_attention(TP_UNEVEN[0], rank, world,
+                                 dist.group.WORLD)
+    release_memory()
+    out["ce"] = tp_ce(TP_UNEVEN[0], rank, world)
     every = [None] * world
-    dist.all_gather_object(every, (counts, {k: sorted(v) for k, v in
-                                            shapes.items()}, errs, secs))
-    return {"ranks": [{"launches": c, "shapes": sh, "errs": e, "secs": t}
-                      for c, sh, e, t in every]} if rank == 0 else {}
+    dist.all_gather_object(every, out)
+    return {"ranks": every} if rank == 0 else {}
 
 
-def tp_shapes() -> list:
-    """(H, KV, D) of each attention phase 14 runs on a rank: each of
-    TP_ARCHS's query and KV heads over TP_MESH's model axis, and
-    TP_GATHER's query heads over its ranks with one (gathered) KV head."""
+def rank_heads(cfg, m: int, r: int) -> tuple:
+    """(query heads, KV heads) that rank ``r`` of a model axis of ``m``
+    ranks runs the attention kernels at, as ``layers._qkv`` gives them:
+    its share of the query heads (``tensor_parallel.head_range``: the
+    first H % m ranks one more); as many KV heads where k and v are
+    repeated to them (the axis divides neither the query heads nor, either
+    way, the KV heads), one where the rank takes its KV head from k and v
+    gathered whole (more ranks than KV heads), else its share."""
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    n = H // m + (r < H % m)
+    if H % m or (KV % m and m % KV):
+        return n, n
+    return n, max(KV // m, 1)
+
+
+def tp_parts() -> dict:
+    """Each part of phase 14 by name: (its model axis's size, for each
+    rank of it the set of (q, k, type) local shapes its attention kernels
+    run at)."""
     from repro_torch.configs import get_config
 
-    out = []
-    for arch, m in [(a, TP_MESH[1]) for a, _ in TP_ARCHS] + [TP_GATHER]:
+    def shape(cfg, m, r):
+        H, KV = rank_heads(cfg, m, r)
+        D = cfg.resolved_head_dim
+        return ((1, TP_SEQ, H, D), (1, TP_SEQ, KV, D), "bfloat16")
+
+    m = TP_MESH[1]
+    out = {"train": (m, [{shape(get_config(a), m, r) for a, _ in TP_ARCHS}
+                         for r in range(m)])}
+    for name, (arch, m) in (("gather", TP_GATHER), ("uneven", TP_UNEVEN)):
         cfg = get_config(arch)
-        out.append((cfg.num_heads // m, max(cfg.num_kv_heads // m, 1),
-                    cfg.resolved_head_dim))
+        out[name] = (m, [{shape(cfg, m, r)} for r in range(m)])
     return out
 
 
-def check_tp(world: int = math.prod(TP_MESH)) -> dict:
+def tp_shapes() -> list:
+    """(H, KV, D) of each attention shape phase 14 runs on a rank, every
+    part and rank (:func:`tp_parts`)."""
+    return sorted({(q[2], k[2], q[3]) for _, ranks in tp_parts().values()
+                   for want in ranks for q, k, _ in want})
+
+
+def check_tp(world: int = math.prod(TP_MESH), ranks=None) -> dict:
     """Phase 14: ``world`` ranks spawned on the one card run
     :func:`tp_run`; holds what they report: every rank launched
     ``flash_attention`` and ``flash_attention_bwd`` through their wrappers
     (counts zeroed before the first model, read after the last timed
     step), each at its own heads only (the query and KV heads that
-    ``param_specs`` gives a rank of the model axis).  Prints each rank's
-    step seconds, the time in gloo, bytes a step by collective kind and
-    mesh axis, its blocks against the spec tree's bytes a device, the
-    allocator's peak, its launches and their local shapes, and rank 0's
-    comparison with the plain step.  Then (b) TP_GATHER's ranks run
-    :func:`tp_gather_run`: every rank launched both kernels at its heads
-    and the one KV head it takes, each figure within the bf16 TOL by
-    relative l2 (the rule phases 13 and 14 hold a step's leaves to; the
-    partial gradients are summed in bf16 over the ranks, one rounding
-    each more than the unplaced attention).
-    Returns the launches summed over the ranks of both."""
+    ``param_specs`` gives a rank of the model axis, :func:`rank_heads`);
+    no logits gathered over the model axis (the cross entropy reduces each
+    rank's vocabulary columns: the model axis's all-gathers are the MoE
+    router's alone, under TP_ROUTER_BYTES a step).  Prints each rank's
+    step seconds, the time in gloo, bytes and calls a step by collective
+    kind and mesh axis, its blocks against the spec tree's bytes a device,
+    the allocator's peak, its launches and their local shapes, and rank
+    0's comparison with the plain step.  Then (b) TP_GATHER's ranks and
+    (c) TP_UNEVEN's run :func:`tp_parts_run` in one spawn (``ranks``,
+    started beside phase 13, or spawned here; :func:`check_tp_parts`):
+    every rank launched both kernels at its heads
+    (and the KV heads it takes), each attention figure within the bf16
+    TOL by relative l2 (the rule phases 13 and 14 hold a step's leaves
+    to; the partial gradients are summed in bf16 over the ranks, one
+    rounding each more than the unplaced attention); (c)'s cross entropy
+    against the unsplit one: the loss within TP_CE_LOSS_TOL relative, the
+    accuracy equal, the gradients within TOL.  Returns the launches summed
+    over the ranks of all three."""
     release_memory()
     now, free = host_now_gb()
     print(f"tp: {world} ranks on {card()}, a (data, model) mesh of "
@@ -4542,23 +4738,18 @@ def check_tp(world: int = math.prod(TP_MESH)) -> dict:
             del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
         else:
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = env
-    shape = [((1, TP_SEQ, H, D), (1, TP_SEQ, KV, D), "bfloat16")
-             for H, KV, D in tp_shapes()]
+    parts = tp_parts()
     total = {}
 
-    def hold_launches(r, rk, want):
-        for k, n in rk["launches"].items():
-            if n == 0:
-                raise AssertionError(f"tp: rank {r} never launched {k}")
-            total[k] = total.get(k, 0) + n
-        for k, got in rk["shapes"].items():
-            if {tuple(map(tuple, x[:2])) + (x[2],) for x in got} != want:
-                raise AssertionError(f"tp: rank {r} ran {k} at {got}, not "
-                                     f"the rank's heads {sorted(want)}")
-
     for r, rk in enumerate(out["ranks"]):
-        hold_launches(r, rk, set(shape[:len(TP_ARCHS)]))
+        hold_launches("tp", r, rk, parts["train"][1][rk["coord"][1]], total)
         for run in rk["runs"]:
+            gather = run["by_axis"].get("all-gather (bfloat16) on model", 0)
+            if gather > TP_ROUTER_BYTES[run["arch"]]:
+                raise AssertionError(
+                    f"tp: rank {r} {run['arch']} gathers {gather} B a step "
+                    f"over the model axis (limit "
+                    f"{TP_ROUTER_BYTES[run['arch']]}: no logits gathered)")
             print(f"tp: rank {r} {tuple(rk['coord'])} {run['arch']} "
                   f"({run['layers']} layers; {card()}): placed in "
                   f"{run['place_s']:.1f} s, {run['blocks']} B of blocks "
@@ -4568,8 +4759,9 @@ def check_tp(world: int = math.prod(TP_MESH)) -> dict:
                   + ", ".join(f"{w * 1e3:.0f}" for w in run["step_s"])
                   + f" ms, their peak {run['peak_gb']:.2f} GB allocated on "
                   f"the card; a step: {run['calls']:.0f} collectives, "
-                  f"{run['gloo_s'] * 1e3:.0f} ms in gloo, bytes "
-                  + ", ".join(f"{k} {v / 1e9:.4f} GB"
+                  f"{run['gloo_s'] * 1e3:.0f} ms in gloo, bytes (calls) "
+                  + ", ".join(f"{k} {v / 1e9:.4f} GB "
+                              f"({run['calls_by_axis'][k]:.0f})"
                               for k, v in sorted(run["by_axis"].items()))
                   + "; wire bytes (ring formulas) "
                   + ", ".join(f"{k} {v / 1e9:.4f} GB"
@@ -4580,39 +4772,126 @@ def check_tp(world: int = math.prod(TP_MESH)) -> dict:
               + json.dumps(rk["shapes"]))
     for rec in out["held"]:
         print("tp: against one process's plain step: " + json.dumps(rec))
-    arch, m = TP_GATHER
-    t0 = time.perf_counter()
-    out = spawn_ranks(tp_gather_run, m)
-    print(f"tp gather: {arch}'s attention at full width on a (\"model\",) "
-          f"axis of {m} ranks on {card()}, more than its KV heads (k and v "
-          f"gathered whole), in {time.perf_counter() - t0:.1f} s with the "
-          "spawn")
-    for r, rk in enumerate(out["ranks"]):
-        hold_launches(r, rk, {shape[-1]})
-        tol = TOL[torch.bfloat16]
-        bad = {k: e for k, e in rk["errs"].items() if not e <= tol}
-        if bad:
-            raise AssertionError(f"tp gather: rank {r} against the unplaced "
-                                 f"attention: relative l2 {bad} (tol {tol})")
-        print(f"tp gather: rank {r} forward and backward "
-              f"{rk['secs'] * 1e3:.0f} ms, launches {rk['launches']} at (q, "
-              f"k, type) {json.dumps(rk['shapes'])}; relative l2 against the "
-              "unplaced attention "
-              + ", ".join(f"{k} {e:.3g}" for k, e in rk["errs"].items()))
+    for k, n in check_tp_parts(ranks).items():
+        total[k] = total.get(k, 0) + n
     return total
+
+
+def check_tp_parts(ranks=None) -> dict:
+    """Phase 14 (b) and (c): TP_UNEVEN's ranks spawned on the one card run
+    :func:`tp_parts_run` (``ranks``, a :class:`Ranks` started earlier, or
+    spawned here); for each part, every rank of it launched both
+    attention kernels at its heads and the KV heads it takes
+    (:func:`rank_heads`), each attention figure within the bf16 TOL by
+    relative l2, and (c)'s cross entropy held by :func:`hold_ce`.
+    Returns the launches summed over the ranks of both parts."""
+    parts = {"gather": (TP_GATHER, "more than its KV heads (k and v "
+                        "gathered whole)"),
+             "uneven": (TP_UNEVEN, "which does not divide its query heads "
+                        "(q, k and v gathered whole, k and v repeated to the "
+                        "rank's heads)")}
+    want = tp_parts()
+    tol = TOL[torch.bfloat16]
+    total = {}
+    ranks = ranks or Ranks(tp_parts_run, TP_UNEVEN[1])
+    out = ranks.result()
+    print(f"tp: parts (b) and (c) on {TP_UNEVEN[1]} ranks on {card()} in "
+          f"{time.perf_counter() - ranks.t0:.1f} s with the spawn")
+    for name, ((arch, m), label) in parts.items():
+        print(f"tp {name}: {arch}'s attention at full width on a "
+              f"(\"model\",) axis of {m} ranks, {label}")
+        for r, rk in enumerate(x[name] for x in out["ranks"][:m]):
+            hold_launches(f"tp {name}", r, rk, want[name][1][r], total)
+            bad = {k: e for k, e in rk["errs"].items() if not e <= tol}
+            if bad:
+                raise AssertionError(f"tp {name}: rank {r} against the "
+                                     f"unplaced attention: relative l2 {bad} "
+                                     f"(tol {tol})")
+            print(f"tp {name}: rank {r} forward and backward "
+                  f"{rk['secs'] * 1e3:.0f} ms, launches {rk['launches']} at "
+                  f"(q, k, type) {json.dumps(rk['shapes'])}; relative l2 "
+                  "against the unplaced attention "
+                  + ", ".join(f"{k} {e:.3g}" for k, e in rk["errs"].items()))
+    for r, rk in enumerate(out["ranks"]):
+        hold_ce(r, rk["ce"], *TP_UNEVEN)
+    return total
+
+
+def hold_launches(what: str, r: int, rk: dict, want: set,
+                  total: dict) -> None:
+    """Rank ``r`` of a phase 14 part launched each attention kernel
+    (``rk["launches"]``, added to ``total``), at the local (q, k, type)
+    shapes ``want`` only."""
+    for k, n in rk["launches"].items():
+        if n == 0:
+            raise AssertionError(f"{what}: rank {r} never launched {k}")
+        total[k] = total.get(k, 0) + n
+    for k, got in rk["shapes"].items():
+        if {tuple(map(tuple, x[:2])) + (x[2],) for x in got} != want:
+            raise AssertionError(f"{what}: rank {r} ran {k} at {got}, not "
+                                 f"the rank's heads {sorted(want)}")
+
+
+def hold_ce(r: int, ce: dict, arch: str, m: int) -> None:
+    """Phase 14 (c)'s cross entropy on rank ``r`` (:func:`tp_ce`) against
+    the unsplit one: the loss within TP_CE_LOSS_TOL relative, the
+    accuracy equal, the hidden states' and the rank's head columns'
+    gradients within the bf16 TOL by relative l2."""
+    tol = TOL[torch.bfloat16]
+    e = ce["errs"]
+    bad = {k: v for k, v in e.items()
+           if not v <= (TP_CE_LOSS_TOL if k == "loss" else tol)}
+    if bad or ce["got"]["accuracy"] != ce["want"]["accuracy"]:
+        raise AssertionError(f"tp uneven: rank {r}'s cross entropy against "
+                             f"the unsplit one: {bad}, accuracy "
+                             f"{ce['got']['accuracy']} (unsplit "
+                             f"{ce['want']['accuracy']})")
+    print(f"tp uneven: rank {r} cross entropy on {ce['columns']} of "
+          f"{arch}'s padded vocabulary over {m} ranks, {TP_SEQ} tokens, "
+          f"{ce['secs'] * 1e3:.0f} ms: loss {ce['got']['loss']:.6f} "
+          f"(unsplit {ce['want']['loss']:.6f}, relative {e['loss']:.3g}), "
+          f"accuracy {ce['got']['accuracy']:.6f} (unsplit "
+          f"{ce['want']['accuracy']:.6f}); relative l2 dhidden "
+          f"{e['dhidden']:.3g}, dhead {e['dhead']:.3g}")
 
 
 def spawn_ranks(run, world: int) -> dict:
     """``world`` ranks spawned on the one card, each :func:`zero_rank`
     with ``run``: rank 0's result."""
-    import tempfile
+    return Ranks(run, world).result()
 
-    import torch.multiprocessing as mp
 
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as root:
-        mp.start_processes(zero_rank, args=(root, world, run),
-                           nprocs=world, start_method="spawn")
-        return json.loads(Path(root, "result.json").read_text())
+class Ranks:
+    """``world`` ranks spawned on the one card, each :func:`zero_rank`
+    with ``run``, running while this process goes on; :meth:`result`
+    waits for them and returns rank 0's result, :meth:`stop` ends them
+    (each ends them either way)."""
+
+    def __init__(self, run, world: int):
+        import tempfile
+
+        import torch.multiprocessing as mp
+
+        self.t0 = time.perf_counter()
+        self.dir = tempfile.TemporaryDirectory(dir=ROOT / "build")
+        self.ctx = mp.start_processes(
+            zero_rank, args=(self.dir.name, world, run), nprocs=world,
+            start_method="spawn", join=False)
+
+    def result(self) -> dict:
+        try:
+            while not self.ctx.join():
+                pass
+            return json.loads(Path(self.dir.name, "result.json").read_text())
+        finally:
+            self.stop()
+
+    def stop(self) -> None:
+        for p in self.ctx.processes:
+            if p.is_alive():
+                p.terminate()
+            p.join()
+        self.dir.cleanup()
 
 
 def main() -> None:
@@ -4638,9 +4917,10 @@ def main() -> None:
         run(ops, ref, get_config, host)
     finally:
         HOST_CHECKS.cancel()
-        if host[0].poll() is None:
-            host[0].kill()
-            host[0].wait()
+        for proc in (host[0], *RECOVERY[:1]):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
 
 def run(ops, ref, get_config, host) -> None:
@@ -4703,18 +4983,28 @@ def run(ops, ref, get_config, host) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    start_recovery()
     check_qmm_shards(ops, ref, g)
     paths["placed"] = check_placed()
-    print(f"placed phase took {time.perf_counter() - t0:.1f} s")
+    check_recovery()
+    print(f"placed phase and phase 10's recovery took "
+          f"{time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    paths["zero"] = check_zero()
-    print(f"zero phase took {time.perf_counter() - t0:.1f} s")
-    gc.collect()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    paths["tp"] = check_tp()
+    # Phase 14 (b) and (c) run beside phase 13: their spawn of 16 ranks
+    # on the host's 8 cores would otherwise be the smoke's longest wait.
+    parts = Ranks(tp_parts_run, TP_UNEVEN[1])
+    try:
+        paths["zero"] = check_zero()
+        print(f"zero phase took {time.perf_counter() - t0:.1f} s (phase "
+              "14 (b) and (c) beside it)")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        paths["tp"] = check_tp(ranks=parts)
+    finally:
+        parts.stop()
     print(f"tp phase took {time.perf_counter() - t0:.1f} s")
     check_train_cuts(host)
 
@@ -4746,12 +5036,13 @@ def run(ops, ref, get_config, host) -> None:
         counted_by[k] += ("; the ZeRO run's by the wrapper, summed over "
                           "its ranks")
     counted_by["flash_attention"] += (
-        "; the tensor-parallel run's and its KV-gather attention's by the "
-        "wrapper, summed over their ranks (each at its own heads)")
+        "; the tensor-parallel run's, its KV-gather attention's and its "
+        "uneven-heads attention's by the wrapper, summed over their ranks "
+        "(each at its own heads)")
     counted_by["flash_attention_bwd"] = (
         "wrapper calls over the training runs, the train cell, the ZeRO "
-        "run, the tensor-parallel run and its KV-gather attention (each "
-        "summed over its ranks; "
+        "run, the tensor-parallel run and its KV-gather and uneven-heads "
+        "attentions (each summed over its ranks; "
         "each launches the dQ and the dK/dV kernels; the profiler counted "
         "both over one step)")
     counted_by["ssd_scan_bwd"] = (

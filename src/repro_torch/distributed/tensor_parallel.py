@@ -18,10 +18,16 @@ the collectives where the program needs them, forward and backward:
   row-parallel product or the rank's experts: the partial sums added.
 * :func:`gather_last`: all-gather of the last dim forward, the rank's own
   slice backward.  Where every rank then computes the same thing from the
-  whole (the CE chunk's logits, the router's logits), so every rank's
-  gradient of the whole is the same.  A gather whose whole is then used
-  rank-locally is ``copy_in(gather_last(x))``: its backward sums the
-  ranks' gradients first (a reduce-scatter's result).
+  whole (the router's logits; k and v normed and rotated whole), so every
+  rank's gradient of the whole is the same.  A gather whose whole is then
+  used rank-locally (q for the rank's heads, k and v for its KV heads) is
+  ``copy_in(gather_last(x))``: its backward sums the ranks' gradients
+  first (a reduce-scatter's result).
+* :func:`gather_blocks`: the same over blocks of unequal widths (the
+  ranks' attention heads where the axis does not divide them,
+  :func:`head_range`), each padded to the widest for the gather.
+* :func:`all_max`, :func:`all_min`: all-reduces outside autograd (the
+  vocabulary-parallel cross entropy's shift and its argmax).
 * :func:`vocab_lookup`: the vocabulary-parallel embedding, the ids looked
   up in the rank's rows, zeros for the others, then :func:`reduce_out`.
 
@@ -61,6 +67,19 @@ def is_split(local: int, whole: int) -> bool:
     return True
 
 
+def head_range(heads: int, r=None) -> tuple:
+    """Rank ``r``'s heads ``[a, b)`` of ``heads`` over the installed model
+    axis (this rank's where None): the first ``heads % m`` ranks take
+    ``ceil(heads / m)`` and the rest ``floor(heads / m)`` (llama4-scout's
+    40 over 16: 8 ranks of 3, 8 of 2), so rank 0 holds as many as the
+    reference's device 0 under GSPMD's padded split.  All of them without
+    an axis."""
+    m, r = size(), rank() if r is None else r
+    q, extra = divmod(heads, m)
+    a = r * q + min(r, extra)
+    return a, a + q + (r < extra)
+
+
 class _CopyIn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -90,20 +109,24 @@ class _ReduceOut(torch.autograd.Function):
         return g, None
 
 
-class _GatherLast(torch.autograd.Function):
+class _GatherBlocks(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, n, r):
+    def forward(ctx, x, group, widths, r):
         import torch.distributed as dist
 
-        ctx.r, ctx.w = r, x.shape[-1]
+        n, w = len(widths), max(widths)
+        ctx.lo, ctx.w = sum(widths[:r]), x.shape[-1]
+        if x.shape[-1] < w:
+            x = torch.nn.functional.pad(x, (0, w - x.shape[-1]))
+        x = x.contiguous()
         out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
-        dist.all_gather_into_tensor(out, x.contiguous(), group=group)
-        return out.view(n, *x.shape).movedim(0, -2).reshape(
-            *x.shape[:-1], n * x.shape[-1])
+        dist.all_gather_into_tensor(out, x, group=group)
+        blocks = out.view(n, *x.shape).unbind(0)
+        return torch.cat([b[..., :k] for b, k in zip(blocks, widths)], -1)
 
     @staticmethod
     def backward(ctx, g):
-        return g[..., ctx.r * ctx.w:(ctx.r + 1) * ctx.w], None, None, None
+        return g[..., ctx.lo:ctx.lo + ctx.w], None, None, None
 
 
 def copy_in(x: torch.Tensor) -> torch.Tensor:
@@ -122,9 +145,39 @@ def reduce_out(x: torch.Tensor) -> torch.Tensor:
 def gather_last(x: torch.Tensor) -> torch.Tensor:
     """The ranks' blocks of the last dim of ``x`` gathered in rank order;
     the gradient of the whole is taken to be the same on every rank."""
+    return gather_blocks(x, [x.shape[-1]] * size())
+
+
+def gather_blocks(x: torch.Tensor, widths) -> torch.Tensor:
+    """The ranks' blocks of the last dim of ``x``, rank r's ``widths[r]``
+    wide, gathered in rank order (each padded to the widest for one
+    ``all_gather_into_tensor``); the gradient of the whole is taken to be
+    the same on every rank, as in :func:`gather_last`."""
     tp = get_tp()
-    return x if tp is None else _GatherLast.apply(x, tp.group, tp.size,
-                                                  tp.rank)
+    if tp is None:
+        return x
+    return _GatherBlocks.apply(x, tp.group, tuple(widths), tp.rank)
+
+
+def _all_reduce_op(x: torch.Tensor, op: str) -> torch.Tensor:
+    tp = get_tp()
+    if tp is None:
+        return x.detach()
+    import torch.distributed as dist
+
+    out = x.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=getattr(dist.ReduceOp, op), group=tp.group)
+    return out
+
+
+def all_max(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise max of ``x`` over the model axis, no gradient."""
+    return _all_reduce_op(x, "MAX")
+
+
+def all_min(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise min of ``x`` over the model axis, no gradient."""
+    return _all_reduce_op(x, "MIN")
 
 
 def own_cols(x: torch.Tensor) -> torch.Tensor:

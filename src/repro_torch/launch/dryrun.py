@@ -22,17 +22,19 @@ rank 0), its batch rank 0's rows, and the step of
 reducing and updating rank 0's blocks: ZeRO over every mesh axis for a
 pure data-parallel cell (every mesh axis a data axis,
 :func:`~repro_torch.launch.steps.pure_dp`: 7 of the 10 ``train_4k``
-cells), and for yi-6b and olmoe-1b-7b ZeRO over the data axis with
-tensor parallelism over the model axis (each layer's all-reduces and
-gathers inside the forward, the backward and remat's recomputation, at
-``pick_grad_accum``'s micro-batching).  Every other cell (serving, and
-a train cell whose placed step raises ``NotImplementedError``:
-llama4-scout, whose 40 query heads do not split over 16 ranks,
-:func:`repro_torch.models.transformer.tp_train_gaps`; ROADMAP A13) runs
-the unpartitioned program, the whole global batch on one process, and
-so does a train cell under ``run_cell(placed=False)``: the program
-``build_cell`` gives on a ``LogicalMesh``, which a one-card run of the
-cell executes.  Counted:
+cells), and for yi-6b, olmoe-1b-7b and llama4-scout ZeRO over the data
+axis with tensor parallelism over the model axis (each layer's
+all-reduces and gathers inside the forward, the backward and remat's
+recomputation, and each cross-entropy chunk's small all-reduces over the
+vocabulary split, at ``pick_grad_accum``'s micro-batching; llama4's 40
+query heads over 16 ranks, 3 or 2 a rank, rank 0 the 3).  Every other
+cell (serving, and a train cell whose placed step raises
+``NotImplementedError``: a config that needs what the tensor-parallel
+path lacks, :func:`repro_torch.models.transformer.tp_train_gaps`;
+ROADMAP A13) runs the unpartitioned program, the whole global batch on
+one process, and so does a train cell under ``run_cell(placed=False)``:
+the program ``build_cell`` gives on a ``LogicalMesh``, which a one-card
+run of the cell executes.  Counted:
 
 * FLOPs with ``torch.utils.flop_counter.FlopCounterMode``;
 * bytes accessed with a ``TorchDispatchMode`` that sums the operand and

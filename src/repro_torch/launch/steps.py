@@ -18,7 +18,8 @@ describe the layout a multi-device launch would give each leaf.  On a
 on its rows over the data axes, so that ``fn`` runs this rank's step:
 ZeRO over every mesh axis for a pure data-parallel cell, and ZeRO over
 the data axes with tensor parallelism over the model axis for the others
-(the step raises for a config the path lacks,
+(yi-6b, olmoe-1b-7b and llama4-scout, whose 40 query heads the model axis
+of 16 splits 3 or 2 a rank; the step raises for a config the path lacks,
 :func:`repro_torch.models.transformer.tp_train_gaps`; the serving cells
 placed are ROADMAP A13).
 """

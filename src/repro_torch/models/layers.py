@@ -169,13 +169,24 @@ def _qkv(cfg: ModelConfig, lp: dict, x: torch.Tensor, positions):
     the weights hold (a rank's, under tensor parallelism).  Where the
     model axis has more ranks than KV heads, a rank's k and v columns cut
     a head: k and v are gathered whole, normed and rotated, and each rank
-    takes the KV head its query heads read (:func:`_own_kv_head`)."""
+    takes the KV head its query heads read (:func:`_own_kv_head`).  Where
+    the axis does not divide the query heads, a rank's q columns cut a
+    head too: q is gathered whole and the rank takes its heads
+    (``TP.head_range``), and k and v, gathered whole, are repeated to the
+    KV head of each of them (:func:`_repeat_kv`), as the reference
+    repeats k and v before its sharded attention."""
     hd = cfg.resolved_head_dim
+    H, KV, m = cfg.num_heads, cfg.num_kv_heads, TP.size()
     x = TP.copy_in(x)
-    q = _split_heads(mm(x, lp["wq"]), hd)
+    q = mm(x, lp["wq"])
+    uneven = TP.is_split(q.shape[-1], H * hd) and H % m != 0
+    if uneven:
+        a, b = TP.head_range(H)
+        q = TP.copy_in(TP.gather_last(q))[..., a * hd:b * hd]
+    q = _split_heads(q, hd)
     k, v = mm(x, lp["wk"]), mm(x, lp["wv"])
-    whole_kv = (TP.is_split(k.shape[-1], cfg.num_kv_heads * hd)
-                and cfg.num_kv_heads % TP.size() != 0)
+    whole_kv = (TP.is_split(k.shape[-1], KV * hd)
+                and (KV % m != 0 or uneven))
     if whole_kv:
         k, v = TP.gather_last(k), TP.gather_last(v)
     k, v = _split_heads(k, hd), _split_heads(v, hd)
@@ -185,6 +196,8 @@ def _qkv(cfg: ModelConfig, lp: dict, x: torch.Tensor, positions):
                      else TP.copy_in(lp["k_norm"]), cfg.norm_eps)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
+    if whole_kv and (uneven or m % KV):
+        return q, _repeat_kv(k, H), _repeat_kv(v, H)
     if whole_kv:
         return q, _own_kv_head(k), _own_kv_head(v)
     return q, kv_for_ranks(k), kv_for_ranks(v)
@@ -208,6 +221,17 @@ def _own_kv_head(k: torch.Tensor) -> torch.Tensor:
     attention kernels take it."""
     j = TP.rank() * k.shape[2] // TP.size()
     return TP.copy_in(k)[:, :, j:j + 1].contiguous()
+
+
+def _repeat_kv(k: torch.Tensor, heads: int) -> torch.Tensor:
+    """Of k or v (B, S, KV, hd), whole on every rank, the KV head of each
+    of this rank's query heads (``TP.head_range(heads)``), (B, S, b - a,
+    hd): a rank's heads may read two KV heads (llama4-scout's rank 1 holds
+    heads 3 to 5 of groups of 5).  Taken in (``TP.copy_in``) and
+    contiguous, as the attention kernels take it."""
+    a, b = TP.head_range(heads)
+    idx = torch.arange(a, b, device=k.device) // (heads // k.shape[2])
+    return TP.copy_in(k).index_select(2, idx)
 
 
 def kv_for_ranks(k):
@@ -241,7 +265,23 @@ def attention_prefill(cfg: ModelConfig, lp: dict, x: torch.Tensor,
     out = ops.flash_attention(
         q, k, v, causal=True, window=window,
         softcap=cfg.attn_logit_softcap, scale=cfg.attn_scale, prefix=prefix)
-    return out.reshape(B, S, -1), k, v
+    return _own_rows(cfg, out.reshape(B, S, -1)), k, v
+
+
+def _own_rows(cfg: ModelConfig, out: torch.Tensor) -> torch.Tensor:
+    """The attention output ``out`` (B, S, the rank's heads x hd) for the
+    output projection's rows this rank holds.  Where the model axis does
+    not divide the query heads, the rank's heads are not its rows of
+    ``wo`` (those cut a head): the ranks' heads are gathered whole
+    (``TP.gather_blocks``, taken in) and the rank takes its columns."""
+    H, m, hd = cfg.num_heads, TP.size(), cfg.resolved_head_dim
+    if H % m == 0:
+        return out
+    widths = [hd * (b - a) for a, b in (TP.head_range(H, r)
+                                        for r in range(m))]
+    n = H * hd // m
+    whole = TP.copy_in(TP.gather_blocks(out, widths))
+    return whole[..., TP.rank() * n:(TP.rank() + 1) * n]
 
 
 def attention_decode(cfg: ModelConfig, lp: dict, x: torch.Tensor,

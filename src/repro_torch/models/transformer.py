@@ -43,9 +43,9 @@ model axis, under a training step's installed model axis
 (:mod:`repro_torch.distributed.tensor_parallel`): the embedding looks up
 the rank's vocabulary rows, each block's row-parallel products are
 reduced once (:func:`_tp_out`, which keeps the reduced product across a
-remat), and each CE chunk's logits are gathered whole before the
-softcap, the mask and the log-sum-exp.  :func:`tp_train_gaps` names what
-that path lacks.
+remat), and each CE chunk's statistics are reduced from the rank's
+vocabulary columns (:func:`_vocab_stats`: small all-reduces, no logits
+gathered).  :func:`tp_train_gaps` names what that path lacks.
 """
 from __future__ import annotations
 
@@ -410,9 +410,10 @@ def tp_train_gaps(cfg: ModelConfig, model_size: Optional[int] = None
     words (empty: it trains).  The path runs the dense attention block
     with the gated MLP and the ``dense`` MoE FFN (experts split on the
     model axis, a shared expert's columns and rows) on one codebook of
-    text, laid out by ``param_specs``: query heads, experts and the MLP's
-    width split evenly, KV heads split evenly or fewer than the ranks (each
-    head's columns then split evenly, and k and v gathered whole)."""
+    text, laid out by ``param_specs``: the columns of wq and wk (so of wv)
+    split evenly, whatever heads they cut (a rank then gathers q, k and v
+    whole and takes its own heads, ``TP.head_range``), at least one query
+    head a rank, experts and the MLP's width split evenly."""
     m = model_size
     gaps = []
     if cfg.family == "hybrid":
@@ -430,10 +431,11 @@ def tp_train_gaps(cfg: ModelConfig, model_size: Optional[int] = None
     if cfg.uses_attention:
         H, KV = cfg.num_heads, cfg.num_kv_heads
         hd = cfg.resolved_head_dim
-        if H % m:
+        if H < m:
             gaps.append(f"{H} query heads over {m} ranks")
-        if KV % m and (m % KV or KV * hd % m):
-            gaps.append(f"{KV} KV heads over {m} ranks")
+        for name, n in (("wq", H * hd), ("wk", KV * hd)):
+            if n % m:
+                gaps.append(f"{name}'s {n} columns over {m} ranks")
     if cfg.num_experts and cfg.num_experts % m:
         gaps.append(f"{cfg.num_experts} experts over {m} ranks")
     if (cfg.num_shared_experts or not cfg.is_moe) and cfg.d_ff % m:
@@ -679,34 +681,43 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
     ``loss``, ``nll``, ``accuracy``), as the reference's."""
     hidden = forward_hidden(cfg, params, batch, moe_impl=moe_impl,
                             remat=remat)
-    B, S_total, D = hidden.shape
-    labels = batch["labels"]  # (B, S) or (B, S, Kcb)
-    if labels.ndim == 2:
-        labels = labels[..., None]
-    S = labels.shape[1]
-    hidden = hidden[:, S_total - S:, :]  # frontend/meta positions: unlabeled
     if cfg.tie_embeddings:
         w = params["embed"].transpose(1, 2)  # (Kcb, D, Vp)
     else:
         w = L.dense_w(params["head"])
+    return head_loss(cfg, hidden, w, batch["labels"], z_loss)
+
+
+def head_loss(cfg: ModelConfig, hidden: torch.Tensor, w: torch.Tensor,
+              labels: torch.Tensor, z_loss: float = 1e-4):
+    """:func:`loss_fn` from the final-normed hidden states (B, S_total, D)
+    and the head ``w`` (Kcb, D, Vp), or a rank's vocabulary columns of it
+    under an installed model axis (then each rank's ``hidden`` is the
+    same, and its gradient comes back summed over the axis)."""
+    B, S_total, D = hidden.shape
+    if labels.ndim == 2:  # (B, S) or (B, S, Kcb)
+        labels = labels[..., None]
+    S = labels.shape[1]
+    hidden = hidden[:, S_total - S:, :]  # frontend/meta positions: unlabeled
     Vp = cfg.padded_vocab
-    col_ok = torch.arange(Vp, device=hidden.device) < cfg.vocab_size
-    # A rank's vocabulary columns of the head: each chunk's logits are
-    # gathered whole (every rank then computes the same statistics).
+    # A rank's vocabulary columns of the head: each chunk's statistics are
+    # reduced over the model axis (_vocab_stats), its logits never whole.
     split = TP.is_split(w.shape[-1], Vp)
     if split:
         hidden = TP.copy_in(hidden)
+    lo = TP.rank() * w.shape[-1] if split else 0
+    col_ok = torch.arange(lo, lo + w.shape[-1],
+                          device=hidden.device) < cfg.vocab_size
 
     def chunk_stats(h_chunk, lab_chunk):
         # h_chunk: (B, ck, D); lab_chunk: (B, ck, Kcb)
         logits = torch.einsum("bsd,kdv->bskv", h_chunk,
-                              w.to(h_chunk.dtype))
-        if split:
-            logits = TP.gather_last(logits)
-        logits = logits.float()
+                              w.to(h_chunk.dtype)).float()
         if cfg.final_logit_softcap:
             logits = L.softcap(logits, cfg.final_logit_softcap)
         logits = torch.where(col_ok, logits, -1e9)
+        if split:
+            return _vocab_stats(logits, lab_chunk, lo)
         lse = torch.logsumexp(logits, dim=-1)  # (B, ck, Kcb)
         lab = torch.gather(logits, -1, lab_chunk[..., None].long())[..., 0]
         correct = logits.argmax(dim=-1) == lab_chunk
@@ -730,6 +741,36 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
         loss = loss + z_loss * zsq_sum / denom
     metrics = {"loss": loss, "nll": nll, "accuracy": acc_sum / denom}
     return loss, metrics
+
+
+def _vocab_stats(logits, lab_chunk, lo: int):
+    """A CE chunk's (sum of nll, sum of lse^2, correct count) from this
+    rank's vocabulary columns ``[lo, lo + V_local)`` of its logits (B, ck,
+    Kcb, V_local), softcapped and masked: the reductions over the
+    vocabulary split into each rank's and small all-reduces, as the
+    reference's partitioner splits them; the logits are never gathered.
+    The shift is the rows' global max (no gradient), the label's logit
+    comes from the rank that holds it, and the argmax is the lowest index
+    among the ranks that reach the global max (``argmax``'s first-index
+    rule).  The lse and its square come before the label's logit, so a
+    recomputation stops before the label's all-reduce and the argmax's
+    two."""
+    shift = TP.all_max(logits.amax(dim=-1))
+    lse = torch.log(TP.reduce_out(
+        torch.exp(logits - shift[..., None]).sum(-1))) + shift
+    zsq = (lse * lse).sum()
+    j = lab_chunk.long() - lo
+    ok = (j >= 0) & (j < logits.shape[-1])
+    lab = torch.gather(logits, -1, j.clamp(0, logits.shape[-1] - 1)[
+        ..., None])[..., 0]
+    lab = TP.reduce_out(torch.where(ok, lab, torch.zeros_like(lab)))
+    with torch.no_grad():
+        best, idx = logits.amax(dim=-1), logits.argmax(dim=-1)
+        top = TP.all_max(best)
+        idx = torch.where(best == top, idx + lo,
+                          torch.full_like(idx, torch.iinfo(idx.dtype).max))
+        correct = TP.all_min(idx) == lab_chunk
+    return torch.stack([(lse - lab).sum(), zsq, correct.float().sum()])
 
 
 # ---------------------------------------------------------------------------

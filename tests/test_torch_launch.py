@@ -477,29 +477,45 @@ def _tp_collective_counts(cfg):
     """Model-axis collectives of ``cfg``'s tensor-parallel ``train_4k``
     cell, from its layer structure: (all-reduces, all-gathers).  Each
     micro-batch of ``pick_grad_accum``'s A runs the embedding's all-reduce
-    (forward), the LM head input's (backward), and each CE chunk's logits
-    gather (its forward and its recomputation); each of the L layers an
-    all-reduce after its attention and its FFN (forward; remat's
-    recomputation takes the kept products and runs neither), one for its
-    q/k/v input (backward), one each for the q and k norm weights where
-    the config norms q and k (backward); where the model axis has more
-    ranks than KV heads (yi-6b: 4 of 16), k and v are gathered (forward
-    and recomputation) and each all-reduced (backward); an MoE FFN gathers
-    the router's logits (forward and recomputation) and all-reduces the
-    tokens' and the gates' gradients (backward), a dense MLP its input's.
-    The gradient norm adds one all-reduce over each mesh axis.
+    (forward), the LM head input's (backward), and each CE chunk's seven
+    (the vocabulary-parallel statistics: the shift's max, the exponentials'
+    sum, the label's logit and the argmax's max and min in the forward,
+    the first two again in its recomputation; no logits gathered); each
+    of the L layers an all-reduce after its attention and its FFN
+    (forward; remat's recomputation takes the kept products and runs
+    neither, but where ``build_cell`` turns the kept products off, at 5e10
+    parameters and more, llama4-scout at full depth, it reruns the
+    attention's), one for its q/k/v input (backward), one each for the q and
+    k norm weights where the config norms q and k (backward; k's not
+    where k is gathered whole); where k and v are gathered whole (more
+    ranks than KV heads, yi-6b: 4 of 16; or query heads the axis does not
+    divide) each is gathered (forward and recomputation) and all-reduced
+    (backward); where the axis does not divide the query heads (llama4's
+    40 over 16) q and the attention output are gathered (forward and
+    recomputation) and all-reduced (backward); an MoE FFN gathers the
+    router's logits (forward and recomputation) and all-reduces the
+    tokens' and the gates' gradients (backward), a dense MLP its
+    input's.  The gradient norm adds one all-reduce over each mesh axis.
 
-    At full depth, yi-6b: A = 16, L = 32, 8 chunks: 16 (32 x 6 + 2) + 1 =
-    3105 all-reduces and 16 (32 x 4 + 16) = 2304 all-gathers.
-    olmoe-1b-7b: A = 4, L = 16: 4 (16 x 7 + 2) + 1 = 457 and 4 (16 x 2 +
-    16) = 192."""
+    At full depth, yi-6b: A = 16, L = 32, 8 chunks: 16 (32 x 6 + 2 + 56)
+    + 1 = 4001 all-reduces and 16 (32 x 4) = 2048 all-gathers.
+    olmoe-1b-7b: A = 4, L = 16: 4 (16 x 7 + 58) + 1 = 681 and 4 (16 x 2)
+    = 128.  llama4-scout: A = 16, L = 48, no kept products: 16 (48 x 11 +
+    58) + 1 = 9377 and 16 (48 x 10) = 7680."""
     A = DR.pick_grad_accum(cfg, "train_4k", LM.make_production_mesh())
     seq = SHAPE_SPECS["train_4k"][0]
     m = 16
+    uneven = cfg.num_heads % m != 0
+    whole_kv = cfg.num_kv_heads % m != 0 or uneven
     per_layer_ar, per_layer_ag = 2 + 1, 0
+    if cfg.param_count() >= 5e10:  # ST.build_cell: no kept products
+        per_layer_ar += 1
     if cfg.qk_norm:
+        per_layer_ar += 1 if whole_kv else 2
+    if whole_kv:
         per_layer_ar += 2
-    if cfg.num_kv_heads % m:
+        per_layer_ag += 4
+    if uneven:
         per_layer_ar += 2
         per_layer_ag += 4
     if cfg.is_moe:
@@ -508,23 +524,27 @@ def _tp_collective_counts(cfg):
     else:
         per_layer_ar += 1
     chunks = seq // TT.CE_CHUNK
-    return (A * (cfg.num_layers * per_layer_ar + 2) + 1,
-            A * (cfg.num_layers * per_layer_ag + 2 * chunks))
+    return (A * (cfg.num_layers * per_layer_ar + 2 + 7 * chunks) + 1,
+            A * cfg.num_layers * per_layer_ag)
 
 
-@pytest.mark.parametrize("arch,counts", [("yi-6b", (3105, 2304)),
-                                         ("olmoe-1b-7b", (457, 192))])
+@pytest.mark.parametrize("arch,counts", [
+    ("yi-6b", (4001, 2048)), ("olmoe-1b-7b", (681, 128)),
+    ("llama4-scout-17b-a16e", (9377, 7680))])
 def test_tp_train_cell_prices_its_collectives(arch, counts, monkeypatch):
-    """yi-6b's and olmoe-1b-7b's ``train_4k`` cells, at full width cut to
+    """yi-6b's, olmoe-1b-7b's and llama4-scout's ``train_4k`` cells (40
+    query heads over 16 ranks: 3 or 2 a rank), at full width cut to
     ``TP_CELL_LAYERS`` at the full cell's micro-batching (each count is
     linear in the depth; the full-depth counts are
     :func:`_tp_collective_counts`' formula), run rank 0's
     tensor-parallel step on the fake 16 x 16 group, placed: all-reduces
     and all-gathers on the model axis (a group of 16) in the numbers the
-    layer structure gives, the data axis's all-gathers of the bf16 shards
-    and reduce-scatters of the f32 gradients (each weight once, whatever
-    the micro-batching), and ``collective_s`` their wire bytes over
-    NVLink's rate.  No process group is left."""
+    layer structure gives, none of them a gather of logits (the cross
+    entropy reduces each rank's vocabulary columns), the data axis's
+    all-gathers of the bf16 shards and reduce-scatters of the f32
+    gradients (each weight once, whatever the micro-batching), and
+    ``collective_s`` their wire bytes over NVLink's rate.  No process
+    group is left."""
     full = get_config(arch)
     assert _tp_collective_counts(full) == counts
     cfg = dataclasses.replace(full, num_layers=TP_CELL_LAYERS)
@@ -546,6 +566,10 @@ def test_tp_train_cell_prices_its_collectives(arch, counts, monkeypatch):
     assert (n[("all-reduce", "model")],
             n[("all-gather", "model")]) == _tp_collective_counts(cfg)
     assert ("reduce-scatter", "model") not in n
+    local_vocab = cfg.padded_vocab // 16
+    assert not [row for row in r["collectives"] if row["axis"] == "model"
+                and row["kind"] == "all-gather"
+                and local_vocab in row["shape"]]
     params = TT.abstract_params(cfg, torch.float32)
     matrices = sum(p.dim() >= 2 for p in pytree.leaves(params))
     assert n[("all-gather", "data")] == n[("reduce-scatter", "data")]
@@ -564,11 +588,12 @@ def test_tp_train_cell_prices_its_collectives(arch, counts, monkeypatch):
 def test_rank_step_counts_a_ranks_collectives():
     """``rank_step`` (the dry-run of one rank of the smoke's
     tensor-parallel phase) on a (data 2, model 2) fake mesh, reduced
-    yi-6b on one row: the model axis's all-reduces and gathers as
+    yi-6b on one row: the model axis's all-reduces as
     :func:`_tp_collective_counts` derives them at A = 1 and one CE chunk
-    (2 KV heads split evenly: no k/v gather), and each data-split leaf
-    gathered in bf16 and its gradient reduce-scattered in f32, once.  No
-    process group is left."""
+    (2 KV heads split evenly: no k/v gather; the chunk's statistics in
+    float32, its argmax index in int64; no gather at all on the model
+    axis), and each data-split leaf gathered in bf16 and its gradient
+    reduce-scattered in f32, once.  No process group is left."""
     cfg = get_config("yi-6b", reduced=True)
     seq = 16
     cost, records = DR.rank_step(cfg, (2, 2), seq)
@@ -581,21 +606,24 @@ def test_rank_step_counts_a_ranks_collectives():
     assert cfg.num_kv_heads % 2 == 0 and not cfg.qk_norm and not cfg.is_moe
     assert n.pop(("all-reduce", "bfloat16", "model")) == (
         4 * cfg.num_layers + 2)
-    assert n.pop(("all-gather", "bfloat16", "model")) == 2
+    assert ("all-gather", "bfloat16", "model") not in n
     gathers = n.pop(("all-gather", "bfloat16", "data"))
     assert gathers == n.pop(("reduce-scatter", "float32", "data")) > 0
-    # the gradient norm's squares over each axis; the loss and metrics
-    assert n.pop(("all-reduce", "float32", "model")) == 1
+    # the CE chunk's six; the gradient norm's squares over each axis; the
+    # loss and metrics
+    assert n.pop(("all-reduce", "float32", "model")) == 6 + 1
+    assert n.pop(("all-reduce", "int64", "model")) == 1
     assert set(n) == {("all-reduce", "float32", "data")}
 
 
 def test_tp_train_cell_unplaced_and_uneven_heads(monkeypatch):
     """``placed=False`` keeps a tensor-parallel cell's unplaced program
     (olmoe-1b-7b: ``build_cell`` on the LogicalMesh, no collective, the
-    reason); llama4-scout's cell, 40 query heads over 16 ranks, is
-    refused by its placed step (``NotImplementedError``, run here) and
-    priced unplaced, its reason the step's, naming the gap.  The unplaced
-    count itself is
+    reason).  A cell whose placed step refuses the state
+    (``NotImplementedError``, run here: a gap put into ``tp_train_gaps``
+    for llama4-scout, whose uneven query heads now train placed,
+    ``test_tp_train_cell_prices_its_collectives``) is priced unplaced,
+    its reason the step's, naming the gap.  The unplaced count itself is
     ``test_pure_dp_cell_unplaced_prices_the_one_process_program``'s; only
     the decision and its reason are held here."""
     seen = []
@@ -615,6 +643,10 @@ def test_tp_train_cell_unplaced_and_uneven_heads(monkeypatch):
     assert r["collectives"] is None and "placed=None" in r[
         "collectives_reason"]
     assert r["roofline"]["collective_s"] == 0
+    gaps = TT.tp_train_gaps
+    monkeypatch.setattr(TT, "tp_train_gaps", lambda cfg, m=None: gaps(
+        cfg, m) + (["a gap put here"] if cfg.name.startswith("llama4")
+                   else []))
     r = DR.run_cell("llama4-scout-17b-a16e", "train_4k", probe=False,
                     verbose=False)
     assert not dist.is_initialized()
@@ -622,7 +654,8 @@ def test_tp_train_cell_unplaced_and_uneven_heads(monkeypatch):
     assert [isinstance(m, SH.LogicalMesh) for m in seen] == [True, False,
                                                              True]
     assert r["collectives"] is None
-    assert "40 query heads over 16 ranks" in r["collectives_reason"]
+    assert r["roofline"]["collective_s"] == 0
+    assert "a gap put here" in r["collectives_reason"]
     assert "ROADMAP A13" in r["collectives_reason"]
 
 

@@ -15,7 +15,11 @@ Worlds:
   its own rows, the f32 master and moments also split over the data axis;
 - (model 4), 4 ranks: llama4-scout, whose 2 KV heads are fewer than the
   ranks (k and v gathered whole, each rank the head its query head reads),
-  and olmoe-1b-7b.
+  olmoe-1b-7b, and yi-6b, whose 6 query heads the axis does not divide
+  (1.5 heads of columns a rank: q gathered whole, the ranks take 2, 2, 1
+  and 1 heads, rank 1's straddling both KV groups, k and v gathered whole
+  and repeated to each of a rank's query heads; the attention output
+  gathered back and each rank takes its rows of ``wo``).
 
 Held, from the reference's weights (``params_from_numpy``), as
 ``tests/test_torch_zero.py`` holds the ZeRO step:
@@ -26,6 +30,12 @@ Held, from the reference's weights (``params_from_numpy``), as
   ill-conditioned elements (``test_torch_training.ill_conditioned``);
 - step 2 with ``grad_accum=2`` from the world's own step-1 state;
 - a bf16 compute copy (yi-6b on 2 ranks) at 3e-2 relative l2;
+- the vocabulary-parallel cross entropy (``head_loss`` on a rank's head
+  columns, on (model 2) and (model 4)) against the reference's
+  ``loss_fn`` on the whole head, both given the same final hidden states:
+  loss and nll at 3e-5, accuracy equal, the hidden states' and the
+  head's gradients at 3e-5; with padding columns on the last rank, and
+  with two ranks tied on every row's max (the lowest index wins);
 - the (data 2, model 2) state saved with ``checkpoint.save``, restored
   onto one process bit-equal;
 - ``global_norm`` of a placed tree whose leaves are split on the model
@@ -64,15 +74,22 @@ YI, OLMOE, SCOUT = "yi-6b", "olmoe-1b-7b", "llama4-scout-17b-a16e"
 ARCHS = (YI, OLMOE, SCOUT)
 # world name -> (mesh shape, mesh axis names, archs trained, jobs)
 WORLDS = {
-    "model2": ((2,), ("model",), ARCHS, ("train", "bf16", "gaps")),
+    "model2": ((2,), ("model",), ARCHS, ("train", "bf16", "gaps", "ce")),
     "data2model2": ((2, 2), ("data", "model"), (YI, OLMOE),
                     ("train", "save", "norm")),
-    "model4": ((4,), ("model",), (SCOUT, OLMOE), ("train",)),
+    "model4": ((4,), ("model",), (SCOUT, OLMOE, YI), ("train", "ce")),
 }
 RUNS = [(w, a) for w, (_, _, archs, _) in WORLDS.items() for a in archs]
 B, S = 4, 16
 CKPT_ARCH = YI
 GAP_ARCHS = ("mamba2-780m", "hymba-1.5b")
+# The cross entropy's cases (reduced yi-6b's head, 160 columns): random;
+# the vocabulary cut to 150 (the last rank's columns end in padding); two
+# columns on different ranks of either world equal and above the rest.
+CE_WORLDS = [w for w, (*_, jobs) in WORLDS.items() if "ce" in jobs]
+CE_CASES = ("plain", "padded", "tie")
+CE_TIE = (30, 130)
+CE_CHUNK = 6  # two checkpointed chunks of 16 positions and a remainder
 
 CHILD = textwrap.dedent("""
     import os, sys
@@ -142,6 +159,7 @@ CHILD = textwrap.dedent("""
         from repro_torch.training import train_step as TS
 
         for arch in ARCHS_RUN:
+            ARCH_NOW[0] = arch
             cfg, opt, state, sspecs = setup(arch, root, mesh)
             placed = SH.place_state(state, mesh, sspecs)
             out[f"{arch}/whole_equal"] = np.array(all(
@@ -216,23 +234,62 @@ CHILD = textwrap.dedent("""
             out[f"norm/{arch}/whole"] = np.array(
                 float(optim.global_norm(tree)))
 
+    def ce(root, mesh, out):
+        # head_loss (loss_fn past forward_hidden) on the rank's head
+        # columns under the model axis.
+        import dataclasses
+        from repro_torch.configs import get_config
+        from repro_torch.distributed.ctx import tensor_parallel
+        from repro_torch.models import transformer as T
+
+        model = mesh.mesh_dim_names.index("model")
+        group, m = mesh.get_group(model), mesh.size(model)
+        r = mesh.get_local_rank(model)
+        chunk = T.CE_CHUNK
+        for case in CE_CASES:
+            f = dict(np.load(f"{root}/ce-{case}.npz"))
+            T.CE_CHUNK = int(f["chunk"])
+            cfg = dataclasses.replace(get_config(CKPT_ARCH, reduced=True),
+                                      vocab_size=int(f["vocab"]))
+            w = f["head"].shape[-1] // m
+            hidden = torch.from_numpy(f["hidden"]).requires_grad_()
+            head = torch.from_numpy(
+                f["head"][..., r * w:(r + 1) * w].copy()).requires_grad_()
+            with tensor_parallel(group, r, m):
+                loss, met = T.head_loss(cfg, hidden, head,
+                                        torch.from_numpy(f["labels"]),
+                                        z_loss=float(f["z"]))
+                loss.backward()
+            heads = [None] * m
+            dist.all_gather_object(heads, head.grad.numpy(), group=group)
+            out[f"ce/{case}/head"] = np.concatenate(heads, -1)
+            out[f"ce/{case}/hidden"] = hidden.grad.numpy()
+            for k in ("loss", "nll", "accuracy"):
+                out[f"ce/{case}/{k}"] = np.array(float(met[k]))
+        T.CE_CHUNK = chunk
+
     def attention_inputs():
-        # Each ops.flash_attention call's q, k, v contiguous or not (the
-        # CUDA wrapper refuses a strided view; the CPU's plain version
-        # takes it): the list the calls append to.
+        # Each ops.flash_attention call's (arch, q, k and v contiguous or
+        # not, local query heads, local KV heads) (the CUDA wrapper refuses
+        # a strided view; the CPU's plain version takes it): the list the
+        # calls append to.
         from repro_torch.kernels import ops
         seen, fa = [], ops.flash_attention
 
         def call(q, k, v, *a, **kw):
-            seen.append(all(t.is_contiguous() for t in (q, k, v)))
+            seen.append((ARCH_NOW[0], all(t.is_contiguous()
+                                          for t in (q, k, v)),
+                         q.shape[2], k.shape[2]))
             return fa(q, k, v, *a, **kw)
 
         ops.flash_attention = call
         return seen
 
-    JOBS = {"train": train, "bf16": bf16, "gaps": gaps, "norm": norm}
+    JOBS = {"train": train, "bf16": bf16, "gaps": gaps, "norm": norm,
+            "ce": ce}
     JOBS_RUN = ()
     ARCHS_RUN = ()
+    ARCH_NOW = [None]
 
     def run(rank, root, shape, names, archs, jobs):
         global JOBS_RUN, ARCHS_RUN
@@ -245,11 +302,18 @@ CHILD = textwrap.dedent("""
                                 rank=rank, world_size=world)
         mesh = make_mesh(shape, names, "cpu")
         out = {}
-        contiguous = attention_inputs()
+        seen = attention_inputs()
         for job in jobs:
             if job in JOBS:
                 JOBS[job](root, mesh, out)
-        out["attention_contiguous"] = np.array(contiguous)
+        out["attention_contiguous"] = np.array([c for _, c, *_ in seen])
+        every = [None] * world
+        dist.all_gather_object(every, sorted({(a, h, kv)
+                                              for a, _, h, kv in seen}))
+        for r, heads in enumerate(every):
+            for a in archs:
+                out[f"attention_heads/{a}/{r}"] = np.array(
+                    [(h, kv) for b, h, kv in heads if b == a])
         if rank == 0:
             np.savez(f"{root}/out.npz", **out)
         dist.barrier()
@@ -263,8 +327,9 @@ CHILD = textwrap.dedent("""
         jobs = tuple(sys.argv[5].split(","))
         mp.start_processes(run, args=(root, shape, names, archs, jobs),
                            nprocs=int(np.prod(shape)), start_method="fork")
-""").replace("CKPT_ARCH", repr(CKPT_ARCH)).replace("GAP_ARCHS",
-                                                   repr(GAP_ARCHS))
+""")
+for _name in ("CKPT_ARCH", "GAP_ARCHS", "CE_CASES"):
+    CHILD = CHILD.replace(_name, repr(globals()[_name]))
 
 
 def _reference(arch):
@@ -272,6 +337,30 @@ def _reference(arch):
     params = JT.init_params(cfg, jax.random.key(ARCHS.index(arch)),
                             jnp.float32)
     return params, make_batch(cfg, B, S, seed=ARCHS.index(arch))
+
+
+def _ce_case(case):
+    """(the reference's reduced yi-6b config, final hidden states (B, S,
+    D), head (1, D, Vp), labels (B, S)) of a cross-entropy case, numpy
+    from a seed.  The tie: integer hidden states in [0, 2] and head
+    entries in [-2, 1] (exact sums), the two CE_TIE columns all 3, so every
+    row's max is theirs, equal; the labels alternate between them and
+    random ids."""
+    cfg = jget(YI, reduced=True)
+    if case == "padded":
+        cfg = dataclasses.replace(cfg, vocab_size=150)
+    rng = np.random.default_rng(CE_CASES.index(case))
+    D, Vp = cfg.d_model, cfg.padded_vocab
+    labels = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    if case != "tie":
+        return (cfg, rng.standard_normal((B, S, D)).astype(np.float32),
+                (rng.standard_normal((1, D, Vp)) * D ** -0.5).astype(
+                    np.float32), labels)
+    hidden = rng.integers(0, 3, (B, S, D)).astype(np.float32)
+    head = rng.integers(-2, 2, (1, D, Vp)).astype(np.float32)
+    head[..., list(CE_TIE)] = 3.0
+    labels[:, 0::3], labels[:, 1::3] = CE_TIE
+    return cfg, hidden, head, labels
 
 
 _STEPS: dict = {}
@@ -301,6 +390,11 @@ def runs(tmp_path_factory):
             params, batch = refs[arch]
             np.savez(d / f"params-{arch}.npz", **_flat_np(np_tree(params)))
             np.savez(d / f"batch-{arch}.npz", **batch)
+        for case in CE_CASES if "ce" in jobs else ():
+            cfg, hidden, head, labels = _ce_case(case)
+            np.savez(d / f"ce-{case}.npz", hidden=hidden, head=head,
+                     labels=labels, vocab=cfg.vocab_size, z=Z,
+                     chunk=CE_CHUNK)
         log = open(base / f"{world}.log", "w")
         procs[world] = (subprocess.Popen(
             [sys.executable, "-c", CHILD, str(d),
@@ -375,9 +469,47 @@ def test_tp_state_layout_and_bytes(runs, world):
 def test_tp_attention_inputs_are_contiguous(runs, world):
     """Every attention call of the world's steps takes contiguous q, k and
     v, as the card's kernels require: on (model 4) too, where each rank
-    takes its KV head out of k and v gathered whole."""
-    seen = runs[0][world]["attention_contiguous"]
+    takes its KV head out of k and v gathered whole, and where yi-6b's
+    ranks take 2, 2, 1 and 1 of its 6 query heads, each with as many KV
+    heads (k and v repeated to them)."""
+    got = runs[0][world]
+    seen = got["attention_contiguous"]
     assert seen.size > 0 and seen.all(), seen
+    if world == "model4":
+        heads = [got[f"attention_heads/{YI}/{r}"].tolist() for r in range(4)]
+        assert heads == [[[2, 2]], [[2, 2]], [[1, 1]], [[1, 1]]], heads
+
+
+@pytest.mark.parametrize("case", CE_CASES)
+@pytest.mark.parametrize("world", CE_WORLDS)
+def test_vocab_parallel_ce_matches_reference(runs, world, case,
+                                             monkeypatch):
+    """``head_loss`` (``loss_fn`` past the final hidden states) on each
+    rank's vocabulary columns of the head (the chunks' statistics reduced
+    over the model axis, no logits gathered), against the reference's
+    ``loss_fn`` on the whole head, its ``forward_hidden`` replaced by the
+    same final hidden states, both chunked alike (CE_CHUNK): loss and nll
+    within 3e-5, accuracy equal, the hidden states' gradient (all-reduced
+    over the axis) and the head's (each rank's columns) within 3e-5."""
+    got = runs[0][world]
+    cfg, hidden, head, labels = _ce_case(case)
+    monkeypatch.setattr(JT, "forward_hidden",
+                        lambda cfg, params, batch, **kw: params["hidden"])
+    monkeypatch.setattr(JT, "CE_CHUNK", CE_CHUNK)
+    (_, met), grads = jax.value_and_grad(
+        lambda p: JT.loss_fn(cfg, p, {"labels": jnp.asarray(labels)},
+                             z_loss=Z), has_aux=True)(
+        {"hidden": jnp.asarray(hidden), "head": jnp.asarray(head)})
+    key = f"ce/{case}"
+    for k in ("loss", "nll"):
+        np.testing.assert_allclose(float(got[f"{key}/{k}"]), float(met[k]),
+                                   rtol=3e-5, atol=3e-5)
+    assert float(got[f"{key}/accuracy"]) == float(met["accuracy"])
+    if case == "tie":  # every row's argmax is the lower of the two
+        assert float(met["accuracy"]) == np.mean(labels == CE_TIE[0])
+    for k in ("hidden", "head"):
+        np.testing.assert_allclose(got[f"{key}/{k}"], np.asarray(grads[k]),
+                                   rtol=3e-5, atol=3e-5, err_msg=k)
 
 
 def test_tp_bf16_step_matches_reference(runs):
@@ -443,18 +575,26 @@ def test_tp_train_gaps_raise(runs, arch):
 
 def test_tp_train_gaps_name_uneven_splits():
     """The production model axis of 16: yi-6b and olmoe-1b-7b train
-    (yi's 4 KV heads split mid-head, gathered whole); llama4-scout's 40
-    query heads do not split; KV heads whose columns do not split, experts
-    and MLP widths that the axis does not divide are named."""
+    (yi's 4 KV heads split mid-head, gathered whole), and so does
+    llama4-scout (40 query heads, 2.5 a rank of columns: each rank takes
+    3 or 2 whole heads); fewer query heads than ranks, wq or wk columns
+    that the axis does not divide, experts and MLP widths that it does not
+    divide are named."""
     assert TT.tp_train_gaps(tget(YI), 16) == []
     assert TT.tp_train_gaps(tget(OLMOE), 16) == []
-    assert TT.tp_train_gaps(tget(SCOUT), 16) == ["40 query heads over 16 "
-                                                 "ranks"]
+    assert TT.tp_train_gaps(tget(SCOUT), 16) == []
     small = tget(YI, reduced=True)  # 6 query heads, 2 KV heads, d_ff 192
-    assert TT.tp_train_gaps(small, 4) == ["6 query heads over 4 ranks"]
+    assert TT.tp_train_gaps(small, 4) == []
     assert TT.tp_train_gaps(small, 2) == []
-    odd = dataclasses.replace(tget(YI), num_kv_heads=3)
-    assert TT.tp_train_gaps(odd, 16) == ["3 KV heads over 16 ranks"]
+    assert TT.tp_train_gaps(small, 8) == ["6 query heads over 8 ranks"]
+    # KV heads the axis neither divides nor is divided by: repeated
+    assert TT.tp_train_gaps(dataclasses.replace(tget(YI), num_kv_heads=3),
+                            16) == []
+    odd = dataclasses.replace(tget(YI), head_dim=98)  # wk 392 columns
+    assert TT.tp_train_gaps(odd, 16) == ["wk's 392 columns over 16 ranks"]
+    odd = dataclasses.replace(tget(SCOUT), head_dim=99)
+    assert TT.tp_train_gaps(odd, 16) == ["wq's 3960 columns over 16 ranks",
+                                         "wk's 792 columns over 16 ranks"]
     olmoe = tget(OLMOE, reduced=True)  # 8 experts
     assert "8 experts over 16 ranks" in TT.tp_train_gaps(olmoe, 16)
     assert TT.tp_train_gaps(tget("musicgen-large"), 16)[0] == "4 codebooks"
