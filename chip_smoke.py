@@ -217,7 +217,9 @@
    each rank's step seconds, the time in gloo, bytes and calls a step by
    collective kind and mesh axis, the allocator's peak and the kernels'
    local shapes.  Sixteen processes, spawned together at the start of
-   phase 13 and running beside it, run (b) and (c).  (b): the first eight form a ("model",) axis of more ranks than
+   phase 13 and running beside it, run (b) and (c), then (d) once phase
+   13 is done, and (a) starts once they have left the card.  (b): the first eight form a ("model",)
+   axis of more ranks than
    yi-6b's 4 KV heads (as the production axis of 16 is): its attention at
    full width, forward and backward on each rank's columns (k and v
    gathered whole, the rank's KV head taken), held to the unplaced
@@ -229,9 +231,25 @@
    the whole padded vocabulary (1 x TP_SEQ tokens, each rank 12 640 of
    202 240 head columns) held to the unsplit one that rank 0 runs: the
    loss within 1e-3 relative, the accuracy equal, the gradients of the
-   hidden states and of each rank's head columns within 3e-2.  The
-   attention kernels are also held to their plain versions at each
-   rank's heads in phases 2 and 10.
+   hidden states and of each rank's head columns within 3e-2.  (d): the
+   same sixteen ranks run one MoE layer at full width (bf16, 1 x TP_SEQ
+   tokens) of llama4-scout (16 experts, one a rank, top-1, the shared
+   expert's 512 columns a rank) and olmoe-1b-7b (64 experts, four a rank,
+   top-8), each with ``moe_impl="ragged"`` and ``"local"``: forward and
+   backward through ``layers.moe_ffn`` under the model axis with a seeded
+   cotangent, held to the same form unsplit on rank 0 from the same
+   weights: out, dx (each a sum of 16 bf16 partials), the router's, each
+   rank's experts' and the shared expert's gradients within 1.5e-2
+   relative l2, every rank holding out's and dx's bits alike, ragged's
+   unsplit output within 3e-2 of the dense form's; each rank ran one
+   product an expert of its own, at its local weights' shapes, and the
+   ranks' slots add up to the tokens' K each; each rank's expert-gradient
+   blocks compressed by the placed step's path (the scale's max
+   all-reduced over the axis) from a seeded error, bit-equal (two 64-bit
+   sums of the bits) to ``compress_grads`` of the gathered gradient.
+   Prints each rank's slot counts (and, ``local``, the slots kept at the
+   capacity) and seconds.  The attention kernels are also held to their
+   plain versions at each rank's heads in phases 2 and 10.
 15. Prints the kernels as one JSON line (launches summed over the main
    path's, the families' and the elastic A/B's serving runs, the
    training runs, the train cell, the placed run, the ZeRO run and the
@@ -330,10 +348,14 @@ DENSE_CUTS = (("yi-6b", 2), ("granite-3-2b", 2), ("musicgen-large", 2),
 # Phase 9: the serving benchmark's elastic A/B
 # (benchmarks/serving_throughput.py:238 ``_run_elastic``): its tenants
 # (:171), its fault schedule (:176), its trace's requests a tenant; at
-# most ELASTIC_TRIES budgets from the derived one, each ELASTIC_STEP times
-# the last, until the drain downgrades a tenant and the repromotion after
-# the chip's return restores it.  The trace is never cut: half its
-# requests end before the chip returns at 9000 ms.
+# most ELASTIC_TRIES budgets from ELASTIC_STEP times the derived one, each
+# ELASTIC_STEP times the last, until the drain downgrades a tenant and the
+# repromotion after the chip's return restores it.  At the derived budget
+# itself (3454.0 MB) the drain downgrades no tenant, in every run so far
+# (2 migrations, 1 unload: the contended budget holds both tenants' 8-bit
+# shares on three chips), so the search starts one step above it.  The
+# trace is never cut: half its requests end before the chip returns at
+# 9000 ms.
 ELASTIC_ARCHS = ("tinyllama-1.1b", "mamba2-780m")
 ELASTIC_FAULT = ((3000.0, 3, "down"), (9000.0, 3, "up"))
 ELASTIC_REQUESTS = 30
@@ -424,6 +446,21 @@ TP_GATHER = ("yi-6b", 8)
 # added to the hidden state, so that about half the rows' argmax is their
 # label by a margin wider than bf16's rounding of the logits.
 TP_UNEVEN = ("llama4-scout-17b-a16e", 16)
+# Phase 14 (d): the routed MoE forms under TP_UNEVEN's model axis of 16.
+# One MoE layer of each of TP_MOE at full width (bf16, 1 x TP_SEQ tokens;
+# llama4-scout: 16 experts, one a rank, top-1, the shared expert's 512
+# columns a rank; olmoe-1b-7b: 64 experts, four a rank, top-8) in each
+# form of TP_MOE_IMPLS, forward and backward on the rank's weights (rank
+# r's experts from seed TP_MOE_SEED + r), held to the same form unsplit on
+# rank 0; ragged's unsplit output to the dense form's.  The output and the
+# input's gradient are sums of 16 bf16 partials over the ranks (the
+# reference's combine, in the activations' type), so both are held at the
+# gradients' bound.
+TP_MOE = ("llama4-scout-17b-a16e", "olmoe-1b-7b")
+TP_MOE_IMPLS = ("ragged", "local")
+TP_MOE_SEED = 200
+TP_MOE_TOL = 1.5e-2  # out, dx, the router's and the experts' gradients
+TP_MOE_ERROR = 1e-3  # the scale of the seeded error-feedback accumulator
 TP_CE_BUMP = 8.0
 TP_CE_SEED = 100  # rank r's head columns from seed TP_CE_SEED + r
 TP_CE_LOSS_TOL = 1e-3  # the loss's relative error against the unsplit CE
@@ -2594,9 +2631,15 @@ def check_elastic(requests: int) -> dict:
     with its graphs and pool dropped, the downgraded tenant's first batch
     equals an eager run at its new variant, the repromotion restores its
     variant, and no replay of a tenant overlaps its own drain."""
+    from repro_torch.serving.api import EdgeServer
     from repro_torch.serving.server import _generate_tokens
 
-    budget = None
+    srv = EdgeServer.build(elastic_config(True), device="cuda")
+    budget = srv.budget_mb * ELASTIC_STEP  # the derived one, one step up
+    srv.close()
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
     for attempt in range(ELASTIC_TRIES):
         srv, watch, stats, n, launches, calls, t_build, t_serve = \
             serve_elastic(True, requests, budget)
@@ -3320,8 +3363,8 @@ def check_train_cut(cut, host) -> None:
 def start_recovery() -> subprocess.Popen:
     """Phase 10 (e), run in a child process so that cuBLAS can be given a
     fixed workspace (``CUBLAS_WORKSPACE_CONFIG``) before it starts: see
-    ``recovery_child``.  Started beside phase 12 (its card work is a
-    2-layer model's few steps, and phase 12 waits on gloo), checked by
+    ``recovery_child``.  Started beside phases 11 and 12 (its card work is
+    a 2-layer model's few steps, and phase 12 waits on gloo), checked by
     :func:`check_recovery`."""
     env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
     out = ROOT / "build" / "recovery"
@@ -3963,6 +4006,12 @@ def zero_rank(rank: int, root: str, world: int, run) -> None:
                             timeout=datetime.timedelta(seconds=600))
     try:
         out = run(rank, world)
+    except BaseException:  # shown even where another rank's error is
+        import traceback   # the one the spawn reports
+
+        print(f"rank {rank}: {traceback.format_exc()}", file=sys.stderr,
+              flush=True)
+        raise
     finally:
         dist.destroy_process_group()
     if rank == 0:
@@ -4626,9 +4675,211 @@ def tp_ce(arch: str, rank: int, world: int) -> dict:
             "columns": w}
 
 
+def bits_digest(t: torch.Tensor, chunk: int = 1 << 24) -> list:
+    """Two 64-bit sums of a float32 tensor's bits (plain, and weighted by
+    each element's position mod 65521, plus one): equal for equal bits,
+    and with two different tensors' bits a chance collision only.  Summed
+    ``chunk`` elements at a time, to keep the int64 copies small."""
+    bits = t.detach().float().contiguous().view(torch.int32).reshape(-1)
+    out = [0, 0]
+    for i in range(0, bits.numel(), chunk):
+        b = bits[i:i + chunk].long()
+        w = torch.arange(i, i + b.numel(), device=b.device) % 65521 + 1
+        out[0] += int(b.sum())
+        out[1] += int((b * w).sum())
+    return [x % (1 << 64) for x in out]
+
+
+def tp_moe(arch: str, rank: int, world: int) -> dict:
+    """Phase 14 (d) on one rank of a ("model",) axis of ``world`` ranks:
+    one MoE layer of ``arch`` at full width (bf16, 1 x TP_SEQ tokens) in
+    each form of TP_MOE_IMPLS, forward and backward through
+    ``layers.moe_ffn`` under the model axis on the rank's weights (the
+    router's expert columns, its E / m experts, the shared expert's
+    columns and rows) and the layer's reduction, with a seeded cotangent;
+    its expert-weight gradient blocks then compressed by
+    ``compression.compress_block`` (the placed step's path, the scale's
+    max all-reduced over the axis) from a seeded error.  Rank 0 builds the
+    whole weights from the same seeds and runs each form unsplit (and
+    ``dense``); every other rank hands it its gradients by CUDA IPC (the
+    ranks share the card), and rank 0 holds each rank's gradients and its
+    own out and dx to the unsplit ones and compresses the gathered expert
+    gradients with ``compress_grads`` whole.  Returns the rank's slot
+    counts, its expert calls' local weight shapes, bit digests and
+    seconds by step; rank 0's also the errors for every rank."""
+    import torch.distributed as dist
+    from torch.multiprocessing.reductions import reduce_tensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import compression as C
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.distributed.ctx import tensor_parallel
+    from repro_torch.models import layers as L
+
+    times = {}
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    D, E, K, F = (cfg.d_model, cfg.num_experts, cfg.num_experts_per_tok,
+                  cfg.moe_d_ff)
+    e, Fs = E // world, cfg.d_ff // world
+    bf = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = rand(g, 1, TP_SEQ, D, dtype=bf)
+    dout = rand(g, 1, TP_SEQ, D, dtype=bf)
+    router = rand(g, D, E, dtype=bf, scale=D ** -0.5)
+    shared = ({"ws_g": rand(g, D, cfg.d_ff, dtype=bf, scale=D ** -0.5),
+               "ws_u": rand(g, D, cfg.d_ff, dtype=bf, scale=D ** -0.5),
+               "ws_d": rand(g, cfg.d_ff, D, dtype=bf,
+                            scale=cfg.d_ff ** -0.5)}
+              if cfg.num_shared_experts else {})
+    names = ("we_g", "we_u", "we_d")
+
+    def experts(r):  # rank r's experts
+        gr = torch.Generator(device="cuda").manual_seed(TP_MOE_SEED + r)
+        return {"we_g": rand(gr, e, D, F, dtype=bf, scale=D ** -0.5),
+                "we_u": rand(gr, e, D, F, dtype=bf, scale=D ** -0.5),
+                "we_d": rand(gr, e, F, D, dtype=bf, scale=F ** -0.5)}
+
+    def error(r, k):  # rank r's block of leaf k's error accumulator
+        gr = torch.Generator(device="cuda").manual_seed(
+            TP_MOE_SEED + world * (1 + names.index(k)) + r)
+        return rand(gr, e, *((F, D) if k == "we_d" else (D, F)),
+                    scale=TP_MOE_ERROR)
+
+    def block(t, name, r):  # rank r's block of a whole weight or gradient
+        if name in names:
+            return t[r * e:(r + 1) * e]
+        if name == "ws_d":
+            return t[r * Fs:(r + 1) * Fs]
+        n = t.shape[-1] // world  # the router's and ws_g's, ws_u's columns
+        return t[..., r * n:(r + 1) * n]
+
+    def layer(lp, impl):
+        leaves = [t.detach().requires_grad_() for t in (x, *lp.values())]
+        with torch.enable_grad():
+            y = TP.reduce_out(L.moe_ffn(cfg, dict(zip(lp, leaves[1:])),
+                                        leaves[0], impl=impl))
+            grads = torch.autograd.grad(y, leaves, dout)
+        return y.detach(), dict(zip(("x", *lp), grads))
+
+    routed, calls = {}, []
+    moe_fns = {n: getattr(L, n) for n in ("_moe_ragged", "_moe_local",
+                                           "_expert")}
+
+    def count_routing(fn):
+        def call(cfg_, lp, xt, topi, topv):
+            first = L._first_expert(cfg_, lp["we_g"])
+            n = torch.bincount(topi.reshape(-1), minlength=E)[first:first + e]
+            cap = min(max(32, int(2.0 * xt.shape[0] * K / E)),
+                      xt.shape[0] * K)
+            routed.update(slots=int(n.sum()),
+                          kept=int(n.clamp(max=cap).sum()), cap=cap)
+            return fn(cfg_, lp, xt, topi, topv)
+        return call
+
+    def count_expert(cfg_, xe, wg, wu, wd):
+        calls.append(list(wg.shape))
+        return moe_fns["_expert"](cfg_, xe, wg, wu, wd)
+
+    def whole():  # the unsplit layer's weights, rank 0's alone
+        w = {"router": router, **shared}
+        blocks = [experts(r) for r in range(world)]
+        return {**w, **{k: torch.cat([b[k] for b in blocks])
+                        for k in names}}
+
+    lp = {"router": block(router, "router", rank).contiguous(),
+          **experts(rank),
+          **{k: block(v, k, rank).contiguous() for k, v in shared.items()}}
+    ws = tuple(shared)
+    if rank:  # the whole weights are rank 0's alone
+        router = None
+        shared.clear()
+    torch.cuda.synchronize()
+    times["weights"] = time.perf_counter() - t0
+    out = {}
+    for impl in TP_MOE_IMPLS:
+        routed.clear()
+        calls.clear()
+        L._moe_ragged = count_routing(moe_fns["_moe_ragged"])
+        L._moe_local = count_routing(moe_fns["_moe_local"])
+        L._expert = count_expert
+        dist.barrier()
+        t0 = time.perf_counter()
+        try:
+            with tensor_parallel(dist.group.WORLD, rank, world):
+                y, grads = layer(lp, impl)
+            torch.cuda.synchronize()
+        finally:
+            for n, f in moe_fns.items():
+                setattr(L, n, f)
+        times[f"{impl} placed"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        digests = {}
+        for k in names:
+            q, new = C.compress_block(grads[k], error(rank, k), 3,
+                                      [dist.group.WORLD])
+            digests[k] = bits_digest(q) + bits_digest(new)
+        del q, new
+        times[f"{impl} compression"] = time.perf_counter() - t0
+        rec = out[impl] = dict(routed, calls=list(calls), digests=digests,
+                               y=bits_digest(y), dx=bits_digest(grads["x"]))
+        t0 = time.perf_counter()
+        keep = {k: grads.pop(k) for k in ("router", *names, *ws)}
+        shares = [None] * world  # each rank's gradients, by IPC handle
+        dist.all_gather_object(shares, None if rank == 0 else {
+            k: reduce_tensor(v) for k, v in keep.items()})
+        times[f"{impl} shared"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if rank == 0:
+            w = whole()
+            want_y, want = layer(w, impl)
+            rec["errs"] = {"out": rel_l2(y.float(), want_y.float()),
+                           "dx": rel_l2(grads["x"].float(),
+                                        want["x"].float())}
+            if impl == "ragged":
+                rec["errs"]["dense"] = rel_l2(
+                    want_y.float(), layer(w, "dense")[0].float())
+            del w
+            rec["rank_errs"], gathered = [], {k: [] for k in names}
+            for r in range(world):
+                got = keep if r == 0 else {k: f(*a) for k, (f, a)
+                                           in shares[r].items()}
+                rec["rank_errs"].append({
+                    f"d{k}": rel_l2(v.float(), block(want[k], k, r).float())
+                    for k, v in got.items()})
+                for k in names:
+                    gathered[k].append(got[k])
+                del got
+            del want, want_y
+            times[f"{impl} unsplit and held"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            rec["want_digests"] = {}
+            for k in names:  # one whole leaf at a time
+                q, new = C.compress_grads(
+                    {k: torch.cat(gathered.pop(k))}, C.CompressionState(
+                        {k: torch.cat([error(r, k) for r in range(world)])}))
+                q, new = q[k], new.error[k]
+                rec["want_digests"][k] = [
+                    bits_digest(block(q, k, r)) + bits_digest(block(new, k, r))
+                    for r in range(world)]
+                del q, new
+            torch.cuda.synchronize()
+            times[f"{impl} whole compression"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+        dist.barrier()  # the shared blocks outlive rank 0's reads
+        times[f"{impl} wait"] = time.perf_counter() - t0
+        del y, grads, keep, shares
+    t0 = time.perf_counter()
+    del lp
+    release_memory()
+    times["released"] = time.perf_counter() - t0
+    out["times"] = times
+    return out
+
+
 def tp_parts_run(rank: int, world: int) -> dict:
-    """Phase 14 (b) and (c) on one rank of TP_UNEVEN's ``world`` ranks
-    (one spawn for both).  (b): on the first TP_GATHER[1] ranks (a group
+    """Phase 14 (b), (c) and (d) on one rank of TP_UNEVEN's ``world`` ranks
+    (one spawn for all three).  (b): on the first TP_GATHER[1] ranks (a group
     of their own), :func:`tp_attention` of TP_GATHER's model, whose KV
     heads are fewer than the ranks (wk's and wv's columns cut a head: k
     and v gathered whole, the rank's KV head taken).  (c): on all of them,
@@ -4636,7 +4887,7 @@ def tp_parts_run(rank: int, world: int) -> dict:
     does not divide (q gathered whole, the rank's 3 or 2 heads taken, k
     and v gathered whole and repeated to them, the output gathered back
     for the rank's rows of ``wo``), then :func:`tp_ce` on its full
-    vocabulary."""
+    vocabulary.  (d): on all of them, :func:`tp_moe` of each of TP_MOE."""
     import torch.distributed as dist
 
     m = TP_GATHER[1]
@@ -4649,6 +4900,13 @@ def tp_parts_run(rank: int, world: int) -> dict:
                                  dist.group.WORLD)
     release_memory()
     out["ce"] = tp_ce(TP_UNEVEN[0], rank, world)
+    release_memory()
+    out["moe wait"] = wait_go()  # (d) needs the card that phase 13 holds
+    for arch in TP_MOE:
+        release_memory()
+        t0 = time.perf_counter()
+        out[f"moe {arch}"] = tp_moe(arch, rank, world)
+        out[f"moe {arch}"]["wall"] = time.perf_counter() - t0
     every = [None] * world
     dist.all_gather_object(every, out)
     return {"ranks": every} if rank == 0 else {}
@@ -4686,17 +4944,27 @@ def tp_parts() -> dict:
     for name, (arch, m) in (("gather", TP_GATHER), ("uneven", TP_UNEVEN)):
         cfg = get_config(arch)
         out[name] = (m, [{shape(cfg, m, r)} for r in range(m)])
+    m = TP_UNEVEN[1]
+    for arch in TP_MOE:  # (d): each rank's expert products, no attention
+        cfg = get_config(arch)
+        routed = [[cfg.d_model, cfg.moe_d_ff]] * (cfg.num_experts // m)
+        shared = ([[cfg.d_model, cfg.d_ff // m]] if cfg.num_shared_experts
+                  else [])
+        for impl in TP_MOE_IMPLS:
+            out[f"moe {arch} {impl}"] = (m, [
+                routed + (shared if impl == "local" else [])] * m)
     return out
 
 
 def tp_shapes() -> list:
     """(H, KV, D) of each attention shape phase 14 runs on a rank, every
-    part and rank (:func:`tp_parts`)."""
-    return sorted({(q[2], k[2], q[3]) for _, ranks in tp_parts().values()
+    part and rank (:func:`tp_parts`; the MoE parts run none)."""
+    return sorted({(q[2], k[2], q[3]) for name, (_, ranks)
+                   in tp_parts().items() if not name.startswith("moe")
                    for want in ranks for q, k, _ in want})
 
 
-def check_tp(world: int = math.prod(TP_MESH), ranks=None) -> dict:
+def check_tp(world: int = math.prod(TP_MESH), spawned=None) -> dict:
     """Phase 14: ``world`` ranks spawned on the one card run
     :func:`tp_run`; holds what they report: every rank launched
     ``flash_attention`` and ``flash_attention_bwd`` through their wrappers
@@ -4710,16 +4978,18 @@ def check_tp(world: int = math.prod(TP_MESH), ranks=None) -> dict:
     kind and mesh axis, its blocks against the spec tree's bytes a device,
     the allocator's peak, its launches and their local shapes, and rank
     0's comparison with the plain step.  Then (b) TP_GATHER's ranks and
-    (c) TP_UNEVEN's run :func:`tp_parts_run` in one spawn (``ranks``,
-    started beside phase 13, or spawned here; :func:`check_tp_parts`):
+    (c), (d) TP_UNEVEN's run :func:`tp_parts_run` in one spawn
+    (``spawned``, its rank 0's result, run beside phase 13, or spawned here;
+    :func:`check_tp_parts`):
     every rank launched both kernels at its heads
     (and the KV heads it takes), each attention figure within the bf16
     TOL by relative l2 (the rule phases 13 and 14 hold a step's leaves
     to; the partial gradients are summed in bf16 over the ranks, one
     rounding each more than the unplaced attention); (c)'s cross entropy
     against the unsplit one: the loss within TP_CE_LOSS_TOL relative, the
-    accuracy equal, the gradients within TOL.  Returns the launches summed
-    over the ranks of all three."""
+    accuracy equal, the gradients within TOL; (d)'s MoE layers by
+    :func:`hold_moe`.  Returns the launches summed over the ranks of (a),
+    (b) and (c)."""
     release_memory()
     now, free = host_now_gb()
     print(f"tp: {world} ranks on {card()}, a (data, model) mesh of "
@@ -4772,19 +5042,21 @@ def check_tp(world: int = math.prod(TP_MESH), ranks=None) -> dict:
               + json.dumps(rk["shapes"]))
     for rec in out["held"]:
         print("tp: against one process's plain step: " + json.dumps(rec))
-    for k, n in check_tp_parts(ranks).items():
+    for k, n in check_tp_parts(spawned).items():
         total[k] = total.get(k, 0) + n
     return total
 
 
-def check_tp_parts(ranks=None) -> dict:
-    """Phase 14 (b) and (c): TP_UNEVEN's ranks spawned on the one card run
-    :func:`tp_parts_run` (``ranks``, a :class:`Ranks` started earlier, or
-    spawned here); for each part, every rank of it launched both
-    attention kernels at its heads and the KV heads it takes
-    (:func:`rank_heads`), each attention figure within the bf16 TOL by
-    relative l2, and (c)'s cross entropy held by :func:`hold_ce`.
-    Returns the launches summed over the ranks of both parts."""
+def check_tp_parts(out=None) -> dict:
+    """Phase 14 (b), (c) and (d): TP_UNEVEN's ranks spawned on the one
+    card run :func:`tp_parts_run` (``out``, its rank 0's result from a
+    spawn run earlier, or spawned here); for each attention part, every
+    rank of it launched both attention kernels at its heads and the KV
+    heads it takes (:func:`rank_heads`), each attention figure within the
+    bf16 TOL by
+    relative l2; (c)'s cross entropy held by :func:`hold_ce`; (d)'s MoE
+    layers by :func:`hold_moe`.  Returns the attention kernels' launches
+    summed over the ranks of (b) and (c)."""
     parts = {"gather": (TP_GATHER, "more than its KV heads (k and v "
                         "gathered whole)"),
              "uneven": (TP_UNEVEN, "which does not divide its query heads "
@@ -4793,10 +5065,13 @@ def check_tp_parts(ranks=None) -> dict:
     want = tp_parts()
     tol = TOL[torch.bfloat16]
     total = {}
-    ranks = ranks or Ranks(tp_parts_run, TP_UNEVEN[1])
-    out = ranks.result()
-    print(f"tp: parts (b) and (c) on {TP_UNEVEN[1]} ranks on {card()} in "
-          f"{time.perf_counter() - ranks.t0:.1f} s with the spawn")
+    if out is None:
+        ranks = Ranks(tp_parts_run, TP_UNEVEN[1])
+        ranks.go()
+        out = ranks.result()
+        print(f"tp: parts (b), (c) and (d) on {TP_UNEVEN[1]} ranks on "
+              f"{card()} in {time.perf_counter() - ranks.t0:.1f} s with "
+              "the spawn")
     for name, ((arch, m), label) in parts.items():
         print(f"tp {name}: {arch}'s attention at full width on a "
               f"(\"model\",) axis of {m} ranks, {label}")
@@ -4814,7 +5089,71 @@ def check_tp_parts(ranks=None) -> dict:
                   + ", ".join(f"{k} {e:.3g}" for k, e in rk["errs"].items()))
     for r, rk in enumerate(out["ranks"]):
         hold_ce(r, rk["ce"], *TP_UNEVEN)
+    for arch in TP_MOE:
+        hold_moe(arch, [rk[f"moe {arch}"] for rk in out["ranks"]], want)
     return total
+
+
+def hold_moe(arch: str, ranks: list, want: dict) -> None:
+    """Phase 14 (d) for ``arch`` (:func:`tp_moe`, each rank's record):
+    for each form, every rank ran its own experts only (its expert calls'
+    local weight shapes, :func:`tp_parts`, one call an expert, an empty
+    group at zero rows), the ranks' slots add up to the tokens' K each;
+    every rank holds the same out and dx bits; out, dx, the router's, the
+    experts' and the shared expert's gradients within TP_MOE_TOL of the
+    unsplit form by relative l2 (ragged's unsplit output within the bf16
+    TOL of dense's); each rank's compressed expert-gradient blocks and
+    new error blocks bit-equal to the whole leaf's ``compress_grads``
+    (:func:`bits_digest`).  Prints each rank's slot counts and seconds."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    m, K = len(ranks), cfg.num_experts_per_tok
+    times = [rk["times"] for rk in ranks]
+    for impl in TP_MOE_IMPLS:
+        what = f"tp moe: {arch} {impl}"
+        lead = ranks[0][impl]
+        errs = dict(lead["errs"])
+        bad = {k: v for k, v in errs.items()
+               if not v <= (TOL[torch.bfloat16] if k == "dense"
+                            else TP_MOE_TOL)}
+        if bad:
+            raise AssertionError(f"{what}: against the unsplit form {bad}")
+        if sum(rk[impl]["slots"] for rk in ranks) != TP_SEQ * K:
+            raise AssertionError(f"{what}: the ranks' slots do not add up "
+                                 f"to {TP_SEQ * K}")
+        for r, rk in enumerate(x[impl] for x in ranks):
+            if rk["calls"] != want[f"moe {arch} {impl}"][1][r]:
+                raise AssertionError(f"{what}: rank {r} ran experts at "
+                                     f"{rk['calls']}, not its own")
+            if rk["y"] != lead["y"] or rk["dx"] != lead["dx"]:
+                raise AssertionError(f"{what}: rank {r}'s out or dx bits "
+                                     "differ from rank 0's")
+            bad = {k: v for k, v in lead["rank_errs"][r].items()
+                   if not v <= TP_MOE_TOL}
+            if bad:
+                raise AssertionError(f"{what}: rank {r}'s gradients against "
+                                     f"the unsplit form {bad}")
+            for k, d in rk["digests"].items():
+                if d != lead["want_digests"][k][r]:
+                    raise AssertionError(
+                        f"{what}: rank {r}'s compressed {k} block is not "
+                        "the whole leaf's compression, bit for bit")
+            print(f"{what}: rank {r} slots {rk['slots']}"
+                  + (f" (kept {rk['kept']} at capacity {rk['cap']} an "
+                     "expert)" if impl == "local" else "")
+                  + f", forward and backward "
+                  f"{times[r][f'{impl} placed'] * 1e3:.0f} ms, compression "
+                  f"{times[r][f'{impl} compression'] * 1e3:.0f} ms; "
+                  "relative l2 " + ", ".join(
+                      f"{k} {v:.3g}" for k, v in lead["rank_errs"][r].items()))
+        print(f"{what} on {m} ranks ({card()}): relative l2 against the "
+              "unsplit form " + ", ".join(f"{k} {v:.3g}"
+                                          for k, v in errs.items())
+              + "; compressed blocks bit-equal to the whole leaves'")
+    print(f"tp moe: {arch}, both forms with rank 0's unsplit checks, "
+          f"{ranks[0]['wall']:.1f} s; rank 0's seconds by step "
+          + json.dumps({k: round(v, 3) for k, v in times[0].items()}))
 
 
 def hold_launches(what: str, r: int, rk: dict, want: set,
@@ -4861,6 +5200,17 @@ def spawn_ranks(run, world: int) -> dict:
     return Ranks(run, world).result()
 
 
+def wait_go(limit: float = 900.0) -> float:
+    """In a spawned rank: wait until the parent has called
+    :meth:`Ranks.go`; returns the seconds waited."""
+    t0 = time.perf_counter()
+    while not Path(RANK_ROOT, "go").exists():
+        if time.perf_counter() - t0 > limit:
+            raise TimeoutError(f"no go from the parent in {limit:.0f} s")
+        time.sleep(0.2)
+    return time.perf_counter() - t0
+
+
 class Ranks:
     """``world`` ranks spawned on the one card, each :func:`zero_rank`
     with ``run``, running while this process goes on; :meth:`result`
@@ -4877,6 +5227,10 @@ class Ranks:
         self.ctx = mp.start_processes(
             zero_rank, args=(self.dir.name, world, run), nprocs=world,
             start_method="spawn", join=False)
+
+    def go(self) -> None:
+        """Lets the ranks past :func:`wait_go`."""
+        Path(self.dir.name, "go").touch()
 
     def result(self) -> dict:
         try:
@@ -4978,31 +5332,41 @@ def run(ops, ref, get_config, host) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    start_recovery()
     paths["cell"] = {k: n for k, n in check_cells(kernels).items() if n}
-    print(f"train cell phase took {time.perf_counter() - t0:.1f} s")
+    print(f"train cell phase took {time.perf_counter() - t0:.1f} s (phase "
+          "10's recovery child beside it)")
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    start_recovery()
     check_qmm_shards(ops, ref, g)
     paths["placed"] = check_placed()
     check_recovery()
-    print(f"placed phase and phase 10's recovery took "
+    print(f"placed phase and the rest of phase 10's recovery took "
           f"{time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    # Phase 14 (b) and (c) run beside phase 13: their spawn of 16 ranks
-    # on the host's 8 cores would otherwise be the smoke's longest wait.
+    # Phase 14 (b) and (c) run beside phase 13: their spawn of 16 ranks on
+    # the host's 8 cores would otherwise be the smoke's longest wait.  The
+    # card holds (d)'s MoE layers beside neither phase 13 nor phase 14 (a):
+    # (d) starts once phase 13 is done, and (a) once the spawn has left.
     parts = Ranks(tp_parts_run, TP_UNEVEN[1])
     try:
         paths["zero"] = check_zero()
         print(f"zero phase took {time.perf_counter() - t0:.1f} s (phase "
               "14 (b) and (c) beside it)")
+        t1 = time.perf_counter()
+        parts.go()
+        done = parts.result()
+        print(f"tp: parts (b), (c) and (d) on {TP_UNEVEN[1]} ranks on "
+              f"{card()} in {time.perf_counter() - parts.t0:.1f} s with the "
+              f"spawn, {time.perf_counter() - t1:.1f} s after phase 13; (d) "
+              f"waited {done['ranks'][0]['moe wait']:.1f} s for it")
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        paths["tp"] = check_tp(ranks=parts)
+        paths["tp"] = check_tp(spawned=done)
     finally:
         parts.stop()
     print(f"tp phase took {time.perf_counter() - t0:.1f} s")

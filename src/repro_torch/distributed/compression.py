@@ -5,7 +5,9 @@ Port of :mod:`repro.distributed.compression`:
 * :func:`compress_grads` — int8 symmetric quantization (one absmax scale
   a tensor) with error feedback, applied inside the train step; the
   error accumulator (``CompressionState``, carried in ``TrainState``)
-  keeps the long-run bias at zero (EF-SGD).
+  keeps the long-run bias at zero (EF-SGD); gradients and an accumulator
+  placed across ranks compressed on each rank's blocks with the whole
+  leaf's scale (:func:`compress_block`).
 * :func:`compressed_psum` — an all-reduce over a ``torch.distributed``
   group that moves int8 on the wire (the reference's ``shard_map``
   collective); :func:`compressed_allreduce_demo` runs it over the first
@@ -38,28 +40,59 @@ class CompressionState(NamedTuple):
                                   device=p.device), params))
 
 
-def _q_dq(x: torch.Tensor) -> torch.Tensor:
-    """Quantize to int8 and back (per-tensor absmax scale)."""
-    scale = torch.clamp_min(x.abs().max(), 1e-12) / _QMAX
-    return torch.clamp(torch.round(x / scale), -_QMAX - 1, _QMAX) * scale
-
-
 def compress_grads(grads: PyTree, state: CompressionState
                    ) -> Tuple[PyTree, CompressionState]:
     """EF-compression: g' = Q(g + e);  e' = (g + e) − g'.  Tensors of
-    fewer than 2 dims pass through uncompressed, their error zeroed."""
+    fewer than 2 dims pass through uncompressed, their error zeroed.  A
+    leaf placed across ranks (a ``DTensor``, its accumulator placed as it
+    is) is compressed on each rank's blocks with the whole leaf's scale,
+    its max all-reduced over the mesh dims that split the leaf
+    (:func:`compress_block`): only ``all_reduce`` runs, and the outputs
+    keep the placements."""
+    from repro_torch.distributed.sharding import (is_placed, like_placed,
+                                                   local_block)
+
     def one(g, e):
-        corrected = g.float() + e
-        if g.ndim < 2:  # tiny tensors: not worth compressing
-            return corrected, torch.zeros_like(e)
-        out = _q_dq(corrected)
-        return out, corrected - out
+        if not is_placed(g):
+            return compress_block(g, e, g.ndim)
+        mesh = g.device_mesh
+        groups = [mesh.get_group(i) for i, q in enumerate(g.placements)
+                  if q.is_shard()]
+        out, err = compress_block(local_block(g), local_block(e), g.ndim,
+                                  groups)
+        return like_placed(g, out), like_placed(e, err)
 
     flat_g, structure = pytree.flatten(grads)
     outs = [one(g, e) for g, e in zip(flat_g, pytree.leaves(state.error))]
     return (pytree.unflatten(structure, [o[0] for o in outs]),
             CompressionState(error=pytree.unflatten(
                 structure, [o[1] for o in outs])))
+
+
+def compress_block(g: torch.Tensor, e: torch.Tensor, ndim: int,
+                   groups=()) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`compress_grads` of one leaf, or of a rank's blocks of it:
+    ``g`` of the gradient, ``e`` of the error accumulator (plain tensors),
+    quantized to int8 and back with the whole leaf's absmax scale: the
+    block's ``max|g + e|`` all-reduced with ``MAX`` over ``groups`` (the
+    process groups of the mesh dims that split the leaf; every rank of
+    them calls this), exact whatever the split, so each element comes out
+    as the whole leaf's compression gives it, bit for bit.  ``ndim`` is
+    the whole leaf's: fewer than 2 pass through, the error zeroed.
+    Returns (the compressed block, the new error block)."""
+    import torch.distributed as dist
+
+    corrected = g.float() + e
+    if ndim < 2:
+        return corrected, torch.zeros_like(e)
+    amax = (corrected.abs().max() if corrected.numel()
+            else corrected.new_zeros(())).reshape(1)
+    for group in groups:
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+    scale = torch.clamp_min(amax[0], 1e-12) / _QMAX
+    out = torch.clamp(torch.round(corrected / scale), -_QMAX - 1,
+                      _QMAX) * scale
+    return out, corrected - out
 
 
 def compressed_psum(x: torch.Tensor, group=None) -> torch.Tensor:

@@ -27,7 +27,9 @@ axis with tensor parallelism over the model axis (each layer's
 all-reduces and gathers inside the forward, the backward and remat's
 recomputation, and each cross-entropy chunk's small all-reduces over the
 vocabulary split, at ``pick_grad_accum``'s micro-batching; llama4's 40
-query heads over 16 ranks, 3 or 2 a rank, rank 0 the 3).  Every other
+query heads over 16 ranks, 3 or 2 a rank, rank 0 the 3; the MoE cells in
+every ``moe_impl``, a ``ragged`` rank's slots on ``meta`` the balanced
+split, :func:`repro_torch.models.layers._group_sizes`).  Every other
 cell (serving, and a train cell whose placed step raises
 ``NotImplementedError``: a config that needs what the tensor-parallel
 path lacks, :func:`repro_torch.models.transformer.tp_train_gaps`;

@@ -474,25 +474,25 @@ def moe_ffn(cfg: ModelConfig, lp: dict, x: torch.Tensor,
     group; the group sizes are read on the host, so it raises under a
     CUDA graph capture (on ``meta`` they are an even split,
     :func:`_group_sizes`).  ``"local"`` is the reference's expert-local
-    ``shard_map`` on one device: each expert takes at most ``cap`` of its
-    slots, the last ones in slot order, and the shared expert joins its
-    f32 sum.
+    ``shard_map``: each expert takes at most ``cap`` of its slots, the
+    last ones in slot order, and the shared expert joins its f32 sum.
 
-    Under tensor parallelism (``impl="dense"`` only) the weights are a
-    rank's: the router's expert columns, E / m experts, the shared
-    expert's columns and rows.  The tokens are taken in once
-    (``TP.copy_in``) for all of them; the router's logits are gathered
-    whole, so every rank routes alike; the rank's columns of the gates are
-    taken in; and the result is the rank's partial sum, which the block
-    reduces once (:func:`repro_torch.models.transformer._tp_out`)."""
+    Under tensor parallelism (every ``impl``) the weights are a rank's:
+    the router's expert columns, E / m experts, the shared expert's
+    columns and rows.  The tokens are taken in once (``TP.copy_in``) for
+    all of them; the router's logits are gathered whole, so every rank
+    routes alike; the gates a rank reads are taken in (``dense``: its
+    columns of the (T, E) gates; ``ragged`` and ``local``: the (T, K)
+    top-K weights, so the router's gradient is summed over the ranks);
+    the rank runs its own experts only (``ragged``: its contiguous run of
+    the sorted slots; ``local``: expert ``rank * E / m + j`` on its local
+    weights ``j``, the capacity from the rank's own rows); and the result
+    is the rank's partial sum, which the block reduces once
+    (:func:`repro_torch.models.transformer._tp_out`)."""
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.num_experts_per_tok
     xt = x.reshape(B * S, D)
     tp = TP.size() > 1
-    if tp and impl != "dense":
-        raise NotImplementedError(
-            f"moe_impl={impl!r} under tensor parallelism (experts split "
-            "over the model axis): only 'dense' is ported; see ROADMAP A13")
     if tp:
         xt = TP.copy_in(xt)
     logits = mm(xt, lp["router"])
@@ -502,9 +502,10 @@ def moe_ffn(cfg: ModelConfig, lp: dict, x: torch.Tensor,
     topv, topi = torch.topk(probs, K, dim=-1)
     topv = topv / torch.clamp_min(topv.sum(-1, keepdim=True), 1e-9)
     if impl == "local":
-        return _moe_local(cfg, lp, xt, topi, topv).reshape(B, S, D)
+        return _moe_local(cfg, lp, xt, topi, TP.copy_in(topv)).reshape(
+            B, S, D)
     if impl == "ragged":
-        y = _moe_ragged(cfg, lp, xt, topi, topv)
+        y = _moe_ragged(cfg, lp, xt, topi, TP.copy_in(topv))
     elif impl == "dense":
         gates = torch.zeros((xt.shape[0], E), dtype=torch.float32,
                             device=x.device).scatter_(1, topi, topv)
@@ -531,37 +532,53 @@ def _expert(cfg, xe, wg, wu, wd):
     return (act_fn(xe @ wg, cfg.act) * (xe @ wu)) @ wd
 
 
+def _first_expert(cfg, w) -> int:
+    """The expert id of this rank's first expert: its E / m experts ``w``
+    (the leading dim of an expert leaf) are ``[rank * E / m, (rank + 1) *
+    E / m)`` under a model axis that splits them, 0 otherwise."""
+    return TP.rank() * w.shape[0] if TP.is_split(w.shape[0],
+                                                 cfg.num_experts) else 0
+
+
 def _moe_ragged(cfg, lp, xt, topi, topv):
     """Routed slots sorted by expert (stably, as ``jnp.argsort``), one
     product per expert over its contiguous group, the gated rows summed
-    back onto their tokens."""
+    back onto their tokens.  A rank of a model axis runs its experts on
+    their run of the sorted slots only (its bounds from the group sizes)
+    and returns its partial sum; a rank whose experts receive no slot
+    returns zeros, its products at zero rows keeping every weight and the
+    gates in the graph, so it issues the same collectives as the others.
+    Every expert's product runs, an empty group at zero rows."""
     if xt.is_cuda and torch.cuda.is_current_stream_capturing():
         raise RuntimeError(
             "moe_impl='ragged' reads its group sizes on the host and cannot "
             "run inside a CUDA graph capture; serve with 'dense'")
-    T = xt.shape[0]
     K = cfg.num_experts_per_tok
-    flat_e = topi.reshape(-1)
-    order = torch.argsort(flat_e, stable=True)
-    tok_of = order // K
-    xs = xt[tok_of]
-    sizes = _group_sizes(flat_e, cfg.num_experts)
     wg, wu, wd = (dense_w(lp[n]) for n in ("we_g", "we_u", "we_d"))
-    ys = torch.cat([_expert(cfg, seg, wg[e], wu[e], wd[e])
-                    for e, seg in enumerate(torch.split(xs, sizes))
-                    if seg.shape[0]])
+    first = _first_expert(cfg, wg)
+    flat_e = topi.reshape(-1)
+    sizes = _group_sizes(flat_e, cfg.num_experts)
+    mine = sizes[first:first + wg.shape[0]]
+    lo = sum(sizes[:first])
+    order = torch.argsort(flat_e, stable=True)[lo:lo + sum(mine)]
+    tok_of = order // K
+    ys = torch.cat([_expert(cfg, seg, wg[j], wu[j], wd[j])
+                    for j, seg in enumerate(torch.split(xt[tok_of], mine))])
     ys = ys * topv.reshape(-1)[order][:, None].to(ys.dtype)
-    return torch.zeros((T, xt.shape[1]), dtype=ys.dtype,
+    return torch.zeros((xt.shape[0], xt.shape[1]), dtype=ys.dtype,
                        device=xt.device).index_add_(0, tok_of, ys)
 
 
 def _group_sizes(flat_e: torch.Tensor, E: int) -> list:
-    """Routed slots a expert, read on the host.  A ``meta`` routing has no
-    values (the launch dry-run, which compiles no graph as the reference's
-    ``ragged_dot`` does over traced sizes): its slots are split evenly
-    over the experts, the first ``n % E`` one more.  The sizes sum to the
-    slots either way, so each expert product's FLOPs over all experts,
-    2 * slots * D * F, are exact whatever the split."""
+    """Routed slots a expert, read on the host (``bincount``).  A ``meta``
+    routing has no values (the launch dry-run, which compiles no graph as
+    the reference's ``ragged_dot`` does over traced sizes): its slots are
+    split evenly over the experts, the first ``n % E`` one more: the
+    balanced routing.  The sizes sum to the slots either way, so each
+    expert product's FLOPs over all experts, 2 * slots * D * F, are exact
+    whatever the split; a rank of a model axis of m that divides E gets
+    about slots / m of them, exactly where E divides the slots, as a
+    balanced router gives it (a real router's ranks get more or fewer)."""
     if flat_e.device.type == "meta":
         n = flat_e.numel()
         return [n // E + (e < n % E) for e in range(E)]
@@ -569,11 +586,14 @@ def _group_sizes(flat_e: torch.Tensor, E: int) -> list:
 
 
 def _moe_local(cfg, lp, xt, topi, topv):
-    """The reference's ``_moe_local`` on one device (one data shard, every
-    expert local): per expert, the ``cap`` highest matching slot ids
-    (``topk`` over the slot ids, -1 where the slot went elsewhere), its
-    product over their tokens, gated and added in f32; the shared expert
-    on every token; the sum cast back to the activations' type."""
+    """The reference's ``_moe_local`` (its ``shard_map`` body): for each of
+    this rank's experts (every expert without a model axis), the ``cap``
+    highest matching slot ids (``topk`` over the slot ids, -1 where the
+    slot went elsewhere), its product over their tokens, gated and added
+    in f32; the shared expert (the rank's columns and rows) on every token
+    inside the same sum; the sum cast back to the activations' type, the
+    rank's partial sum that the block reduces once.  The capacity comes
+    from the rows given (a data rank's own, as the reference's ``t_loc``)."""
     T, D = xt.shape
     E, K = cfg.num_experts, cfg.num_experts_per_tok
     cap = min(max(32, int(2.0 * T * K / E)), T * K)
@@ -581,9 +601,11 @@ def _moe_local(cfg, lp, xt, topi, topv):
     slot = torch.arange(T * K, device=xt.device)
     slot_tok = slot // K
     wg, wu, wd = (dense_w(lp[n]) for n in ("we_g", "we_u", "we_d"))
+    first = _first_expert(cfg, wg)
     out = torch.zeros((T, D), dtype=torch.float32, device=xt.device)
-    for j in range(E):
-        sel = torch.topk(torch.where(slots_e == j, slot, -1), cap).values
+    for j in range(wg.shape[0]):
+        sel = torch.topk(torch.where(slots_e == first + j, slot, -1),
+                         cap).values
         valid = sel >= 0
         idx = sel.clamp_min(0)
         tok = torch.where(valid, slot_tok[idx], 0)

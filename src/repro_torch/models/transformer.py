@@ -408,12 +408,15 @@ def tp_train_gaps(cfg: ModelConfig, model_size: Optional[int] = None
     """What training ``cfg`` split over a model axis of ``model_size``
     ranks (None: any axis) needs that the tensor-parallel path lacks, in
     words (empty: it trains).  The path runs the dense attention block
-    with the gated MLP and the ``dense`` MoE FFN (experts split on the
-    model axis, a shared expert's columns and rows) on one codebook of
-    text, laid out by ``param_specs``: the columns of wq and wk (so of wv)
-    split evenly, whatever heads they cut (a rank then gathers q, k and v
-    whole and takes its own heads, ``TP.head_range``), at least one query
-    head a rank, experts and the MLP's width split evenly."""
+    with the gated MLP and the MoE FFN in each of its forms (``dense``,
+    ``ragged``, ``local``: experts split on the model axis, a shared
+    expert's columns and rows) on one codebook of text, laid out by
+    ``param_specs``: the columns of wq and wk (so of wv) split evenly,
+    whatever heads they cut (a rank then gathers q, k and v whole and
+    takes its own heads, ``TP.head_range``), at least one query head a
+    rank, experts and the MLP's width split evenly (the ``local`` form's
+    rank runs expert ``rank * E / m + j``, as the reference, which
+    asserts that the axis divides the experts)."""
     m = model_size
     gaps = []
     if cfg.family == "hybrid":

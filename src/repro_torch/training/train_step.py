@@ -117,11 +117,16 @@ def make_train_step(
     :mod:`repro_torch.distributed.tensor_parallel`); and reduces each
     gradient over the data axes only (a leaf replicated over the model
     axis has its whole gradient on every rank of it).  A config the path
-    does not cover (:func:`repro_torch.models.transformer.tp_train_gaps`),
-    a leaf split on the model axis otherwise than ``param_specs`` splits
-    it, and ``compression`` on a placed state raise
-    ``NotImplementedError`` (ROADMAP A13).  The new state keeps the
-    placements; no gathered copy outlives the step.
+    does not cover (:func:`repro_torch.models.transformer.tp_train_gaps`)
+    and a leaf split on the model axis otherwise than ``param_specs``
+    splits it raise ``NotImplementedError`` (ROADMAP A13).  Every
+    ``moe_impl`` runs under the model axis.  ``compression`` on a placed
+    state compresses each rank's blocks of the averaged gradients with the
+    whole leaf's scale, its max all-reduced over the mesh dims that split
+    the leaf, into an error accumulator placed as its leaf
+    (:func:`repro_torch.distributed.compression.compress_grads`): the
+    one-device step's compression, element for element.  The new state
+    keeps the placements; no gathered copy outlives the step.
 
     ``zero_specs`` (a tree of partitions matching params, the launch
     cell's) names the data-sharded layout of the compute copy and the
@@ -219,11 +224,6 @@ def make_train_step(
         with torch.no_grad():
             if not _placed(state.params):
                 _, metrics, grads = compute_grads(state.params, batch)
-            elif compression:
-                raise NotImplementedError(
-                    "compression=True on a placed state: a per-leaf int8 "
-                    "scale of a shard is not the reference's per-leaf "
-                    "scale (ROADMAP A13)")
             else:
                 metrics, grads = zero_grads(state.params, batch)
             comp = state.comp

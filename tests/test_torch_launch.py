@@ -357,8 +357,11 @@ def test_zero_specs_step_equals_plain_step():
 def test_zero_specs_refuse_a_state_placed_across_devices():
     """A state split on the model axis that the tensor-parallel path
     cannot train (an SSM model; a leaf split otherwise than
-    ``param_specs`` splits it) and compression on a placed state raise,
-    naming ROADMAP A13, before any collective."""
+    ``param_specs`` splits it) raises, naming ROADMAP A13, before any
+    collective.  Compression on a placed state trains (its numbers are
+    ``tests/test_torch_tp_train.py``'s): rank 0's step of a ``meta`` state
+    placed over both axes returns its error accumulator placed as its
+    params."""
     cfg = get_config("tinyllama-1.1b", reduced=True)
     opt = TO.AdamW()
     state = TS.init_state(cfg, 0, opt, device="cpu")
@@ -381,13 +384,20 @@ def test_zero_specs_refuse_a_state_placed_across_devices():
                            match="param_specs' layout.*ROADMAP A13"):
             TS.make_train_step(cfg, opt)(SH.place_state(state, mesh, odd),
                                          {})
-        dp = SH.state_specs(cfg, state, lm, pytree.tree_map(
-            lambda p: (None,) * p.dim(), state.params),
+        comp = TS.abstract_state(cfg, opt, compression=True)
+        dp = SH.state_specs(cfg, comp, lm, pytree.tree_map(
+            lambda p: (None,) * p.dim(), comp.params),
             dp_axes=("data", "model"))
         step = TS.make_train_step(cfg, opt, compression=True,
                                   dp_axes=("data", "model"))
-        with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-            step(SH.place_state(state, mesh, dp), {})
+        new, _ = step(SH.place_state(comp, mesh, dp, device="meta"), {
+            k: torch.zeros((1, 8), dtype=torch.int32, device="meta")
+            for k in ("tokens", "labels")})
+        for p, e in zip(pytree.leaves(new.params),
+                        pytree.leaves(new.comp.error)):
+            assert e.placements == p.placements and e.shape == p.shape
+        assert any(e.placements[0].is_shard()
+                   for e in pytree.leaves(new.comp.error))
     assert not dist.is_initialized()
 
 
@@ -528,25 +538,12 @@ def _tp_collective_counts(cfg):
             A * cfg.num_layers * per_layer_ag)
 
 
-@pytest.mark.parametrize("arch,counts", [
-    ("yi-6b", (4001, 2048)), ("olmoe-1b-7b", (681, 128)),
-    ("llama4-scout-17b-a16e", (9377, 7680))])
-def test_tp_train_cell_prices_its_collectives(arch, counts, monkeypatch):
-    """yi-6b's, olmoe-1b-7b's and llama4-scout's ``train_4k`` cells (40
-    query heads over 16 ranks: 3 or 2 a rank), at full width cut to
-    ``TP_CELL_LAYERS`` at the full cell's micro-batching (each count is
-    linear in the depth; the full-depth counts are
-    :func:`_tp_collective_counts`' formula), run rank 0's
-    tensor-parallel step on the fake 16 x 16 group, placed: all-reduces
-    and all-gathers on the model axis (a group of 16) in the numbers the
-    layer structure gives, none of them a gather of logits (the cross
-    entropy reduces each rank's vocabulary columns), the data axis's
-    all-gathers of the bf16 shards and reduce-scatters of the f32
-    gradients (each weight once, whatever the micro-batching), and
-    ``collective_s`` their wire bytes over NVLink's rate.  No process
-    group is left."""
+def _hold_tp_cell(arch, moe_impl, monkeypatch):
+    """Rank 0's placed step of ``arch``'s ``train_4k`` cell at
+    ``TP_CELL_LAYERS`` (the full cell's mapping and micro-batching) with
+    ``moe_impl``, held as :func:`test_tp_train_cell_prices_its_collectives`
+    says; returns the record."""
     full = get_config(arch)
-    assert _tp_collective_counts(full) == counts
     cfg = dataclasses.replace(full, num_layers=TP_CELL_LAYERS)
     monkeypatch.setattr(DR, "get_config", lambda a: cfg)
     # The mapping and the micro-batching are the full cell's, as run_cell's
@@ -554,7 +551,8 @@ def test_tp_train_cell_prices_its_collectives(arch, counts, monkeypatch):
     monkeypatch.setattr(DR, "pure_dp", lambda c, *a: ST.pure_dp(full, *a))
     pick = DR.pick_grad_accum
     monkeypatch.setattr(DR, "pick_grad_accum", lambda c, *a: pick(full, *a))
-    r = DR.run_cell(arch, "train_4k", probe=False, verbose=False)
+    r = DR.run_cell(arch, "train_4k", probe=False, verbose=False,
+                    moe_impl=moe_impl)
     assert not dist.is_initialized()
     assert r["status"] == "OK" and r["placed"], r.get("error")
     assert not r["dp_only"]
@@ -583,6 +581,86 @@ def test_tp_train_cell_prices_its_collectives(arch, counts, monkeypatch):
                                                                 rel=1e-9)
     assert r["roofline"]["collective_s"] == pytest.approx(
         total / LM.NVLINK_BW, rel=1e-9)
+    return r
+
+
+@pytest.mark.parametrize("arch,counts", [
+    ("yi-6b", (4001, 2048)), ("olmoe-1b-7b", (681, 128)),
+    ("llama4-scout-17b-a16e", (9377, 7680))])
+def test_tp_train_cell_prices_its_collectives(arch, counts, monkeypatch):
+    """yi-6b's, olmoe-1b-7b's and llama4-scout's ``train_4k`` cells (40
+    query heads over 16 ranks: 3 or 2 a rank), at full width cut to
+    ``TP_CELL_LAYERS`` at the full cell's micro-batching (each count is
+    linear in the depth; the full-depth counts are
+    :func:`_tp_collective_counts`' formula), run rank 0's
+    tensor-parallel step on the fake 16 x 16 group, placed: all-reduces
+    and all-gathers on the model axis (a group of 16) in the numbers the
+    layer structure gives, none of them a gather of logits (the cross
+    entropy reduces each rank's vocabulary columns), the data axis's
+    all-gathers of the bf16 shards and reduce-scatters of the f32
+    gradients (each weight once, whatever the micro-batching), and
+    ``collective_s`` their wire bytes over NVLink's rate.  No process
+    group is left."""
+    assert _tp_collective_counts(get_config(arch)) == counts
+    _hold_tp_cell(arch, "dense", monkeypatch)
+
+
+@pytest.mark.parametrize("impl", ["ragged", "local"])
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "llama4-scout-17b-a16e"])
+def test_tp_moe_train_cell_prices_its_collectives(arch, impl, monkeypatch):
+    """The routed MoE forms place the MoE cells too: rank 0's step with
+    ``moe_impl`` ``ragged`` or ``local`` is ``OK`` and placed, its
+    collectives held as the ``dense`` form's (the same counts, from the
+    layer structure), and the gates' backward all-reduce moves each
+    micro-batch's (T, K) top-K weights, not the (T, E) gates the ``dense``
+    form takes in: one a layer and micro-batch."""
+    r = _hold_tp_cell(arch, impl, monkeypatch)
+    full = get_config(arch)
+    A = DR.pick_grad_accum(full, "train_4k", LM.make_production_mesh())
+    seq, gbatch, _ = SHAPE_SPECS["train_4k"]
+    T = gbatch // 16 // A * seq
+    f32 = [row for row in r["collectives"] if row["axis"] == "model"
+           and row["kind"] == "all-reduce" and row["dtype"] == "float32"]
+    gates = [row["count"] for row in f32
+             if row["shape"] == [T, full.num_experts_per_tok]]
+    assert gates == [A * TP_CELL_LAYERS]
+    assert not [row for row in f32 if row["shape"] == [T, full.num_experts]]
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "llama4-scout-17b-a16e"])
+def test_placed_ragged_layer_counts_its_routed_flops(arch):
+    """On ``meta``, a ``ragged`` MoE layer at full width on rank 0 of a
+    model axis of 16 (a fake group; its weights the rank's shapes) counts
+    its router's columns, 2 T D E / m, its three expert products over
+    its share of the slots, 3 · 2 · (T K / m) · D · F (the balanced split
+    ``_group_sizes`` gives ``meta``), and the shared expert's columns and
+    rows where the config has one, 3 · 2 · T · D · F_shared / m."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.models import layers as TL
+
+    cfg = get_config(arch)
+    m, T = 16, 4096
+    D, E, K, F = (cfg.d_model, cfg.num_experts, cfg.num_experts_per_tok,
+                  cfg.moe_d_ff)
+
+    def w(*shape):
+        return torch.empty(shape, dtype=torch.bfloat16, device="meta")
+
+    lp = {"router": w(D, E // m), "we_g": w(E // m, D, F),
+          "we_u": w(E // m, D, F), "we_d": w(E // m, F, D)}
+    want = 2 * T * D * E // m + 3 * 2 * (T * K // m) * D * F
+    if cfg.num_shared_experts:
+        Fs = cfg.d_ff // m
+        lp.update(ws_g=w(D, Fs), ws_u=w(D, Fs), ws_d=w(Fs, D))
+        want += 3 * 2 * T * D * Fs
+    with (LM.fake_mesh((m,), ("model",)) as mesh,
+          TCTX.tensor_parallel(mesh.get_group(0), 0, m),
+          FlopCounterMode(display=False) as flops):
+        y = TL.moe_ffn(cfg, lp, w(1, T, D), impl="ragged")
+    assert not dist.is_initialized()
+    assert y.shape == (1, T, D)
+    assert flops.get_total_flops() == want
 
 
 def test_rank_step_counts_a_ranks_collectives():

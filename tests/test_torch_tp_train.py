@@ -41,7 +41,18 @@ Held, from the reference's weights (``params_from_numpy``), as
 - ``global_norm`` of a placed tree whose leaves are split on the model
   axis, the data axis, both or neither: the whole tree's norm;
 - mamba2-780m and hymba-1.5b placed on the model axis: the step raises,
-  naming ``tp_train_gaps``' words and ROADMAP A13.
+  naming ``tp_train_gaps``' words and ROADMAP A13;
+- the ``ragged`` and ``local`` MoE (reduced olmoe-1b-7b, 8 experts, top-2;
+  reduced llama4-scout, 4 experts, top-1 and a shared expert) in every
+  world: step 1 and step 2 (``grad_accum=2``) against the reference's step
+  with the same ``moe_impl`` (``local`` on a (1, 1) mesh, and on
+  (data 2, model 2) jitted on a (2, 2) mesh of fake CPU devices in a
+  subprocess, its capacity a data shard's); step 1 on a batch of one
+  token repeated, whose routing overflows the capacity and leaves a
+  rank's experts without a slot (both seen in the ranks' routing);
+- ``compression=True`` on the (data 2, model 2) state of yi-6b: steps 1
+  and 2 and the error accumulator against the reference's one-device
+  compressed step.
 """
 import dataclasses
 import os
@@ -53,8 +64,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_config as jget
+from repro.launch.mesh import make_mesh_compat
 from repro.models import transformer as JT
 from repro.training import optim as JO
 from repro.training import train_step as JS
@@ -64,7 +77,8 @@ from repro_torch.models import transformer as TT
 from repro_torch.training import optim as TO
 from repro_torch.training import pytree
 from repro_torch.training import train_step as TS
-from test_torch_training import (BF16_REL_L2, LR, Z, make_batch, np_tree,
+from test_torch_training import (BF16_REL_L2, LR, STEP_BOUND, Z, hold,
+                                 ill_conditioned, make_batch, np_tree,
                                  step_grads)
 from test_torch_zero import (_flat_np, _hold_step, _jstate, _leaves,
                              _port_inputs)
@@ -74,12 +88,26 @@ YI, OLMOE, SCOUT = "yi-6b", "olmoe-1b-7b", "llama4-scout-17b-a16e"
 ARCHS = (YI, OLMOE, SCOUT)
 # world name -> (mesh shape, mesh axis names, archs trained, jobs)
 WORLDS = {
-    "model2": ((2,), ("model",), ARCHS, ("train", "bf16", "gaps", "ce")),
+    "model2": ((2,), ("model",), ARCHS,
+               ("train", "bf16", "gaps", "ce", "moe")),
     "data2model2": ((2, 2), ("data", "model"), (YI, OLMOE),
-                    ("train", "save", "norm")),
-    "model4": ((4,), ("model",), (SCOUT, OLMOE, YI), ("train", "ce")),
+                    ("train", "save", "norm", "moe", "comp")),
+    "model4": ((4,), ("model",), (SCOUT, OLMOE, YI), ("train", "ce", "moe")),
 }
 RUNS = [(w, a) for w, (_, _, archs, _) in WORLDS.items() for a in archs]
+# The MoE forms that route slots (every world runs both, step 1 and step 2):
+MOE_ARCHS = (OLMOE, SCOUT)
+MOE_IMPLS = ("ragged", "local")
+MOE_RUNS = [(w, a, i) for w in WORLDS for a in MOE_ARCHS for i in MOE_IMPLS]
+# The batch of one token repeated (every token routes alike: each chosen
+# expert gets every slot, more than the capacity, and a rank whose experts
+# are not chosen gets none): (4, 16) on the model worlds; on (data 2,
+# model 2) (4, 32), so that a data rank's 64 tokens overflow its capacity
+# of 32, and ``local`` only (``ragged`` has no capacity).
+OVER_TOKEN = 7
+OVER_RUNS = [(w, a, i) for w, a, i in MOE_RUNS
+             if w != "data2model2" or i == "local"]
+COMP_ARCH = YI
 B, S = 4, 16
 CKPT_ARCH = YI
 GAP_ARCHS = ("mamba2-780m", "hymba-1.5b")
@@ -115,7 +143,7 @@ CHILD = textwrap.dedent("""
         return SH.state_specs(cfg, state, lm,
                               SH.param_specs(cfg, state.params, lm))
 
-    def setup(arch, root, mesh):
+    def setup(arch, root, mesh, compression=False):
         from repro_torch.configs import get_config
         from repro_torch.models import transformer as T
         from repro_torch.training import optim
@@ -124,12 +152,13 @@ CHILD = textwrap.dedent("""
         cfg = get_config(arch, reduced=True)
         opt = optim.AdamW(lr=1e-3)
         state = TS.state_from_params(
-            T.params_from_numpy(load(f"{root}/params-{arch}.npz")), opt)
+            T.params_from_numpy(load(f"{root}/params-{arch}.npz")), opt,
+            compression)
         return cfg, opt, state, specs(cfg, state, mesh)
 
-    def rows(root, arch, mesh):
+    def rows(root, arch, mesh, name="batch"):
         batch = {k: torch.from_numpy(v)
-                 for k, v in np.load(f"{root}/batch-{arch}.npz").items()}
+                 for k, v in np.load(f"{root}/{name}-{arch}.npz").items()}
         names = mesh.mesh_dim_names
         if "data" not in names:
             return batch
@@ -149,6 +178,9 @@ CHILD = textwrap.dedent("""
                             ("nu", state.opt.nu)):
             for i, a in enumerate(whole(tree)):
                 out[f"{key}/{field}/{i:03d}"] = a
+        if state.comp is not None:
+            for i, a in enumerate(whole(state.comp.error)):
+                out[f"{key}/error/{i:03d}"] = a
         out[f"{key}/step"] = np.array(int(state.opt.step.full_tensor()))
         for k in ("loss", "grad_norm"):
             out[f"{key}/{k}"] = np.array(float(metrics[k]))
@@ -186,6 +218,75 @@ CHILD = textwrap.dedent("""
             if arch == CKPT_ARCH and "save" in JOBS_RUN:
                 from repro_torch.distributed import checkpoint
                 checkpoint.save(two, f"{root}/ckpt", 2)
+
+    def moe(root, mesh, out):
+        # The routed MoE forms on the placed state: step 1 and step 2
+        # (grad_accum=2) on the arch's batch, step 1 on the repeated token.
+        from repro_torch.distributed import sharding as SH
+        from repro_torch.training import train_step as TS
+
+        data = "data" in mesh.mesh_dim_names
+        for arch in MOE_ARCHS:
+            ARCH_NOW[0] = arch
+            for impl in MOE_IMPLS:
+                cfg, opt, state, sspecs = setup(arch, root, mesh)
+                placed = SH.place_state(state, mesh, sspecs)
+                kw = dict(compute_dtype=None, moe_impl=impl)
+                key = f"{arch}/{impl}"
+                ROUTE_NOW[0] = f"{key}/1"
+                one, m1 = TS.make_train_step(cfg, opt, **kw)(
+                    placed, rows(root, arch, mesh))
+                put(out, f"{key}/1", one, m1)
+                ROUTE_NOW[0] = f"{key}/2"
+                two, m2 = TS.make_train_step(cfg, opt, grad_accum=2, **kw)(
+                    one, rows(root, arch, mesh))
+                put(out, f"{key}/2", two, m2)
+                if data and impl != "local":
+                    continue
+                ROUTE_NOW[0] = f"{key}/over"
+                over, m3 = TS.make_train_step(cfg, opt, **kw)(
+                    placed, rows(root, arch, mesh, "over"))
+                put(out, f"{key}/over", over, m3)
+        ROUTE_NOW[0] = None
+
+    def comp(root, mesh, out):
+        # compression=True on the placed state: two steps, the error
+        # accumulator placed as its leaves.
+        from repro_torch.distributed import sharding as SH
+        from repro_torch.training import train_step as TS
+
+        ARCH_NOW[0] = COMP_ARCH
+        cfg, opt, state, sspecs = setup(COMP_ARCH, root, mesh, True)
+        step = TS.make_train_step(cfg, opt, compute_dtype=None,
+                                  compression=True)
+        mine = rows(root, COMP_ARCH, mesh)
+        one, m1 = step(SH.place_state(state, mesh, sspecs), mine)
+        put(out, "comp/1", one, m1)
+        two, m2 = step(one, mine)
+        put(out, "comp/2", two, m2)
+
+    def routing():
+        # Each routed MoE call's (rows, slots this rank's experts received,
+        # the most slots one expert received) under ROUTE_NOW's key.
+        from repro_torch.models import layers as L
+        seen = {}
+
+        def wrap(fn):
+            def call(cfg, lp, xt, topi, topv):
+                if ROUTE_NOW[0] is not None:
+                    first = L._first_expert(cfg, lp["we_g"])
+                    e = topi.reshape(-1)
+                    mine = ((e >= first)
+                            & (e < first + lp["we_g"].shape[0])).sum()
+                    most = torch.bincount(e, minlength=cfg.num_experts).max()
+                    seen.setdefault(ROUTE_NOW[0], []).append(
+                        (xt.shape[0], int(mine), int(most)))
+                return fn(cfg, lp, xt, topi, topv)
+            return call
+
+        L._moe_ragged = wrap(L._moe_ragged)
+        L._moe_local = wrap(L._moe_local)
+        return seen
 
     def bf16(root, mesh, out):
         from repro_torch.distributed import sharding as SH
@@ -286,10 +387,11 @@ CHILD = textwrap.dedent("""
         return seen
 
     JOBS = {"train": train, "bf16": bf16, "gaps": gaps, "norm": norm,
-            "ce": ce}
+            "ce": ce, "moe": moe, "comp": comp}
     JOBS_RUN = ()
     ARCHS_RUN = ()
     ARCH_NOW = [None]
+    ROUTE_NOW = [None]
 
     def run(rank, root, shape, names, archs, jobs):
         global JOBS_RUN, ARCHS_RUN
@@ -303,9 +405,15 @@ CHILD = textwrap.dedent("""
         mesh = make_mesh(shape, names, "cpu")
         out = {}
         seen = attention_inputs()
+        routes = routing()
         for job in jobs:
             if job in JOBS:
                 JOBS[job](root, mesh, out)
+        every = [None] * world
+        dist.all_gather_object(every, routes)
+        for r, got in enumerate(every):
+            for key, calls in got.items():
+                out[f"route/{key}/{r}"] = np.array(calls)
         out["attention_contiguous"] = np.array([c for _, c, *_ in seen])
         every = [None] * world
         dist.all_gather_object(every, sorted({(a, h, kv)
@@ -314,8 +422,9 @@ CHILD = textwrap.dedent("""
             for a in archs:
                 out[f"attention_heads/{a}/{r}"] = np.array(
                     [(h, kv) for b, h, kv in heads if b == a])
-        if rank == 0:
-            np.savez(f"{root}/out.npz", **out)
+        if rank == 0:  # whole, or not there (a reader polls for it)
+            np.savez(f"{root}/out.tmp.npz", **out)
+            os.replace(f"{root}/out.tmp.npz", f"{root}/out.npz")
         dist.barrier()
         dist.destroy_process_group()
 
@@ -328,8 +437,99 @@ CHILD = textwrap.dedent("""
         mp.start_processes(run, args=(root, shape, names, archs, jobs),
                            nprocs=int(np.prod(shape)), start_method="fork")
 """)
-for _name in ("CKPT_ARCH", "GAP_ARCHS", "CE_CASES"):
+for _name in ("CKPT_ARCH", "GAP_ARCHS", "CE_CASES", "MOE_ARCHS",
+              "MOE_IMPLS", "COMP_ARCH"):
     CHILD = CHILD.replace(_name, repr(globals()[_name]))
+
+# The reference's ``local`` MoE steps on (data 2, model 2): jitted on a
+# (2, 2) mesh of fake CPU devices (the flag set before JAX loads), its
+# sharding context the launch's, so each data shard's tokens route within
+# its own capacity.  Step 1 on the arch's batch and on the repeated token
+# from the initial state; then, once the (data 2, model 2) world has
+# written its out.npz, step 2 (grad_accum=2) from that world's own step-1
+# state.  Writes jax22.npz under the world's directory.
+JAX22 = textwrap.dedent("""
+    import os, sys, time
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    sys.path.insert(0, "src")
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from repro.configs import get_config
+    from repro.distributed.ctx import ShardCtx, set_ctx
+    from repro.launch.mesh import make_mesh_compat
+    from repro.training import optim
+    from repro.training import train_step as JS
+
+    root, lr, z = sys.argv[1], float(sys.argv[2]), float(sys.argv[3])
+    archs = sys.argv[4].split(",")
+
+    def load(path):
+        tree = {}
+        for key, a in np.load(path).items():
+            node = tree
+            *head, last = key.split("/")
+            for k in head:
+                node = node.setdefault(k, {})
+            node[last] = jnp.asarray(a)
+        return tree
+
+    def batch(name, arch):
+        return {k: jnp.asarray(v)
+                for k, v in np.load(f"{root}/{name}-{arch}.npz").items()}
+
+    out = {}
+
+    def put(key, state, metrics):
+        for field, tree in (("params", state.params), ("mu", state.opt.mu),
+                            ("nu", state.opt.nu)):
+            for i, a in enumerate(jax.tree.leaves(tree)):
+                out[f"{key}/{field}/{i:03d}"] = np.asarray(a)
+        out[f"{key}/step"] = np.asarray(state.opt.step)
+        for k in ("loss", "grad_norm"):
+            out[f"{key}/{k}"] = np.asarray(metrics[k])
+
+    opt = optim.AdamW(lr=lr)
+    steps = {}
+
+    def step(arch, accum):
+        if (arch, accum) not in steps:
+            steps[arch, accum] = jax.jit(JS.make_train_step(
+                get_config(arch, reduced=True), opt, z_loss=z,
+                compute_dtype=None, moe_impl="local", grad_accum=accum))
+        return steps[arch, accum]
+
+    set_ctx(ShardCtx(model_size=2, dp_size=2, enabled=True))
+    with jax.set_mesh(make_mesh_compat((2, 2), ("data", "model"))):
+        params = {a: load(f"{root}/params-{a}.npz") for a in archs}
+        for arch in archs:
+            state = JS.TrainState(params[arch], opt.init(params[arch]), None)
+            for name, key in (("batch", "1"), ("over", "over")):
+                put(f"{arch}/local/{key}", *step(arch, 1)(
+                    state, batch(name, arch)))
+        t0 = time.time()
+        while not os.path.exists(f"{root}/out.npz"):
+            if time.time() - t0 > 540:
+                sys.exit("the (data 2, model 2) world wrote no out.npz")
+            time.sleep(0.2)
+        got = np.load(f"{root}/out.npz")
+        for arch in archs:
+            treedef = jax.tree.structure(params[arch])
+            key = f"{arch}/local/1"
+
+            def tree(field):
+                names = sorted(k for k in got.files
+                               if k.startswith(f"{key}/{field}/"))
+                return jax.tree.unflatten(
+                    treedef, [jnp.asarray(got[k]) for k in names])
+
+            start = JS.TrainState(tree("params"), optim.AdamWState(
+                jnp.asarray(int(got[f"{key}/step"]), jnp.int32),
+                tree("mu"), tree("nu")), None)
+            put(f"{arch}/local/2", *step(arch, 2)(start,
+                                                  batch("batch", arch)))
+    np.savez(f"{root}/jax22.npz", **out)
+""")
 
 
 def _reference(arch):
@@ -363,17 +563,51 @@ def _ce_case(case):
     return cfg, hidden, head, labels
 
 
+def _over_batch(arch, world):
+    """The batch of one token repeated (OVER_TOKEN) for ``world``."""
+    tokens = np.full((B, 32 if world == "data2model2" else S), OVER_TOKEN,
+                     np.int32)
+    return {"tokens": tokens, "labels": tokens.copy()}
+
+
 _STEPS: dict = {}
 
 
-def _jax_step(arch, compute_dtype=None):
-    """The reference's jitted step (compiled once an arch and type)."""
-    key = (arch, compute_dtype)
+def _jax_step(arch, compute_dtype=None, **kw):
+    """The reference's jitted step (compiled once an arch, type and
+    option set).  ``moe_impl="local"`` runs it on a (1, 1) mesh (its
+    ``shard_map`` needs one; one data shard, every expert local)."""
+    key = (arch, compute_dtype, tuple(sorted(kw.items())))
     if key not in _STEPS:
-        _STEPS[key] = jax.jit(JS.make_train_step(
+        fn = jax.jit(JS.make_train_step(
             jget(arch, reduced=True), JO.AdamW(lr=LR), z_loss=Z,
-            compute_dtype=compute_dtype))
+            compute_dtype=compute_dtype, **kw))
+        if kw.get("moe_impl") == "local":
+            def fn(*args, _fn=fn):
+                with jax.set_mesh(make_mesh_compat((1, 1),
+                                                   ("data", "model"))):
+                    return _fn(*args)
+        _STEPS[key] = fn
     return _STEPS[key]
+
+
+def _moe_grads(arch, params_np, batch, impl, groups):
+    """The port's unplaced gradient leaves (numpy) of ``moe_impl=impl``,
+    the mean over ``groups`` contiguous row groups (a data rank's rows,
+    each micro-slice of them), each routed within its own capacity: what
+    the ill-conditioned rule reads."""
+    tcfg, tparams, tb = _port_inputs(arch, params_np, batch)
+    flat, structure = pytree.flatten(tparams)
+    n = B // groups
+    total = None
+    for i in range(groups):
+        leaves = [p.detach().requires_grad_() for p in flat]
+        loss, _ = TT.loss_fn(tcfg, pytree.unflatten(structure, leaves),
+                             {k: v[i * n:(i + 1) * n] for k, v in tb.items()},
+                             moe_impl=impl, remat=False, z_loss=Z)
+        g = [x.numpy() for x in torch.autograd.grad(loss, leaves)]
+        total = g if total is None else [a + b for a, b in zip(total, g)]
+    return [a / groups for a in total]
 
 
 @pytest.fixture(scope="module")
@@ -386,10 +620,14 @@ def runs(tmp_path_factory):
     for world, (shape, names, archs, jobs) in WORLDS.items():
         d = base / world
         d.mkdir()
-        for arch in archs:
+        moe = MOE_ARCHS if "moe" in jobs else ()
+        comp = (COMP_ARCH,) if "comp" in jobs else ()
+        for arch in sorted(set(archs) | set(moe) | set(comp)):
             params, batch = refs[arch]
             np.savez(d / f"params-{arch}.npz", **_flat_np(np_tree(params)))
             np.savez(d / f"batch-{arch}.npz", **batch)
+        for arch in moe:
+            np.savez(d / f"over-{arch}.npz", **_over_batch(arch, world))
         for case in CE_CASES if "ce" in jobs else ():
             cfg, hidden, head, labels = _ce_case(case)
             np.savez(d / f"ce-{case}.npz", hidden=hidden, head=head,
@@ -401,23 +639,40 @@ def runs(tmp_path_factory):
              ",".join(map(str, shape)), ",".join(names), ",".join(archs),
              ",".join(jobs)], cwd=ROOT, stdout=log,
             stderr=subprocess.STDOUT), log)
+    log = open(base / "jax22.log", "w")
+    procs["jax22"] = (subprocess.Popen(
+        [sys.executable, "-c", JAX22, str(base / "data2model2"), str(LR),
+         str(Z), ",".join(MOE_ARCHS)], cwd=ROOT, stdout=log,
+        stderr=subprocess.STDOUT), log)
     want = {}
+    jopt = JO.AdamW(lr=LR)
     for arch in ARCHS:
         params, batch = refs[arch]
-        jopt = JO.AdamW(lr=LR)
         state = JS.TrainState(params, jopt.init(params), None)
         jb = {k: jnp.asarray(v) for k, v in batch.items()}
         want[arch] = (params, batch, _jax_step(arch)(state, jb))
         if arch == CKPT_ARCH:
             want["bf16"] = _jax_step(arch, compute_dtype=jnp.bfloat16)(
                 state, jb)
+        if arch == COMP_ARCH:
+            want["comp"] = _jax_step(arch, compression=True)(
+                JS.TrainState(params, jopt.init(params),
+                              JS.CompressionState.init(params)), jb)
+        for impl in MOE_IMPLS if arch in MOE_ARCHS else ():
+            step = _jax_step(arch, moe_impl=impl)
+            want["moe", arch, impl, "1"] = step(state, jb)
+            want["moe", arch, impl, "over"] = step(state, {
+                k: jnp.asarray(v)
+                for k, v in _over_batch(arch, "model2").items()})
     out = {}
     for world, (proc, log) in procs.items():
         proc.wait(timeout=600)
         log.close()
         assert proc.returncode == 0, (base / f"{world}.log").read_text()[
             -4000:]
-        with np.load(base / world / "out.npz") as f:
+        name = "jax22.npz" if world == "jax22" else "out.npz"
+        with np.load(base / ("data2model2" if world == "jax22" else world)
+                     / name) as f:
             out[world] = dict(f)
     return out, want, base / "data2model2" / "ckpt"
 
@@ -449,6 +704,146 @@ def test_tp_grad_accum_step_matches_reference(runs, world, arch):
     _hold_step(got, f"{arch}/2", jstate, jm,
                step_grads(tcfg, tparams, tb, grad_accum=2),
                f"{arch} {world} grad_accum")
+
+
+def _moe_target(runs, world, arch, impl, key, start=None):
+    """The reference's step ``key`` ("1", "over" or "2", the last from
+    ``start``) of ``moe_impl=impl`` for ``world``: (state, metrics)."""
+    out, want, _ = runs
+    if world == "data2model2" and impl == "local":
+        j = out["jax22"]
+        k = f"{arch}/local/{key}"
+        return _jstate(want[arch][0], j, k), {
+            m: j[f"{k}/{m}"] for m in ("loss", "grad_norm")}
+    if key != "2":
+        return want["moe", arch, impl, key]
+    # ragged has no capacity: the whole batch's step is grad_accum=2's
+    accum = dict(grad_accum=2) if impl == "local" else {}
+    return _jax_step(arch, moe_impl=impl, **accum)(
+        start, {k: jnp.asarray(v) for k, v in want[arch][1].items()})
+
+
+def _groups(world) -> int:
+    """Row groups routed on their own in a step: a data rank's rows."""
+    return int(np.prod(WORLDS[world][0][:-1]))
+
+
+@pytest.mark.parametrize("world,arch,impl", MOE_RUNS)
+def test_tp_moe_step_matches_reference(runs, world, arch, impl):
+    """Step 1 with ``moe_impl`` ``ragged`` or ``local`` on the state split
+    on the model axis (each rank its experts, the gates taken in) against
+    the reference's step with the same impl (f32)."""
+    out, want, _ = runs
+    params, batch, _ = want[arch]
+    jstate, jm = _moe_target(runs, world, arch, impl, "1")
+    _hold_step(out[world], f"{arch}/{impl}/1", jstate, jm,
+               _moe_grads(arch, np_tree(params), batch, impl,
+                          _groups(world)), f"{arch} {impl} {world}")
+
+
+@pytest.mark.parametrize("world,arch,impl", MOE_RUNS)
+def test_tp_moe_grad_accum_step_matches_reference(runs, world, arch, impl):
+    """Step 2 with ``grad_accum=2`` (``local``'s capacity a micro-slice's)
+    from the world's own step-1 state against the reference's from it."""
+    out, want, _ = runs
+    params, batch, _ = want[arch]
+    got = out[world]
+    start = _jstate(params, got, f"{arch}/{impl}/1")
+    jstate, jm = _moe_target(runs, world, arch, impl, "2", start)
+    _hold_step(got, f"{arch}/{impl}/2", jstate, jm,
+               _moe_grads(arch, np_tree(start.params), batch, impl,
+                          2 * _groups(world)),
+               f"{arch} {impl} {world} grad_accum")
+
+
+@pytest.mark.parametrize("world,arch,impl", OVER_RUNS)
+def test_tp_moe_overflow_matches_reference(runs, world, arch, impl):
+    """Step 1 on one token repeated: each chosen expert gets every slot,
+    more than the capacity (``local`` drops the earliest, the reference's
+    rule), and where the axis has more ranks than the top-K some rank's
+    experts get no slot (its products at zero rows, its collectives
+    issued); both seen in the ranks' routing.  Held to the reference's
+    step as step 1 is."""
+    out, want, _ = runs
+    params = want[arch][0]
+    got = out[world]
+    jstate, jm = _moe_target(runs, world, arch, impl, "over")
+    _hold_step(got, f"{arch}/{impl}/over", jstate, jm,
+               _moe_grads(arch, np_tree(params), _over_batch(arch, world),
+                          impl, _groups(world)), f"{arch} {impl} {world} "
+               "overflow")
+    cfg = tget(arch, reduced=True)
+    E, K = cfg.num_experts, cfg.num_experts_per_tok
+    m = WORLDS[world][0][-1]
+    calls = [got[f"route/{arch}/{impl}/over/{r}"]
+             for r in range(int(np.prod(WORLDS[world][0])))]
+    assert all(len(c) >= cfg.num_layers for c in calls), calls
+    for rows, mine, most in np.concatenate(calls):
+        assert most == rows  # every token routed alike
+        assert most > min(max(32, int(2.0 * rows * K / E)), rows * K)
+    if m > K:
+        assert any(mine == 0 for c in calls for _, mine, _ in c), calls
+
+
+def test_tp_moe_routing_seen_on_every_rank(runs):
+    """Each rank of each world ran the routed forms on its own rows (a
+    data rank's half), and its experts' slots over the ranks of a model
+    axis add up to the rows' K slots."""
+    for world, (shape, *_) in WORLDS.items():
+        got = runs[0][world]
+        m = shape[-1]
+        for arch in MOE_ARCHS:
+            K = tget(arch, reduced=True).num_experts_per_tok
+            for impl in MOE_IMPLS:
+                calls = np.stack([got[f"route/{arch}/{impl}/1/{r}"]
+                                  for r in range(int(np.prod(shape)))])
+                assert (calls[..., 0] == B * S // _groups(world)).all()
+                for d in range(_groups(world)):
+                    mine = calls[d * m:(d + 1) * m, :, 1].sum(0)
+                    assert (mine == B * S // _groups(world) * K).all()
+
+
+@pytest.mark.parametrize("step", [1, 2])
+def test_tp_compression_step_matches_reference(runs, step):
+    """``compression=True`` on the (data 2, model 2) state: each rank's
+    blocks of the averaged gradients compressed with the whole leaf's
+    scale, the error accumulator placed as its leaf.  Step 1 from a zero
+    error, step 2 from the world's own step-1 state and error, against the
+    reference's compressed one-device step: loss, gradient norm, params,
+    moments and the error, by the ill-conditioned rule (int8 rounding
+    boundaries included)."""
+    out, want, _ = runs
+    got = out["data2model2"]
+    params, batch, _ = want[COMP_ARCH]
+    key = f"comp/{step}"
+    error = None
+    if step == 1:
+        jstate, jm = want["comp"]
+        start = params
+    else:
+        prev = _jstate(params, got, "comp/1")
+        error = _leaves(got, "comp/1", "error")
+        prev = prev._replace(comp=JS.CompressionState(jax.tree.unflatten(
+            jax.tree.structure(params), [jnp.asarray(a) for a in error])))
+        jstate, jm = _jax_step(COMP_ARCH, compression=True)(
+            prev, {k: jnp.asarray(v) for k, v in batch.items()})
+        start = prev.params
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(got[f"{key}/{k}"]), float(jm[k]),
+                                   rtol=3e-5, atol=3e-5, err_msg=k)
+    assert int(got[f"{key}/step"]) == int(jstate.opt.step) == step
+    tcfg, tparams, tb = _port_inputs(COMP_ARCH, np_tree(start), batch)
+    ex = ill_conditioned(step_grads(tcfg, tparams, tb), compression=True,
+                         error=error)
+    what = f"compression step {step}"
+    hold(_leaves(got, key, "params"), jstate.params, what=f"{what} params",
+         exempt=ex, bound=STEP_BOUND)
+    hold(_leaves(got, key, "mu"), jstate.opt.mu, what=f"{what} mu",
+         exempt=ex)
+    hold(_leaves(got, key, "nu"), jstate.opt.nu,
+         tol=dict(rtol=3e-5, atol=1e-9), what=f"{what} nu", exempt=ex)
+    hold(_leaves(got, key, "error"), jstate.comp.error,
+         what=f"{what} error", exempt=ex)
 
 
 @pytest.mark.parametrize("world", list(WORLDS))
