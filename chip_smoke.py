@@ -197,8 +197,14 @@
    plain step on the whole batch from the same weights by PERF.md
    section 2's bf16 rule, each leaf whole (each rank in turn runs the
    plain step and sums its blocks' squares; one all-reduce adds the
-   ranks' sums).  Prints each rank's step seconds, bytes a step by
-   collective kind and the time in gloo.
+   ranks' sums).  The timed step gathers each weight at its use
+   (``repro_torch.distributed.fsdp``): each rank's gathered bytes alive
+   at once at most its two largest use sites and below the whole bf16
+   copy, and its allocator peak before AdamW's update below the
+   whole-copy step's (WHOLE_COPY_PEAK_GB).  Prints each rank's step
+   seconds, bytes a step by collective kind, the time in gloo, the
+   gathered high-water mark and the allocator's peaks beside the
+   whole-copy step's.
 14. Tensor-parallel training on local shards: four processes spawned on
    the one card (gloo on CUDA tensors) form a (data 2, model 2) mesh and
    train yi-6b (2 of 32 layers) and olmoe-1b-7b (2 of 16 layers; the
@@ -213,10 +219,11 @@
    step); step 1 held leaf by leaf to one process's plain step on the
    whole batch by phase 13's rule; the cross entropy reduces each rank's
    vocabulary columns (no logits gathered over the model axis: yi's
-   model-axis all-gathers are none, olmoe's the router's alone).  Prints
-   each rank's step seconds, the time in gloo, bytes and calls a step by
-   collective kind and mesh axis, the allocator's peak and the kernels'
-   local shapes.  Sixteen processes, spawned together at the start of
+   model-axis all-gathers are none, olmoe's the router's alone); phase
+   13's gathered and allocator gates.  Prints each rank's step seconds,
+   the time in gloo, bytes and calls a step by collective kind and mesh
+   axis, the gathered high-water mark, the allocator's peaks and the
+   kernels' local shapes.  Sixteen processes, spawned together at the start of
    phase 13 and running beside it, run (b) and (c), then (d) once phase
    13 is done, and (a) starts once they have left the card.  (b): the first eight form a ("model",)
    axis of more ranks than
@@ -421,6 +428,18 @@ ZERO_ARCHS = ((TRAIN_ARCH, 6), (SSM_TRAIN_ARCH, 12))
 ZERO_SEQ = 1024
 ZERO_STEPS = 1
 ZERO_BYTES_TOL = 0.01  # a rank's state bytes against its spec tree's
+# The allocator's peaks a rank (GB) in the timed step of phases 13 and 14
+# (a) on the parent tree, whose step gathered each rank's bf16 copy whole
+# and kept its whole bf16 gradients until it reduced them: (at the entry
+# of AdamW's update, over the whole step), the largest over its ranks
+# (tools/torch_fsdp_ab.py, NVIDIA H100 80GB HBM3 at 700 W).  The first,
+# the forward, backward and reduction that the per-use form changes, must
+# fall below it; the second is AdamW's functional update (the old and new
+# state and the gradients at once), which the form does not touch.
+WHOLE_COPY_PEAK_GB = {"tinyllama-1.1b": (4.8478, 7.0699),
+                      "mamba2-780m": (3.9168, 5.0627),
+                      "yi-6b": (5.3836, 7.4683),
+                      "olmoe-1b-7b": (6.8727, 9.6743)}
 ZERO_WELL = 0.1  # |gradient| / its leaf's rms above which Adam's step holds
 # Phase 14: tensor-parallel training on local shards.  TP_MESH's ranks share
 # the one card (gloo on CUDA tensors), a (data, model) mesh; each of
@@ -4049,6 +4068,73 @@ def release_memory() -> None:
     getattr(torch._C, "_host_emptyCache", lambda: None)()
 
 
+def whole_copy_bytes(placed, dims) -> int:
+    """The bf16 compute copy a rank gathered whole before the per-use form:
+    each params leaf's block over the data mesh dims ``dims`` that split
+    it (in bf16 where it has 2 or more dims, as the step casts it)."""
+    from repro_torch.training import pytree
+
+    return sum(p.to_local().numel() * (2 if p.dim() >= 2 else 4)
+               * math.prod(p.device_mesh.size(d) for d in dims
+                           if p.placements[d].is_shard())
+               for p in pytree.leaves(placed.params))
+
+
+@contextlib.contextmanager
+def peak_at_update():
+    """In the block, the allocator's peak (GB) at the entry of each
+    ``AdamW.update`` (a step's forward, backward and gradient reduction,
+    before AdamW builds the new state beside the old), in a list."""
+    from repro_torch.training.optim import AdamW
+
+    seen, update = [], AdamW.update
+
+    def call(self, *args, **kwargs):
+        seen.append(torch.cuda.max_memory_allocated() / 1e9)
+        return update(self, *args, **kwargs)
+
+    AdamW.update = call
+    try:
+        yield seen
+    finally:
+        AdamW.update = update
+
+
+def gathered_record(meter, whole: int) -> dict:
+    """A metered step's gathered bytes: the high-water mark, the bound
+    the per-use form allows (the two largest use sites, and any leaf
+    gathered for the whole step), the largest use site and the whole
+    copy."""
+    return dict(gathered_peak=meter.peak, gathered_bound=meter.bound(),
+                gathered_site=max(meter.groups.values()), whole_copy=whole)
+
+
+def hold_gathered(what: str, r: int, run: dict) -> str:
+    """Phase 13's and 14 (a)'s gates on one rank's run: its gathered
+    high-water mark within the per-use bound and below the whole copy,
+    its allocator peak before AdamW below the parent's
+    (WHOLE_COPY_PEAK_GB); the figures as a line's words."""
+    peak, bound = run["gathered_peak"], run["gathered_bound"]
+    if not 0 < peak <= bound < run["whole_copy"]:
+        raise AssertionError(
+            f"{what}: rank {r} {run['arch']} gathered {peak} B at once, "
+            f"the per-use bound {bound} B, the whole copy "
+            f"{run['whole_copy']} B")
+    parent = WHOLE_COPY_PEAK_GB[run["arch"]]
+    if run["pre_update_gb"] >= parent[0]:
+        raise AssertionError(
+            f"{what}: rank {r} {run['arch']} allocator peak before AdamW "
+            f"{run['pre_update_gb']:.3f} GB, the whole-copy step's "
+            f"{parent[0]} GB")
+    return (f"gathered high-water {peak / 1e9:.4f} GB (bound: two use "
+            f"sites and the kept leaves, {bound / 1e9:.4f} GB; the largest "
+            f"site {run['gathered_site'] / 1e9:.4f} GB; the whole copy "
+            f"{run['whole_copy'] / 1e9:.4f} GB), allocator peak before "
+            f"AdamW {run['pre_update_gb']:.3f} GB, over the step "
+            f"{run['peak_gb']:.3f} GB (the whole-copy step's: {parent[0]}, "
+            f"{parent[1]} GB)")
+
+
 def zero_run(rank: int, world: int) -> dict:
     """Phase 13 on one rank: each of ZERO_ARCHS at full width and its cut
     depth, its f32 state from seed 0 placed by ``place_state`` on a ("data",)
@@ -4060,6 +4146,7 @@ def zero_run(rank: int, world: int) -> dict:
     spec tree's bytes a device, losses finite."""
     import torch.distributed as dist
 
+    from repro_torch.distributed import fsdp as FS
     from repro_torch.distributed import sharding as SH
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention_bwd
@@ -4129,14 +4216,16 @@ def zero_run(rank: int, world: int) -> dict:
         torch.cuda.reset_peak_memory_stats()  # the timed steps' peak
         clock.reset()
         walls, losses = [], [float(m1["loss"])]
-        for s in range(1, ZERO_STEPS + 1):
-            batch = mine(s)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            new, m = step(new, batch)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-            losses.append(float(m["loss"]))
+        whole = whole_copy_bytes(new, [0])
+        with peak_at_update() as pre, FS.metered() as meter:
+            for s in range(1, ZERO_STEPS + 1):
+                batch = mine(s)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                new, m = step(new, batch)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                losses.append(float(m["loss"]))
         if not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"zero: {arch} rank {rank} losses {losses}")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -4146,7 +4235,8 @@ def zero_run(rank: int, world: int) -> dict:
                          first_s=first_s,
                          step_s=walls, losses=losses, blocks=blocks,
                          spec_bytes=spec_bytes[0], allocated=allocated,
-                         peak_gb=peak_gb,
+                         peak_gb=peak_gb, pre_update_gb=max(pre),
+                         **gathered_record(meter, whole),
                          **clock.summary(ZERO_STEPS)))
         dist.barrier()
     counts = {k: f.launches for k, f in fns.items()}
@@ -4366,7 +4456,8 @@ def check_zero(world: int = ZERO_RANKS) -> dict:
                   + ", ".join(f"{k} {v / 1e9:.4f} GB"
                               for k, v in run["wire_bytes"].items())
                   + "; losses " + ", ".join(f"{x:.4f}"
-                                            for x in run["losses"]))
+                                            for x in run["losses"])
+                  + "; " + hold_gathered("zero", r, run))
         print(f"zero: rank {r} launches {rk['launches']}")
     for rec in out["held"]:
         print("zero: against one process's plain step: " + json.dumps(rec))
@@ -4389,6 +4480,7 @@ def tp_run(rank: int, world: int) -> dict:
     kernels were called at on the placed steps."""
     import torch.distributed as dist
 
+    from repro_torch.distributed import fsdp as FS
     from repro_torch.distributed import sharding as SH
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops
@@ -4469,15 +4561,17 @@ def tp_run(rank: int, world: int) -> dict:
         torch.cuda.reset_peak_memory_stats()  # the timed steps' peak
         clock.reset()
         walls, losses = [], [float(m1["loss"])]
-        for s in range(1, TP_STEPS + 1):
-            batch = mine(s)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            with attention_shapes(shapes):
-                new, m = step(new, batch)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-            losses.append(float(m["loss"]))
+        whole = whole_copy_bytes(new, [0])
+        with peak_at_update() as pre, FS.metered() as meter:
+            for s in range(1, TP_STEPS + 1):
+                batch = mine(s)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with attention_shapes(shapes):
+                    new, m = step(new, batch)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                losses.append(float(m["loss"]))
         if not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"tp: {arch} rank {rank} losses {losses}")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -4487,6 +4581,8 @@ def tp_run(rank: int, world: int) -> dict:
                          first_s=first_s, step_s=walls, losses=losses,
                          blocks=blocks, spec_bytes=spec_bytes[0],
                          allocated=allocated, peak_gb=peak_gb,
+                         pre_update_gb=max(pre),
+                         **gathered_record(meter, whole),
                          **clock.summary(TP_STEPS)))
         dist.barrier()
     counts = {k: f.launches for k, f in fns.items()}
@@ -5037,7 +5133,8 @@ def check_tp(world: int = math.prod(TP_MESH), spawned=None) -> dict:
                   + ", ".join(f"{k} {v / 1e9:.4f} GB"
                               for k, v in run["wire_bytes"].items())
                   + "; losses " + ", ".join(f"{x:.4f}"
-                                            for x in run["losses"]))
+                                            for x in run["losses"])
+                  + "; " + hold_gathered("tp", r, run))
         print(f"tp: rank {r} launches {rk['launches']}, at (q, k, type) "
               + json.dumps(rk["shapes"]))
     for rec in out["held"]:

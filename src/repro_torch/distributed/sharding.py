@@ -19,8 +19,9 @@ with each rank copying only its own slice to its device, and
 tensor changes its layout through :func:`redistribute` (:func:`whole`,
 :func:`summed`), which runs the process group's own collectives.  A
 training state is placed by :func:`place_state`; the ZeRO step moves a
-leaf's block to its whole and a whole gradient to the block with
-:func:`gather_block` and :func:`scatter_sum`, plain tensors in and out.
+block to its whole at each use and the use's gradient to the block with
+:func:`gather_block` and :func:`scatter_sum`, plain tensors in and out
+(:mod:`repro_torch.distributed.fsdp`).
 
 Scheme (Megatron-style tensor parallelism on the ``model`` axis):
 column-parallel in-projections, row-parallel out-projections, experts
@@ -418,25 +419,29 @@ def gather_block(local: torch.Tensor, mesh, placements_,
     return local.contiguous()
 
 
-def scatter_sum(whole: torch.Tensor, mesh, placements_,
-                dims) -> torch.Tensor:
+def scatter_sum(whole: torch.Tensor, mesh, placements_, dims,
+                dtype=None) -> torch.Tensor:
     """The conjugate of :func:`gather_block`: ``whole`` (each rank's term
     of a sum, at the leaf's full shape) summed over the ranks of the mesh
     dims ``dims`` into this rank's block of ``placements_``, as a plain
     tensor: a ``reduce_scatter_tensor`` over each split mesh dim of
     ``dims`` (the first first), then an ``all_reduce`` of the block over
-    each replicated one.  Mesh dims outside ``dims`` are left alone."""
+    each replicated one.  Mesh dims outside ``dims`` are left alone.  The
+    sum runs in ``dtype`` (``whole``'s where None): ``whole`` is widened
+    in the contiguous copy the first reduction makes anyway, not in a
+    copy of its own."""
     import torch.distributed as dist
 
     x = whole
     for i in dims:
         if placements_[i].is_shard():
             d, n = placements_[i].dim, mesh.size(i)
-            moved = x.movedim(d, 0).contiguous()
+            moved = x.movedim(d, 0).to(dtype or x.dtype,
+                                       memory_format=torch.contiguous_format)
             out = moved.new_empty((moved.shape[0] // n,) + moved.shape[1:])
             dist.reduce_scatter_tensor(out, moved, group=mesh.get_group(i))
             x = out.movedim(0, d)
-    x = x.contiguous()
+    x = x.to(dtype or x.dtype, memory_format=torch.contiguous_format)
     rest = [i for i in dims if not placements_[i].is_shard()]
     if rest and x is whole:
         x = x.clone()

@@ -65,11 +65,16 @@ card's peaks, as the reference's does.
 **Memory** per device comes from the spec trees, exactly: each argument
 and output leaf's bytes divided by the product of the mesh axes its
 partition names, the donated arguments aliased to the outputs that take
-their buffers (the reference's ``alias_size``).  The temporaries are not
-counted (``meta`` tensors allocate nothing, and an unplaced cell runs the
-unpartitioned program): ``temp_bytes`` is null with the reason, and
-``peak_bytes`` and ``hbm_fraction`` (of the H100's ``HBM_BYTES``) are
-bounds from below.
+their buffers (the reference's ``alias_size``).  Of the temporaries a
+placed train cell counts the high-water mark of the bf16 blocks its step
+gathers at their use sites (:func:`repro_torch.distributed.fsdp.metered`:
+each block from its gather until it is freed), its ``temp_bytes``; the
+activations and the gradient buffers are not counted (``meta`` tensors
+allocate nothing).  An unplaced cell runs the unpartitioned program:
+its ``temp_bytes`` is null with the reason.  ``peak_bytes`` (the
+arguments, outputs and ``temp_bytes``, less the aliases) and
+``hbm_fraction`` (of the H100's ``HBM_BYTES``) are bounds from below, and
+so is a placed cell's ``temp_bytes``.
 
 The L2/L4 probe stays: counts at 2 and 4 layers give ``per_layer_flops``
 through :func:`~repro_torch.launch.roofline.extrapolate`.  The port's
@@ -99,6 +104,7 @@ from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import ARCH_NAMES, get_config
+from repro_torch.distributed.fsdp import metered
 from repro_torch.distributed.sharding import (LogicalMesh, _divisor,
                                                logical, spec_map)
 from repro_torch.kernels import ref
@@ -230,28 +236,32 @@ def _per_device_bytes(tree, spec_tree, mesh) -> float:
 
 
 def _mem_stats(args, in_specs, out, out_specs, donate, mesh,
-               placed) -> dict:
+               placed, temp: Optional[float] = None) -> dict:
     arg = sum(_per_device_bytes(a, s, mesh) for a, s in zip(args, in_specs))
     alias = sum(_per_device_bytes(args[i], in_specs[i], mesh)
                 for i in donate)
     outb = sum(_per_device_bytes(o, s, mesh)
                for o, s in zip(out, out_specs))
-    peak = arg + outb - alias
+    peak = arg + outb - alias + (temp or 0.0)
     return {
         "argument_bytes": arg,
         "output_bytes": outb,
         "alias_bytes": alias,
-        "temp_bytes": None,
+        "temp_bytes": temp,
         "temp_reason": (
-            "a device's temporaries (the gathered compute copy, the whole "
-            "gradients, the activations): meta tensors allocate nothing"
+            "the step's high-water mark of the bf16 blocks gathered at "
+            "their use sites (repro_torch.distributed.fsdp's Meter), "
+            "nothing else: the activations, the gradient buffers and "
+            "every other temporary are not counted (meta tensors "
+            "allocate nothing)"
             if placed else
             "the partitioned program's temporaries: the port runs this "
             "cell's unpartitioned program (ROADMAP A13)"),
         "peak_bytes": peak,
         "hbm_fraction": peak / HBM_BYTES,
         "exact": ["argument_bytes", "output_bytes", "alias_bytes"],
-        "lower_bounds": ["peak_bytes", "hbm_fraction"],
+        "lower_bounds": ["peak_bytes", "hbm_fraction"]
+        + (["temp_bytes"] if placed else []),
     }
 
 
@@ -261,9 +271,12 @@ def _run(cfg, shape_name, mesh, *, moe_impl, grad_accum, qcache, dp_only,
         cfg, shape_name, mesh, moe_impl=moe_impl, grad_accum=grad_accum,
         qcache=qcache, dp_only=dp_only)
     placed = not isinstance(mesh, LogicalMesh)
-    out, cost = count(fn, args, records, axes_of(mesh) if placed else None)
+    with metered() as meter:
+        out, cost = count(fn, args, records,
+                          axes_of(mesh) if placed else None)
     return cost, _mem_stats(args, in_sp, out, out_sp, donate,
-                            logical(mesh) if placed else mesh, placed)
+                            logical(mesh) if placed else mesh, placed,
+                            float(meter.peak) if placed else None)
 
 
 def _cost_dict(cost: RL.CellCost, per: int) -> dict:
@@ -439,7 +452,9 @@ def _print_cell(r: dict) -> None:
         return
     mem = r["memory"]
     t = r["roofline"]
-    print(f"{tag}: OK meta={r['run_s']:.1f}s "
+    temp = ("" if mem["temp_bytes"] is None
+            else f"gathered={mem['temp_bytes'] / 1e9:.3f}GB ")
+    print(f"{tag}: OK meta={r['run_s']:.1f}s {temp}"
           f"hbm>={mem['hbm_fraction'] * 100:.1f}% (H100) | "
           f"compute={t['compute_s'] * 1e3:.2f}ms "
           f"memory={t['memory_s'] * 1e3:.2f}ms "

@@ -38,6 +38,15 @@ activations, build the decode cache split by ``cache_specs``
 (:func:`placed_cache`), and every rank takes the whole logits' greedy
 ids.  The int8 cache and the deferred decode are not placed.
 
+A placed training step hands :func:`loss_fn` each rank's f32 blocks
+(a stacked leaf as its layers' blocks) and the model reaches every
+weight through :func:`repro_torch.distributed.fsdp.use` where it uses it:
+a layer's blocks at the top of the function remat checkpoints (so its
+recomputation gathers them again), the embedding at the lookup, the meta
+tokens, the final norm, the head once before the CE chunks
+(:func:`head_weight`; a tied embedding gathered again there).  Without
+the step's plan installed the hook returns its input.
+
 :func:`loss_fn` also runs a rank's plain blocks of a tree split on the
 model axis, under a training step's installed model axis
 (:mod:`repro_torch.distributed.tensor_parallel`): the embedding looks up
@@ -58,6 +67,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed import ctx as CTX
+from repro_torch.distributed import fsdp as FS
 from repro_torch.distributed import sharding as SH
 from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.models import layers as L
@@ -593,7 +603,7 @@ def _block_decode(cfg: ModelConfig, h, lp, window: int, cache, i: int,
 def embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor
                  ) -> torch.Tensor:
     """tokens: (B, S) int, or (B, S, Kcb) for multi-codebook audio."""
-    emb = params["embed"]  # (Kcb, Vp, D)
+    emb = FS.use(params["embed"])  # (Kcb, Vp, D)
     Vp = cfg.padded_vocab
     if cfg.num_codebooks == 1:
         h = L.embed_rows(emb[0], tokens, Vp)
@@ -607,14 +617,20 @@ def embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor
     return h
 
 
+def head_weight(cfg: ModelConfig, params) -> torch.Tensor:
+    """The LM head (Kcb, D, Vp) at its use site: the tied embedding
+    transposed (a second use of the embedding, gathered again: its
+    gradient is the sum of both uses' reductions), or the head."""
+    if cfg.tie_embeddings:
+        return FS.use(params["embed"]).transpose(1, 2)
+    return L.dense_w(FS.use(params["head"]))
+
+
 def lm_logits(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:
     """h: (B, S, D) -> logits (B, S, Kcb, Vp) float32."""
-    h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
-    if cfg.tie_embeddings:
-        w = params["embed"].transpose(1, 2)  # (Kcb, D, Vp)
-    else:
-        w = L.dense_w(params["head"])
-    logits = torch.einsum("bsd,kdv->bskv", h, w).float()
+    h = L.rms_norm(h, FS.use(params["final_norm"]), cfg.norm_eps)
+    logits = torch.einsum("bsd,kdv->bskv", h, head_weight(cfg, params)
+                          ).float()
     if cfg.final_logit_softcap:
         logits = L.softcap(logits, cfg.final_logit_softcap)
     return logits
@@ -628,7 +644,7 @@ def _frontend(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
         vis = batch["patch_embeds"].to(h.dtype)  # (B, Nv, D) — STUB input
         h = torch.cat([vis, h], dim=1)
     if cfg.num_meta_tokens:
-        meta = params["meta"][None].expand(B, -1, -1).to(h.dtype)
+        meta = FS.use(params["meta"])[None].expand(B, -1, -1).to(h.dtype)
         h = torch.cat([meta, h], dim=1)
     return h
 
@@ -647,7 +663,7 @@ def _hidden(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
     positions = torch.arange(h.shape[1], device=h.device)
     for i, window in enumerate(_layer_windows(cfg)):
         def block(h, lp, window=window):
-            return _block_prefill(cfg, h, lp, window, positions,
+            return _block_prefill(cfg, h, FS.use_tree(lp), window, positions,
                                   moe_impl=moe_impl, collect_cache=False)[0]
 
         lp = _layer(params["layers"], i)
@@ -667,7 +683,7 @@ def forward_hidden(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
                    remat: bool = False) -> torch.Tensor:
     """Final-normed hidden states (B, S_total, D): no logits projection."""
     return L.rms_norm(_hidden(cfg, params, batch, moe_impl, remat),
-                      params["final_norm"], cfg.norm_eps)
+                      FS.use(params["final_norm"]), cfg.norm_eps)
 
 
 CE_CHUNK = 512  # sequence-chunked cross entropy (keeps logits off HBM)
@@ -684,11 +700,10 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
     ``loss``, ``nll``, ``accuracy``), as the reference's."""
     hidden = forward_hidden(cfg, params, batch, moe_impl=moe_impl,
                             remat=remat)
-    if cfg.tie_embeddings:
-        w = params["embed"].transpose(1, 2)  # (Kcb, D, Vp)
-    else:
-        w = L.dense_w(params["head"])
-    return head_loss(cfg, hidden, w, batch["labels"], z_loss)
+    # Gathered once, outside the CE chunks' checkpoints: a chunk's
+    # recomputation reads it again without gathering it.
+    return head_loss(cfg, hidden, head_weight(cfg, params), batch["labels"],
+                     z_loss)
 
 
 def head_loss(cfg: ModelConfig, hidden: torch.Tensor, w: torch.Tensor,

@@ -7,8 +7,9 @@ through the mixed-precision cast, and takes the gradients with
 ``torch.autograd.grad``.  Activation remat over the blocks, microbatched
 gradient accumulation, int8 error-feedback gradient compression, a
 ``TrainState`` of plain trees that checkpoints leaf for leaf as the
-reference's does, and ZeRO data parallelism, with tensor parallelism over
-a model axis, on a state placed across ranks (:func:`make_train_step`).
+reference's does, and ZeRO data parallelism (each weight gathered and
+each gradient reduced at its use), with tensor parallelism over a model
+axis, on a state placed across ranks (:func:`make_train_step`).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch.distributed import fsdp as FS
 from repro_torch.distributed import sharding as SH
 from repro_torch.distributed.compression import (CompressionState,
                                                  compress_grads)
@@ -91,20 +93,31 @@ def make_train_step(
     **A placed state** (``DTensor`` leaves on a mesh of more than one
     device, :func:`repro_torch.distributed.sharding.place_state`) trains
     as ZeRO data parallelism, each rank on its own rows of the batch (a
-    batch leaf placed ``Shard(0)`` gives its local rows): each rank casts
-    its blocks to ``compute_dtype``, gathers the copy whole
-    (:func:`~repro_torch.distributed.sharding.gather_block`), runs forward
-    and backward on plain tensors, and sums the f32 gradients over the
-    ranks into its blocks
+    batch leaf placed ``Shard(0)`` gives its local rows), in the
+    reference's ZeRO-2/FSDP layout (:mod:`repro_torch.distributed.fsdp`):
+    the model reads each rank's f32 blocks, and each weight is cast to
+    ``compute_dtype`` and gathered where a layer uses it (a layer's
+    blocks inside the function remat checkpoints, so its recomputation
+    gathers them again; the embedding at the lookup and again as a tied
+    head; the head once, outside the CE chunks), its gradient summed in
+    f32 over the ranks into the rank's block as the backward makes it
     (:func:`~repro_torch.distributed.sharding.scatter_sum`: a
-    reduce-scatter over each mesh dim a leaf is split on, an all-reduce
-    over the others), divided by the data-parallel size; the replicated
-    leaves' gradients go in one all-reduce, the loss and metrics in
-    another, and AdamW updates each rank's blocks
+    reduce-scatter over each data mesh dim the leaf is split on, an
+    all-reduce over the others) and added into the rank's f32 buffer;
+    no rank holds the whole compute copy or the whole f32 gradients.  A
+    stacked leaf split on its layer dim (no layer has a block of its own)
+    is gathered whole once a micro-batch.  Leaves whole over the data
+    axes go in one all-reduce after the backward, the loss and metrics in
+    another; the sums are divided by the data-parallel size and AdamW
+    updates each rank's blocks
     (:meth:`~repro_torch.training.optim.AdamW.update`).  With
-    ``grad_accum`` each rank gathers once and reduces once.  The data
-    axes are the mesh axis names ``dp_axes`` (the sharding context's,
-    :func:`repro_torch.distributed.ctx.get_ctx`, where None).
+    ``grad_accum`` each micro-batch gathers and reduces again, and the
+    rank's f32 blocks are summed over them, as the reference's
+    constrained ``g`` and ``g_acc`` are.  With ``remat=False`` autograd
+    keeps every gathered block for the backward: only the gradients are
+    per use then.  The data axes are the mesh axis names ``dp_axes`` (the
+    sharding context's, :func:`repro_torch.distributed.ctx.get_ctx`,
+    where None).
 
     **Tensor parallelism.**  A mesh may have one more axis, the model
     axis, on which leaves are split as ``param_specs`` splits them
@@ -130,21 +143,29 @@ def make_train_step(
 
     ``zero_specs`` (a tree of partitions matching params, the launch
     cell's) names the data-sharded layout of the compute copy and the
-    gradients, as the reference's ZeRO-2/FSDP constraints do: layout
-    hints that return their input, by
+    gradients, as the reference's ZeRO-2/FSDP constraints do; on an
+    unplaced state they are layout hints that return their input, by
     :func:`repro_torch.distributed.ctx.hint`'s rule.  A placed step takes
-    its layout from the state's placements."""
+    its layout from the state's placements and runs it per use, as
+    above."""
 
     def _constrain(tree):
         if zero_specs is None:
             return tree
         return spec_map(lambda spec, x: hint(x, *spec), zero_specs, tree)
 
-    def cast_leaf(p):
+    def dtype_of(p):
+        """The dtype a leaf computes in: ``compute_dtype`` for an f32
+        leaf of 2 or more dims (a stacked leaf's dims), None (as it is)
+        for the rest."""
         if (compute_dtype is not None and p.dtype == torch.float32
                 and p.ndim >= 2):
-            return p.to(compute_dtype)
-        return p
+            return compute_dtype
+        return None
+
+    def cast_leaf(p):
+        dtype = dtype_of(p)
+        return p if dtype is None else p.to(dtype)
 
     def cast(params):
         if compute_dtype is None:
@@ -171,12 +192,7 @@ def make_train_step(
                                   device=p.device), params)
         l_sum = 0.0
         for i in range(grad_accum):
-            def micro(x):
-                b = x.shape[0] // grad_accum
-                return x[i * b:(i + 1) * b]
-
-            loss, _, g = value_and_grad(
-                params, {k: micro(v) for k, v in batch.items()})
+            loss, _, g = value_and_grad(params, _micro(batch, i, grad_accum))
             g_sum = pytree.tree_map(torch.add, g_sum, g)
             l_sum = l_sum + loss
         grads = pytree.tree_map(lambda g: g / grad_accum, g_sum)
@@ -185,38 +201,44 @@ def make_train_step(
 
     def zero_grads(params, batch):
         """The ZeRO half of a placed step: (metrics averaged over the
-        data ranks, gradients placed as ``params``)."""
+        data ranks, gradients placed as ``params``), each weight gathered
+        at its use and each gradient reduced as the backward makes it
+        (:class:`repro_torch.distributed.fsdp.Plan`)."""
         mesh, dims, tp = _zero_layout(
             cfg, params, get_ctx().dp_axes if dp_axes is None else dp_axes)
-        flat, structure = pytree.flatten(params)
+        flat_paths, structure = pytree.flatten_with_path(params)
+        flat = [p for _, p in flat_paths]
         dp = math.prod(mesh.size(i) for i in dims)
         batch = {k: SH.local_block(v) for k, v in batch.items()}
-        whole = [SH.gather_block(cast_leaf(p.to_local()), mesh,
-                                 p.placements, _split(p, dims))
-                 for p in flat]
-        with tensor_parallel(*tp):
-            _, metrics, grads = compute_grads(
-                pytree.unflatten(structure, whole), batch)
-        del whole
-        grads = pytree.leaves(grads)
+        plan = FS.Plan(flat, ["/".join(map(str, q)) for q, _ in flat_paths],
+                       mesh, dims, [dtype_of(p) for p in flat])
+        grads = plan.grads  # the rank's f32 blocks, summed over micro-batches
+        l_sum = 0.0
+        with tensor_parallel(*tp), FS.installed(plan):
+            for i in range(grad_accum):
+                with torch.enable_grad():
+                    loss, metrics = T.loss_fn(
+                        cfg, pytree.unflatten(structure, plan.tree()),
+                        _micro(batch, i, grad_accum),
+                        moe_impl=moe_impl, remat=remat, z_loss=z_loss)
+                    loss.backward()
+                l_sum = l_sum + loss.detach()
+        del plan
+        if grad_accum > 1:
+            metrics = {"loss": l_sum / grad_accum}
         # Leaves whole over the data axes: one all-reduce for all of them.
         rep = [i for i, p in enumerate(flat) if not _split(p, dims)]
         if rep:
             buf = SH.all_reduce_dims(torch.cat(
-                [grads[i].float().reshape(-1) for i in rep]), mesh, dims)
+                [grads[i].reshape(-1) for i in rep]), mesh, dims)
             for i, g in zip(rep, buf.split([grads[i].numel()
                                             for i in rep])):
                 grads[i] = g.view(grads[i].shape)
-        out = []
-        for i, p in enumerate(flat):
-            g = grads[i].float()
-            grads[i] = None  # each whole gradient freed once reduced
-            if i not in rep:
-                g = SH.scatter_sum(g, mesh, p.placements, dims)
-            out.append(SH.like_placed(p, g / dp))
+        out = [SH.like_placed(p, g.div_(grad_accum * dp))
+               for p, g in zip(flat, grads)]
         names = list(metrics)
         avg = SH.all_reduce_dims(torch.stack(
-            [metrics[k].float() for k in names]), mesh, dims) / dp
+            [metrics[k].detach().float() for k in names]), mesh, dims) / dp
         return (dict(zip(names, avg.unbind())),
                 pytree.unflatten(structure, out))
 
@@ -236,6 +258,12 @@ def make_train_step(
         return TrainState(params, opt, comp), metrics
 
     return train_step
+
+
+def _micro(batch: dict, i: int, n: int) -> dict:
+    """Micro-slice ``i`` of ``n`` of every batch leaf's rows."""
+    b = next(iter(batch.values())).shape[0] // n
+    return {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
 
 
 def _placed(params: PyTree) -> bool:

@@ -284,9 +284,15 @@ def test_run_cell_on_meta(arch, shape):
         assert t["collective_s"] == 0.0
     assert t["bound_s"] == max(t["compute_s"], t["memory_s"],
                                t["collective_s"])
-    assert mem["temp_bytes"] is None and mem["argument_bytes"] > 0
+    assert mem["argument_bytes"] > 0
+    if r["placed"]:  # the step's gathered high-water mark, a lower bound
+        assert mem["temp_bytes"] > 0 and "temp_bytes" in mem["lower_bounds"]
+        assert "gathered" in mem["temp_reason"]
+    else:
+        assert mem["temp_bytes"] is None
     assert mem["peak_bytes"] == (mem["argument_bytes"] + mem["output_bytes"]
-                                 - mem["alias_bytes"])
+                                 - mem["alias_bytes"]
+                                 + (mem["temp_bytes"] or 0))
     np.testing.assert_allclose(t["model_flops"],
                                JRL.model_flops(jget(arch), shape))
 
@@ -401,29 +407,46 @@ def test_zero_specs_refuse_a_state_placed_across_devices():
     assert not dist.is_initialized()
 
 
+def _gathers(path, spec, cfg) -> int:
+    """How often a step gathers a leaf split over the data axes, a
+    micro-batch: a layer's block twice (the forward and remat's
+    recomputation), a stacked leaf split on its layer dim once (gathered
+    whole before the layers), a tied embedding twice (the lookup and the
+    head), any other leaf once."""
+    if path[0] == "layers":
+        return 1 if spec[0] is not None else 2
+    return 2 if path[0] == "embed" and cfg.tie_embeddings else 1
+
+
 def _zero_wire_bytes(arch):
     """The pure data-parallel train cell's wire bytes a device by kind,
     from its spec trees on the 16 x 16 mesh and the ring formulas: each
-    f32 matrix's bf16 copy gathered over the devices that split it and its
-    f32 gradient reduce-scattered over them, each block all-reduced over
-    every mesh axis that does not split it; then the loss's metrics and
-    the gradient norm's sum of squares, all-reduced over each axis."""
+    f32 matrix's bf16 copy gathered over the devices that split it at each
+    use (:func:`_gathers`) and its f32 gradient reduce-scattered over them
+    as often, each block all-reduced over every mesh axis that does not
+    split it; then the loss's metrics and the gradient norm's sum of
+    squares, all-reduced over each axis."""
     cfg = get_config(arch)
     _, args, in_specs, _, _ = ST.build_cell(cfg, "train_4k", MESH)
     out = {k: 0.0 for k in RL.KINDS}
     state, specs = args[0].params, in_specs[0].params
-    for spec, leaf in zip(pytree.flatten(specs, is_leaf=lambda x: type(x)
-                                         is tuple)[0], pytree.leaves(state)):
+    for spec, (path, leaf) in zip(
+            pytree.flatten(specs, is_leaf=lambda x: type(x) is tuple)[0],
+            pytree.flatten_with_path(state)[0]):
         n = SH._divisor(spec, MESH)
         used = {a for e in spec if e for a in (e if isinstance(e, tuple)
                                                else (e,))}
         cast = leaf.dtype == torch.float32 and leaf.dim() >= 2
-        out["all-gather"] += (n - 1) / n * (2 if cast else 4) * leaf.numel()
-        out["reduce-scatter"] += (n - 1) / n * 4 * leaf.numel()
+        uses = _gathers(path, spec, cfg) if n > 1 else 1
+        reduced = 1 if path[0] == "layers" else uses
+        out["all-gather"] += (uses * (n - 1) / n * (2 if cast else 4)
+                              * leaf.numel())
+        out["reduce-scatter"] += reduced * (n - 1) / n * 4 * leaf.numel()
         for a in MESH.axis_names:
             if a not in used:
                 m = MESH.shape[a]
-                out["all-reduce"] += 2 * (m - 1) / m * 4 * leaf.numel() / n
+                out["all-reduce"] += (reduced * 2 * (m - 1) / m * 4
+                                      * leaf.numel() / n)
     small = get_config(arch, reduced=True)
     batch = {k: torch.zeros((1, 8), dtype=torch.int32)
              for k in ("tokens", "labels")}
@@ -438,11 +461,16 @@ def _zero_wire_bytes(arch):
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mamba2-780m"])
 def test_pure_dp_cell_prices_its_collectives(arch):
     """The pure data-parallel train cell runs one device's ZeRO step on
-    the fake 16 x 16 mesh: wire bytes by kind equal the spec trees'
-    formula (about 6 x 255/256 bytes a parameter), ``collective_s`` is
-    them over NVLink's rate, FLOPs a device equal the whole program's over
-    256, and a device reads whole weights for its one row, so its bytes
-    exceed the whole program's over 256.  No process group is left."""
+    the fake 16 x 16 mesh, each weight gathered at its use: wire bytes by
+    kind equal the spec trees' formula (about 255/256 of 6 bytes a
+    parameter, 2 more a layer parameter, remat's regather, and 6 more a
+    parameter of a tied embedding, its second use),
+    ``collective_s`` is them over NVLink's rate, FLOPs a device equal the
+    whole program's over 256, and a device reads whole weights for its one
+    row, so its bytes exceed the whole program's over 256.  Its
+    ``temp_bytes``, the gathered high-water mark, is at least a layer's
+    bf16 blocks and less than the whole bf16 copy.  No process group is
+    left."""
     r = DR.run_cell(arch, "train_4k", probe=False, verbose=False)
     assert not dist.is_initialized()
     assert r["status"] == "OK" and r["placed"], r.get("error")
@@ -453,8 +481,15 @@ def test_pure_dp_cell_prices_its_collectives(arch):
     for kind in RL.KINDS:
         assert got[kind] == pytest.approx(want[kind], rel=1e-9, abs=0), kind
     total = sum(want.values())
-    params = get_config(arch).param_count()
-    assert total == pytest.approx(6 * 255 / 256 * params, rel=2e-3)
+    cfg = get_config(arch)
+    params = cfg.param_count()
+    abstract = TT.abstract_params(cfg)
+    layer = sum(p.numel() for p in pytree.leaves(abstract["layers"]))
+    tied = abstract["embed"].numel() if cfg.tie_embeddings else 0
+    assert total == pytest.approx(
+        255 / 256 * (6 * params + 2 * layer + 6 * tied), rel=2e-3)
+    temp = r["memory"]["temp_bytes"]
+    assert 2 * layer / cfg.num_layers <= temp < 2 * params
     assert r["cost"]["coll_bytes_per_device"] == pytest.approx(total,
                                                                 rel=1e-9)
     assert r["roofline"]["collective_s"] == pytest.approx(
@@ -538,6 +573,27 @@ def _tp_collective_counts(cfg):
             A * cfg.num_layers * per_layer_ag)
 
 
+def _data_axis_counts(cfg, pspecs, A) -> tuple:
+    """(all-gathers, reduce-scatters) on the data axis of a placed
+    tensor-parallel step of ``A`` micro-batches, from the spec tree of its
+    params: each use of a leaf split over "data" (:func:`_gathers`) one
+    all-gather a micro-batch, each layer's block one reduce-scatter, and
+    every other leaf one for each use."""
+    ag = rs = 0
+    for spec, (path, leaf) in zip(
+            pytree.flatten(pspecs, is_leaf=lambda x: type(x) is tuple)[0],
+            pytree.flatten_with_path(TT.abstract_params(cfg))[0]):
+        if not any(e == "data" or isinstance(e, tuple) and "data" in e
+                   for e in spec):
+            continue
+        uses = _gathers(path, spec, cfg)
+        pieces = (cfg.num_layers if path[0] == "layers" and spec[0] is None
+                  else 1)
+        ag += A * pieces * uses
+        rs += A * pieces * (1 if path[0] == "layers" else uses)
+    return ag, rs
+
+
 def _hold_tp_cell(arch, moe_impl, monkeypatch):
     """Rank 0's placed step of ``arch``'s ``train_4k`` cell at
     ``TP_CELL_LAYERS`` (the full cell's mapping and micro-batching) with
@@ -568,10 +624,11 @@ def _hold_tp_cell(arch, moe_impl, monkeypatch):
     assert not [row for row in r["collectives"] if row["axis"] == "model"
                 and row["kind"] == "all-gather"
                 and local_vocab in row["shape"]]
-    params = TT.abstract_params(cfg, torch.float32)
-    matrices = sum(p.dim() >= 2 for p in pytree.leaves(params))
-    assert n[("all-gather", "data")] == n[("reduce-scatter", "data")]
-    assert 0 < n[("reduce-scatter", "data")] <= matrices
+    A = DR.pick_grad_accum(full, "train_4k", LM.make_production_mesh())
+    assert (n[("all-gather", "data")], n[("reduce-scatter", "data")]) == (
+        _data_axis_counts(cfg, ST.build_cell(
+            cfg, "train_4k", MESH, moe_impl=moe_impl, dp_only=False)[2][0]
+            .params, A))
     assert all(row["dtype"] == ("bfloat16" if row["kind"] == "all-gather"
                                 else "float32")
                for row in r["collectives"] if row["axis"] == "data"
@@ -597,8 +654,8 @@ def test_tp_train_cell_prices_its_collectives(arch, counts, monkeypatch):
     and all-gathers on the model axis (a group of 16) in the numbers the
     layer structure gives, none of them a gather of logits (the cross
     entropy reduces each rank's vocabulary columns), the data axis's
-    all-gathers of the bf16 shards and reduce-scatters of the f32
-    gradients (each weight once, whatever the micro-batching), and
+    all-gathers of the bf16 shards at each use and reduce-scatters of the
+    f32 gradients, in every micro-batch (:func:`_data_axis_counts`), and
     ``collective_s`` their wire bytes over NVLink's rate.  No process
     group is left."""
     assert _tp_collective_counts(get_config(arch)) == counts
@@ -670,8 +727,9 @@ def test_rank_step_counts_a_ranks_collectives():
     :func:`_tp_collective_counts` derives them at A = 1 and one CE chunk
     (2 KV heads split evenly: no k/v gather; the chunk's statistics in
     float32, its argmax index in int64; no gather at all on the model
-    axis), and each data-split leaf gathered in bf16 and its gradient
-    reduce-scattered in f32, once.  No process group is left."""
+    axis), and each data-split leaf gathered in bf16 at each use and its
+    gradient reduce-scattered in f32 (:func:`_data_axis_counts`).  No
+    process group is left."""
     cfg = get_config("yi-6b", reduced=True)
     seq = 16
     cost, records = DR.rank_step(cfg, (2, 2), seq)
@@ -685,8 +743,14 @@ def test_rank_step_counts_a_ranks_collectives():
     assert n.pop(("all-reduce", "bfloat16", "model")) == (
         4 * cfg.num_layers + 2)
     assert ("all-gather", "bfloat16", "model") not in n
-    gathers = n.pop(("all-gather", "bfloat16", "data"))
-    assert gathers == n.pop(("reduce-scatter", "float32", "data")) > 0
+    with LM.fake_mesh((2, 2), ("data", "model")) as mesh:
+        lm = SH.logical(mesh)
+        state = TS.abstract_state(cfg, TO.AdamW())
+        pspecs = SH.state_specs(cfg, state, lm, SH.param_specs(
+            cfg, state.params, lm)).params
+    assert (n.pop(("all-gather", "bfloat16", "data")),
+            n.pop(("reduce-scatter", "float32", "data"))) == (
+        _data_axis_counts(cfg, pspecs, 1))
     # the CE chunk's six; the gradient norm's squares over each axis; the
     # loss and metrics
     assert n.pop(("all-reduce", "float32", "model")) == 6 + 1

@@ -52,7 +52,11 @@ Held, from the reference's weights (``params_from_numpy``), as
   rank's experts without a slot (both seen in the ranks' routing);
 - ``compression=True`` on the (data 2, model 2) state of yi-6b: steps 1
   and 2 and the error accumulator against the reference's one-device
-  compressed step.
+  compressed step;
+- the per-use form on (data 2, model 2): yi-6b at 4 layers, its data
+  axis's gathers and reduce-scatters in order and its gathered bytes
+  within two use sites (``test_torch_zero.USES``), and ``UseSite``'s
+  gradient with the model-axis split kept local.
 """
 import dataclasses
 import os
@@ -80,8 +84,9 @@ from repro_torch.training import train_step as TS
 from test_torch_training import (BF16_REL_L2, LR, STEP_BOUND, Z, hold,
                                  ill_conditioned, make_batch, np_tree,
                                  step_grads)
-from test_torch_zero import (_flat_np, _hold_step, _jstate, _leaves,
-                             _port_inputs)
+from test_torch_zero import (USE_LAYERS, USES, _flat_np, _hold_step,
+                             _jstate, _leaves, _port_inputs, hold_high_water,
+                             hold_use_order, use_events)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 YI, OLMOE, SCOUT = "yi-6b", "olmoe-1b-7b", "llama4-scout-17b-a16e"
@@ -91,7 +96,7 @@ WORLDS = {
     "model2": ((2,), ("model",), ARCHS,
                ("train", "bf16", "gaps", "ce", "moe")),
     "data2model2": ((2, 2), ("data", "model"), (YI, OLMOE),
-                    ("train", "save", "norm", "moe", "comp")),
+                    ("train", "save", "norm", "moe", "comp", "uses")),
     "model4": ((4,), ("model",), (SCOUT, OLMOE, YI), ("train", "ce", "moe")),
 }
 RUNS = [(w, a) for w, (_, _, archs, _) in WORLDS.items() for a in archs]
@@ -108,6 +113,8 @@ OVER_TOKEN = 7
 OVER_RUNS = [(w, a, i) for w, a, i in MOE_RUNS
              if w != "data2model2" or i == "local"]
 COMP_ARCH = YI
+# The per-use record (``test_torch_zero.USES``) on (data 2, model 2).
+USE_ARCH = YI
 B, S = 4, 16
 CKPT_ARCH = YI
 GAP_ARCHS = ("mamba2-780m", "hymba-1.5b")
@@ -386,8 +393,30 @@ CHILD = textwrap.dedent("""
         ops.flash_attention = call
         return seen
 
+    def uses(root, mesh, out):
+        # USE_ARCH at USE_LAYERS layers by param_specs and ZeRO-1 from seed
+        # 0, each data rank on its rows of a batch from seed 1; UseSite's
+        # gradient over the data axis, the model-axis split kept.
+        import dataclasses
+        from repro_torch.configs import get_config
+        from repro_torch.training import optim
+        from repro_torch.training import train_step as TS
+
+        cfg = dataclasses.replace(get_config(USE_ARCH, reduced=True),
+                                  num_layers=USE_LAYERS)
+        state = TS.init_state(cfg, 0, optim.AdamW(lr=1e-3), device="cpu")
+        g = torch.Generator().manual_seed(1)
+        batch = {k: torch.randint(0, cfg.vocab_size, (4, 16), generator=g)
+                 for k in ("tokens", "labels")}
+        d = mesh.mesh_dim_names.index("data")
+        r = mesh.get_coordinate()[d]
+        record_uses(USE_ARCH, cfg, state, specs(cfg, state, mesh), mesh,
+                    {k: v[2 * r:2 * r + 2] for k, v in batch.items()},
+                    ("data",), out)
+        use_site_grad(dist.get_rank(), mesh, [d], out)
+
     JOBS = {"train": train, "bf16": bf16, "gaps": gaps, "norm": norm,
-            "ce": ce, "moe": moe, "comp": comp}
+            "ce": ce, "moe": moe, "comp": comp, "uses": uses}
     JOBS_RUN = ()
     ARCHS_RUN = ()
     ARCH_NOW = [None]
@@ -437,8 +466,10 @@ CHILD = textwrap.dedent("""
         mp.start_processes(run, args=(root, shape, names, archs, jobs),
                            nprocs=int(np.prod(shape)), start_method="fork")
 """)
+CHILD = CHILD.replace('\nif __name__ == "__main__":',
+                      USES + '\nif __name__ == "__main__":')
 for _name in ("CKPT_ARCH", "GAP_ARCHS", "CE_CASES", "MOE_ARCHS",
-              "MOE_IMPLS", "COMP_ARCH"):
+              "MOE_IMPLS", "COMP_ARCH", "USE_ARCH", "USE_LAYERS"):
     CHILD = CHILD.replace(_name, repr(globals()[_name]))
 
 # The reference's ``local`` MoE steps on (data 2, model 2): jitted on a
@@ -993,3 +1024,28 @@ def test_tp_train_gaps_name_uneven_splits():
     olmoe = tget(OLMOE, reduced=True)  # 8 experts
     assert "8 experts over 16 ranks" in TT.tp_train_gaps(olmoe, 16)
     assert TT.tp_train_gaps(tget("musicgen-large"), 16)[0] == "4 codebooks"
+
+
+def test_tp_use_sites_gather_and_reduce_in_order(runs):
+    """On (data 2, model 2), yi-6b at USE_LAYERS layers: the data axis's
+    gathers and reduce-scatters per use, interleaved with the model
+    axis's collectives, in ``test_torch_zero.hold_use_order``'s order."""
+    hold_use_order(use_events(runs[0]["data2model2"], USE_ARCH), USE_LAYERS)
+
+
+def test_tp_use_sites_high_water(runs):
+    """The gathered bytes alive at once on (data 2, model 2): at most the
+    two largest use sites of a rank's model-axis shard."""
+    hold_high_water(runs[0]["data2model2"], USE_ARCH,
+                    f"{USE_ARCH} (data 2, model 2)")
+
+
+def test_tp_use_site_gradient_is_the_f32_scatter_sum(runs):
+    """``UseSite`` on an f32 block split on its rows over the data axis
+    and on its columns over the model axis: the model-axis split stays
+    local (the rank's columns, gathered over the data axis only), and the
+    gradient is ``scatter_sum``'s f32 block over the data axis."""
+    got = runs[0]["data2model2"]
+    assert str(got["grad/dtype"]) == "torch.float32"
+    assert got["grad/equal"] and got["grad/forward"]
+    assert [tuple(s) for s in got["grad/shapes"]] == [(8, 4), (16, 4)]

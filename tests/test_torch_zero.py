@@ -32,6 +32,14 @@ from the reference's weights, each rank on its own rows of an 8-row batch:
 Also a bf16 compute copy (tinyllama, 2 ranks) at 3e-2 relative l2, and
 the 4-rank ZeRO state saved with ``checkpoint.save``, restored onto one
 process and onto the 2-rank mesh, bit-equal.
+
+The per-use form (``repro_torch.distributed.fsdp``), in both worlds: one
+bf16 step of tinyllama-1.1b and gemma2-2b (tied embedding) at 4 layers
+with ``UseSite`` wrapped in the child (:data:`USES`): each layer's
+reduce-scatters before the regather of the layer below it, the gathered
+bytes alive at once at most the two largest use sites (the whole copy's
+printed beside), and ``UseSite``'s gradient f32 and equal to
+``scatter_sum`` of the gathered gradient.
 """
 import os
 import subprocess
@@ -64,6 +72,107 @@ ARCHS = ("tinyllama-1.1b", "gemma2-2b", "mamba2-780m", "hymba-1.5b",
 WORLDS = (2, 4)
 B, S = 8, 16
 CKPT_ARCH = "tinyllama-1.1b"
+# The per-use record's configs: an untied head, and a tied embedding (its
+# two use sites), both cut or grown to USE_LAYERS.
+USE_ARCHS = ("tinyllama-1.1b", "gemma2-2b")
+USE_LAYERS = 4
+# Placed with its (L, heads) vectors split on the layer dim over the data
+# axes, which full-width mamba2 gets from zero1_specs (48 x 48: the largest
+# divisible dim ties and the first wins) and the reduced configs never do.
+STACKED_ARCH = "mamba2-780m"
+
+# The per-use form's record (a child's job, shared with
+# tests/test_torch_tp_train.py): one placed bf16 step of ``cfg`` with remat,
+# ``UseSite`` wrapped to log each data-axis gather (its group, leaf and
+# bytes) and reduce-scatter in order and to follow the gathered bytes alive
+# (a ``weakref.finalize`` on each output); and ``UseSite``'s gradient of
+# a (16, 8) f32 leaf split on its rows over ``dims`` (and on its columns
+# over the model axis where the mesh has one) against ``scatter_sum`` of
+# the gathered gradient.
+USES = textwrap.dedent("""
+    def record_uses(key, cfg, state, sspecs, mesh, batch, dp_axes, out):
+        import math
+        import weakref
+        from repro_torch.distributed import fsdp as FS
+        from repro_torch.distributed import sharding as SH
+        from repro_torch.training import optim, pytree
+        from repro_torch.training import train_step as TS
+
+        events, live, peak = [], [0], [0]
+        fwd, bwd = FS.UseSite.forward, FS.UseSite.backward
+
+        def freed(n):
+            live[0] -= n
+
+        def forward(ctx, local, site):
+            y = fwd(ctx, local, site)
+            if site.gather:
+                n = y.numel() * y.element_size()
+                events.append(("gather", site.group, site.name, n))
+                live[0] += n
+                peak[0] = max(peak[0], live[0])
+                weakref.finalize(y, freed, n)
+            return y
+
+        def backward(ctx, g):
+            if ctx.site.reduce:
+                events.append(("scatter", ctx.site.group, ctx.site.name, 0))
+            return bwd(ctx, g)
+
+        placed = SH.place_state(state, mesh, sspecs)
+        dims = [i for i, n in enumerate(mesh.mesh_dim_names) if n in dp_axes]
+        # The compute copy a rank gathered whole before the per-use form.
+        whole = sum(p.to_local().numel() * (2 if p.dim() >= 2 else 4)
+                    * math.prod(mesh.size(d) for d in dims
+                                if p.placements[d].is_shard())
+                    for p in pytree.leaves(placed.params))
+        FS.UseSite.forward = staticmethod(forward)
+        FS.UseSite.backward = staticmethod(backward)
+        try:
+            with FS.metered() as meter:
+                TS.make_train_step(cfg, optim.AdamW(lr=1e-3),
+                                   dp_axes=dp_axes)(placed, batch)
+        finally:
+            FS.UseSite.forward, FS.UseSite.backward = fwd, bwd
+        out[f"uses/{key}/events"] = np.array(
+            [f"{k}|{g}|{n}|{b}" for k, g, n, b in events])
+        out[f"uses/{key}/peak"] = np.array(peak[0])
+        out[f"uses/{key}/meter"] = np.array([meter.peak, meter.bound()])
+        out[f"uses/{key}/whole"] = np.array(whole)
+
+    def use_site_grad(rank, mesh, dims, out):
+        from torch.distributed.tensor import Replicate, Shard
+        from repro_torch.distributed import fsdp as FS
+        from repro_torch.distributed import sharding as SH
+
+        names = mesh.mesh_dim_names
+        whole = torch.randn((16, 8), generator=torch.Generator()
+                            .manual_seed(0))
+        rows = tuple(names[d] for d in dims)
+        spec = (rows if len(rows) > 1 else rows[0],
+                "model" if "model" in names and len(dims) < len(names)
+                else None)
+        placed = SH.place(whole, mesh, spec)
+        local = placed.to_local().clone().requires_grad_()
+        site = FS.Site("w", "w", mesh, placed.placements, tuple(dims),
+                       tuple(dims), torch.bfloat16)
+        y = FS.UseSite.apply(local, site)
+        g = torch.randn(y.shape, generator=torch.Generator().manual_seed(
+            rank + 1)).to(torch.bfloat16)
+        y.backward(g)
+        want = SH.scatter_sum(g.float(), mesh, placed.placements, dims)
+        cols = (SH.redistribute(placed, [Replicate() if i in dims else q
+                                         for i, q in enumerate(
+                                             placed.placements)])
+                .to_local())
+        out["grad/dtype"] = np.array(str(local.grad.dtype))
+        out["grad/equal"] = np.array(bool(torch.equal(local.grad, want)))
+        out["grad/forward"] = np.array(bool(
+            y.dtype == torch.bfloat16
+            and torch.equal(y, cols.to(torch.bfloat16))))
+        out["grad/shapes"] = np.array([tuple(local.shape), tuple(y.shape)])
+""")
+
 
 CHILD = textwrap.dedent("""
     import os, sys, time
@@ -188,7 +297,67 @@ CHILD = textwrap.dedent("""
         from repro_torch.training import pytree
         return pytree.leaves(tree)
 
-    JOBS = {"train": train, "bf16": bf16, "restore": restore}
+    def uses(rank, world, root, mesh, out):
+        # USE_ARCHS at USE_LAYERS layers, from seed 0, each rank on its
+        # rows of a batch from seed 1; UseSite's gradient over every mesh
+        # axis (each a data axis).
+        import dataclasses
+        from repro_torch.configs import get_config
+        from repro_torch.distributed import sharding as SH
+        from repro_torch.training import optim, pytree
+        from repro_torch.training import train_step as TS
+
+        dp = tuple(mesh.mesh_dim_names)
+        for arch in USE_ARCHS:
+            cfg = dataclasses.replace(get_config(arch, reduced=True),
+                                      num_layers=USE_LAYERS)
+            state = TS.init_state(cfg, 0, optim.AdamW(lr=1e-3),
+                                  device="cpu")
+            sspecs = SH.state_specs(cfg, state, SH.logical(mesh),
+                                    pytree.tree_map(
+                                        lambda p: (None,) * p.dim(),
+                                        state.params), dp_axes=dp)
+            g = torch.Generator().manual_seed(1)
+            batch = {k: torch.randint(0, cfg.vocab_size, (8, 16),
+                                      generator=g)
+                     for k in ("tokens", "labels")}
+            n = 8 // world
+            record_uses(arch, cfg, state, sspecs, mesh,
+                        {k: v[rank * n:(rank + 1) * n]
+                         for k, v in batch.items()}, dp, out)
+        # STACKED_ARCH's per-head vectors split on their layer dim (as
+        # full-width mamba2 splits them): gathered whole once a step, and
+        # the step equal to the one on zero1_specs' own layout.
+        cfg = dataclasses.replace(get_config(STACKED_ARCH, reduced=True),
+                                  num_layers=USE_LAYERS)
+        opt = optim.AdamW(lr=1e-3)
+        state = TS.init_state(cfg, 0, opt, device="cpu")
+        sspecs = SH.state_specs(cfg, state, SH.logical(mesh),
+                                pytree.tree_map(lambda p: (None,) * p.dim(),
+                                                state.params), dp_axes=dp)
+        lay = dict(sspecs.params["layers"])
+        for k in ("A_log", "D_skip", "dt_bias"):
+            lay[k] = (dp if len(dp) > 1 else dp[0], None)
+        stacked = SH.state_specs(cfg, state, SH.logical(mesh),
+                                 dict(sspecs.params, layers=lay), dp_axes=dp)
+        g = torch.Generator().manual_seed(1)
+        batch = {k: torch.randint(0, cfg.vocab_size, (8, 16), generator=g)
+                 for k in ("tokens", "labels")}
+        n = 8 // world
+        mine = {k: v[rank * n:(rank + 1) * n] for k, v in batch.items()}
+        key = f"{STACKED_ARCH}/stacked"
+        record_uses(key, cfg, state, stacked, mesh, mine, dp, out)
+        steps = [TS.make_train_step(cfg, opt, dp_axes=dp)(
+            SH.place_state(state, mesh, sp), mine)[0] for sp in (sspecs,
+                                                               stacked)]
+        out[f"uses/{key}/placements"] = np.array(str(
+            steps[1].params["layers"]["A_log"].placements))
+        out[f"uses/{key}/diff"] = np.array(max(
+            float((SH.whole(a) - SH.whole(b)).abs().max())
+            for a, b in zip(*(pytree.leaves(st.params) for st in steps))))
+        use_site_grad(rank, mesh, list(range(mesh.ndim)), out)
+
+    JOBS = {"train": train, "bf16": bf16, "restore": restore, "uses": uses}
     JOBS_RUN = ()
 
     def run(rank, root, world, jobs):
@@ -215,7 +384,13 @@ CHILD = textwrap.dedent("""
         root, world, jobs = sys.argv[1], int(sys.argv[2]), sys.argv[3:]
         mp.start_processes(run, args=(root, world, tuple(jobs)),
                            nprocs=world, start_method="fork")
-""").replace("ARCHS", repr(ARCHS)).replace("CKPT_ARCH", repr(CKPT_ARCH))
+""")
+CHILD = (CHILD.replace('\nif __name__ == "__main__":',
+                       USES + '\nif __name__ == "__main__":')
+         .replace("STACKED_ARCH", repr(STACKED_ARCH))
+         .replace("USE_ARCHS", repr(USE_ARCHS))
+         .replace("USE_LAYERS", repr(USE_LAYERS))
+         .replace("ARCHS", repr(ARCHS)).replace("CKPT_ARCH", repr(CKPT_ARCH)))
 
 
 def _flat_np(tree, prefix=""):
@@ -283,8 +458,8 @@ def runs(tmp_path_factory):
                      **_flat_np(np_tree(params)))
             np.savez(base / f"world{world}" / f"batch-{arch}.npz", **batch)
     procs = {}
-    for world, jobs in ((4, ("train", "save")),
-                        (2, ("train", "bf16", "restore"))):
+    for world, jobs in ((4, ("train", "save", "uses")),
+                        (2, ("train", "bf16", "restore", "uses"))):
         log = open(base / f"world{world}.log", "w")
         procs[world] = (subprocess.Popen(
             [sys.executable, "-c", CHILD, str(base / f"world{world}"),
@@ -420,3 +595,126 @@ def test_zero_checkpoint_restores_bit_equal(runs):
             np.testing.assert_array_equal(a, b)
     assert int(out[2]["restored/step"]) == 2
     assert out[2]["restored/local_equal"]
+
+
+def use_events(got, key):
+    """A child's use-site log: (kind, group, leaf, bytes) in order."""
+    return [(k, g, n, int(b)) for k, g, n, b in
+            (e.split("|") for e in got[f"uses/{key}/events"])]
+
+
+def _layer_of(name):
+    """The layer of a use site's leaf (``layers/<i>/<leaf>``), or None (a
+    leaf of no layer, or a stacked leaf gathered whole, ``layers/<leaf>``)."""
+    parts = name.split("/")
+    return int(parts[1]) if parts[0] == "layers" and parts[1].isdigit() \
+        else None
+
+
+def hold_use_order(events, layers):
+    """Each layer leaf gathered twice (the forward, then remat's
+    recomputation) and reduce-scattered once, every other leaf reduced as
+    often as it is gathered; the layers gathered in order in the forward,
+    and each layer's reduce-scatters all before the recomputation of the
+    layer below it regathers it."""
+    def at(kind, group):
+        return [i for i, (k, g, _, _) in enumerate(events)
+                if k == kind and g == group]
+
+    names = {n for _, _, n, _ in events}
+    for name in names:
+        g = sum(1 for k, _, n, _ in events if k == "gather" and n == name)
+        r = sum(1 for k, _, n, _ in events if k == "scatter" and n == name)
+        assert (g, r) == ((2, 1) if _layer_of(name) is not None else (r, r)
+                          ), (name, g, r)
+    assert {_layer_of(n) for n in names} - {None} == set(range(layers))
+    gathers = [at("gather", f"layers/{i}") for i in range(layers)]
+    forward = [g[:len(g) // 2] for g in gathers]
+    again = [g[len(g) // 2:] for g in gathers]
+    assert sum(forward, []) == sorted(sum(forward, []))
+    for i in range(1, layers):
+        assert max(forward[i - 1]) < min(forward[i]), i
+        assert max(at("scatter", f"layers/{i}")) < min(again[i - 1]), i
+        assert max(again[i]) < min(at("scatter", f"layers/{i}")), i
+
+
+def hold_high_water(got, key, what):
+    """The gathered bytes alive at once: at most the two largest use
+    sites' (a layer's blocks, the embedding, the head), below the whole
+    compute copy a rank gathered before; the port's ``Meter`` agrees."""
+    sizes: dict = {}
+    for kind, group, name, n in use_events(got, key):
+        if kind == "gather":
+            sizes.setdefault(group, {})[name] = n
+    kept = [g for g in sizes if g.startswith("layers/")
+            and _layer_of(g + "/x") is None]
+    top2 = sum(sorted(sum(v.values()) for g, v in sizes.items()
+                      if g not in kept)[-2:])
+    bound = top2 + sum(sum(sizes[g].values()) for g in kept)
+    peak = int(got[f"uses/{key}/peak"])
+    whole = int(got[f"uses/{key}/whole"])
+    print(f"{what}: gathered high-water {peak} B, the two largest use "
+          f"sites {top2} B (and {bound - top2} B gathered for the whole "
+          f"step), the whole compute copy {whole} B")
+    assert 0 < peak <= bound < whole
+    assert list(got[f"uses/{key}/meter"]) == [peak, bound]
+
+
+USE_KEYS = USE_ARCHS + (f"{STACKED_ARCH}/stacked",)
+
+
+@pytest.mark.parametrize("key", USE_KEYS)
+@pytest.mark.parametrize("world", WORLDS)
+def test_use_sites_gather_and_reduce_in_order(runs, world, key):
+    """The placed step's data-axis gathers and reduce-scatters, per use
+    (``repro_torch.distributed.fsdp``), at USE_LAYERS layers: a tied
+    embedding's two use sites each reduced once; a stacked leaf split on
+    its layer dim gathered and reduced once, before the layers and after
+    them."""
+    events = use_events(runs[0][world], key)
+    hold_use_order(events, USE_LAYERS)
+    embed = [k for k, _, n, _ in events if n == "embed"]
+    tied = tget(key.split("/")[0], reduced=True).tie_embeddings
+    assert embed.count("gather") == embed.count("scatter") == 1 + tied
+    stacks = [(k, i) for i, (k, _, n, _) in enumerate(events)
+              if n in ("layers/A_log", "layers/D_skip", "layers/dt_bias")]
+    if key in USE_ARCHS:
+        assert not stacks
+        return
+    layer = [i for i, (*_, n, _) in enumerate(events)
+             if _layer_of(n) is not None]
+    assert sorted(k for k, _ in stacks) == ["gather"] * 3 + ["scatter"] * 3
+    assert all(i < min(layer) if k == "gather" else i > max(layer)
+               for k, i in stacks)
+
+
+@pytest.mark.parametrize("key", USE_KEYS)
+@pytest.mark.parametrize("world", WORLDS)
+def test_use_sites_high_water(runs, world, key):
+    """No rank holds the whole compute copy: the gathered bytes alive at
+    once stay within two use sites (and the stacked leaves gathered for
+    the whole step)."""
+    hold_high_water(runs[0][world], key, f"{key} world {world}")
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_stacked_split_leaves_train_as_their_columns(runs, world):
+    """mamba2's per-head vectors split on their layer dim over the data
+    axes train as on ``zero1_specs``' own layout (split on their heads):
+    every param of the two steps within 3e-5."""
+    got = runs[0][world]
+    key = f"{STACKED_ARCH}/stacked"
+    assert "Shard(dim=0)" in str(got[f"uses/{key}/placements"])
+    assert float(got[f"uses/{key}/diff"]) <= 3e-5
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_use_site_gradient_is_the_f32_scatter_sum(runs, world):
+    """``UseSite`` on an f32 block split over every data axis: forward the
+    bf16 cast gathered whole, backward the f32 block that ``scatter_sum``
+    makes of the ranks' bf16 gradients widened to f32, bit for bit."""
+    got = runs[0][world]
+    assert str(got["grad/dtype"]) == "torch.float32"
+    assert got["grad/equal"] and got["grad/forward"]
+    assert [tuple(s) for s in got["grad/shapes"]] == [(16 // world, 8),
+                                                      (16, 8)]
